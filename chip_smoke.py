@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``mods_tpu_torch``) on one NVIDIA
+GPU.  Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; the exit status is 0 only when all pass):
+
+0. the card: name and power limit (nvidia-smi), torch and CUDA versions;
+1. build every CUDA kernel under ``mods_tpu_torch/csrc`` for sm_90a, one
+   nvcc per source, all started together, and print ptxas's report;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes, and time kernel, plain version and the nearest
+   PyTorch library call (CUDA graphs of repeated calls, CUDA events);
+3. drive the main path, ``make_two_view_step()`` at its default caps, on
+   the zoom2x and rot90 pairs of ``.parity_work`` (1000x598): one warm-up
+   and five timed steps per pair, with every kernel's launch count set
+   to 0 just before and read just after; hold the result against the
+   ground-truth homographies and the JAX package's figures;
+4. run a small pair on the card and on the CPU (the plain versions) and
+   hold the two results against each other;
+5. profile the main path: one ``torch.profiler`` window over three steps
+   per pair giving, per step, the device busy time (the union of kernel
+   intervals) and its idle share of the wall time, kernel launches, host
+   reads of device values, and each stage range's (``mods.detect``,
+   ``mods.orient``, ``mods.describe``, ``mods.match``, ``mods.ransac``)
+   host time, device busy time and launches, and the kernels that take
+   the most device time.
+
+The last lines are the card (nvidia-smi), one JSON line of kernel
+figures and one JSON line ``{"ok": true, "device": {...}}``.  The script
+needs no network and imports nothing of JAX or of ``mods_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PAIRS = ROOT / ".parity_work"
+
+# The JAX package's make_two_view_step() at its default caps on these
+# pairs, on the CPU: (tentatives, inliers).
+JAX_REFERENCE = {"zoom2x": (83, 76), "rot90": (140, 103)}
+TIMED_STEPS = 5
+PROFILED_STEPS = 3
+STAGES = ("mods.detect", "mods.orient", "mods.describe", "mods.match",
+          "mods.ransac")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
+# outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# float32 operations per sample in csrc/window_sampler.cu: coordinates
+# 10, floors 4, fractions and weights 4, bilinear mix 9
+SAMPLER_OPS_PER_SAMPLE = 27
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, reps: int, replays: int = 10) -> float:
+    """Device time of one ``fn()`` call: ``reps`` calls captured in a CUDA
+    graph, replayed ``replays`` times between CUDA events, so the host's
+    launch overhead does not pad the kernel's time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):                 # warm-up outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def _sampler_inputs(K: int, P: int, L: int, H: int, W: int, seed: int):
+    """A smooth (L, H, W) level stack on the card and K keypoints whose
+    sampling matrices fit the (96, 128) windows, as the main path's."""
+    import torch
+    import torch.nn.functional as F
+    from mods_tpu_torch.ops.sampler import prepare_windows, rows_for_patch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    src = torch.rand((L, 1, H, W), generator=g, device="cuda") * 255.0
+    src = F.avg_pool2d(src, 5, stride=1, padding=2)[:, 0].contiguous()
+    xy = torch.rand((K, 2), generator=g, device="cuda") * torch.tensor(
+        [W, H], dtype=torch.float32, device="cuda")
+    th = torch.rand((K,), generator=g, device="cuda") * 6.2832
+    sc = 0.3 + torch.rand((K,), generator=g, device="cuda")
+    c, s = torch.cos(th) * sc, torch.sin(th) * sc
+    A = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+    lvl = torch.randint(0, L, (K,), generator=g, device="cuda")
+    vhw = torch.tensor([[H - 3, W - 5]] * L, dtype=torch.int32,
+                       device="cuda")
+    rows = 96 if P == 19 else rows_for_patch(P)
+    ws = prepare_windows(src, lvl, xy, vhw, rows=rows)
+    return ws, xy, A
+
+
+def _touched_window_bytes(ws, xy, A, P: int) -> int:
+    """Bytes of the distinct window texels that this run's samples
+    interpolate from (the samples left at ``fill`` need none): the least
+    the function must read of the (K, rows, 128) windows."""
+    import torch
+    from mods_tpu_torch.ops import sampler as S
+    K, R, X = ws.windows.shape
+    gx, gy, relx, rely = S._sample_coords(ws, xy, A, P)
+    ok = ((torch.floor(gx) >= 0) & (torch.floor(gy) >= 0)
+          & (torch.floor(gx) < (ws.vw - 1.0)[:, None])
+          & (torch.floor(gy) < (ws.vh - 1.0)[:, None]))
+    base = S._tap(torch.floor(rely), R) * X + S._tap(torch.floor(relx), X)
+    base = base + torch.arange(K, device=base.device)[:, None] * (R * X)
+    base = base[ok]
+    touched = torch.zeros(K * R * X, dtype=torch.bool, device=base.device)
+    for off in (0, 1, X, X + 1):
+        touched[base + off] = True
+    return int(touched.sum()) * ws.windows.element_size()
+
+
+def _check_sampler(name: str, K: int, P: int, L: int, H: int, W: int,
+                   reps: int) -> dict:
+    """Kernel vs plain version at one geometry, plus times."""
+    import torch
+    import torch.nn.functional as F
+    from mods_tpu_torch.ops import sampler as S
+    ws, xy, A = _sampler_inputs(K, P, L, H, W, seed=K + P)
+    got = S.sample_from_windows(ws, xy, A, P, fill=0.0)
+    torch.cuda.synchronize()
+    ref = S.sample_from_windows_plain(ws, xy, A, P, fill=0.0)
+    if got.shape != (K, P, P) or not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: kernel output bad shape or not finite")
+    fill_ok = torch.equal(got == 0.0, ref == 0.0)
+    err = (got - ref).abs().max().item()
+    if err > 1e-3 or not fill_ok:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain "
+                           f"version: max |d| {err}, fill positions "
+                           f"{'equal' if fill_ok else 'differ'}")
+    # the nearest library call: bilinear grid_sample on the same windows,
+    # replicate border, no fill mask
+    _, _, relx, rely = S._sample_coords(ws, xy, A, P)
+    R, X = ws.windows.shape[1:]
+    grid = torch.stack([relx / (X - 1) * 2 - 1, rely / (R - 1) * 2 - 1],
+                       -1).reshape(K, P, P, 2)
+    win4 = ws.windows[:, None]
+    # the raw launcher, so that timing launches are not counted
+    ms = _time_ms(lambda: S._sample_from_windows_cuda(ws, xy, A, P, 0.0),
+                  reps)
+    plain_ms = _time_ms(
+        lambda: S.sample_from_windows_plain(ws, xy, A, P, 0.0), 5)
+    library_ms = _time_ms(lambda: F.grid_sample(
+        win4, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), reps)
+    nbytes = _touched_window_bytes(ws, xy, A, P) + K * P * P * 4 + sum(
+        t.numel() * t.element_size()
+        for t in (xy, A, ws.y0, ws.x0, ws.vw, ws.vh))
+    ops = SAMPLER_OPS_PER_SAMPLE * K * P * P
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return dict(geometry=name, K=K, P=P, rows=R, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, operations=ops)
+
+
+def _corner_error(H, H_gt, w: int, h: int) -> float:
+    import numpy as np
+    c = np.array([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1]], np.float64)
+    a = c @ np.asarray(H, np.float64).T
+    b = c @ np.asarray(H_gt, np.float64).T
+    d = a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]
+    return float(np.sqrt((d * d).sum(-1)).max())
+
+
+def _load_pair(pair: str):
+    """A ``.parity_work`` pair on the card and its ground-truth H."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.io.png import read_png_gray
+    imgs = [torch.as_tensor(read_png_gray(PAIRS / f"{pair}_{i}.png"),
+                            dtype=torch.float32, device="cuda")
+            for i in (1, 2)]
+    return imgs[0], imgs[1], np.loadtxt(PAIRS / f"{pair}_H.txt")
+
+
+def _run_step(step, img1, img2) -> dict:
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = step(img1, img2, g)
+    torch.cuda.synchronize()
+    return out
+
+
+def _drive_main_path(sampler) -> None:
+    import numpy as np
+    import torch
+    from mods_tpu_torch.models.flagship import make_two_view_step
+    step = make_two_view_step()
+    sampler.launches = 0          # every kernel's count, just before
+    for pair, (j_tent, j_inl) in JAX_REFERENCE.items():
+        img1, img2, H_gt = _load_pair(pair)
+
+        def run():
+            return _run_step(step, img1, img2)
+
+        t0 = time.perf_counter()
+        run()                                          # warm-up
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        per_step, launches = [], []
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            before = sampler.launches
+            ts = time.perf_counter()
+            out = run()
+            per_step.append(time.perf_counter() - ts)
+            launches.append(sampler.launches - before)
+            if launches[-1] == 0:
+                raise RuntimeError(f"{pair}: the step never launched the "
+                                   "window-sampler kernel")
+        total = time.perf_counter() - t0
+        H = out["H"].cpu().numpy()
+        n_tent = int(out["n_tentatives"])
+        n_inl = int(out["n_inliers"])
+        if not np.isfinite(H).all():
+            raise RuntimeError(f"{pair}: H is not finite: {H}")
+        err = _corner_error(H, H_gt, img1.shape[1], img1.shape[0])
+        res = dict(
+            shapes=[list(img1.shape), list(img2.shape)],
+            tentatives=n_tent, inliers=n_inl, corner_error_px=err,
+            jax_cpu=dict(tentatives=j_tent, inliers=j_inl),
+            pairs_per_s=TIMED_STEPS / total,
+            median_step_s=statistics.median(per_step), step_s=per_step,
+            warmup_s=warm_s, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            sampler_launches_per_step=launches)
+        print(f"[3] {pair}: {json.dumps(res)}", flush=True)
+        if abs(n_tent - j_tent) > 0.2 * j_tent:
+            raise RuntimeError(f"{pair}: {n_tent} tentatives, JAX {j_tent}")
+        if n_inl < 0.8 * j_inl:
+            raise RuntimeError(f"{pair}: {n_inl} inliers, JAX {j_inl}")
+        if err > 8.0:
+            raise RuntimeError(f"{pair}: corner error {err:.2f} px > 8")
+
+
+def _small_pair_card_vs_cpu():
+    """A 256x256 block texture and its 8-degree rotation, on the card and
+    on the CPU (plain versions), at small caps."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.config import CapacityParams, RansacParams
+    from mods_tpu_torch.models.flagship import make_two_view_step
+    from mods_tpu_torch.pipeline import EngineConfig
+    cfg = EngineConfig(
+        caps=CapacityParams(per_octave=128, per_view=128, per_group=256,
+                            per_image=256, max_angles=1, tentatives=512),
+        ransac=RansacParams(batch_hypotheses=128, max_rounds=1))
+    rng = np.random.default_rng(0)
+    base = np.kron(rng.uniform(0, 255, (22, 22)), np.ones((12, 12)))
+    i1 = torch.as_tensor(base[:256, :256], dtype=torch.float32)
+    th = np.deg2rad(8.0)
+    theta = torch.tensor([[np.cos(th), -np.sin(th), 0.05],
+                          [np.sin(th), np.cos(th), -0.03]],
+                         dtype=torch.float32)[None]
+    grid = torch.nn.functional.affine_grid(theta, (1, 1, 256, 256),
+                                           align_corners=False)
+    i2 = torch.nn.functional.grid_sample(i1[None, None], grid,
+                                         align_corners=False,
+                                         padding_mode="border")[0, 0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator(device=dev).manual_seed(0)
+        r = make_two_view_step(cfg, device=dev)(i1, i2, g)
+        out[dev] = (int(r["n_tentatives"]), int(r["n_inliers"]),
+                    r["H"].cpu().numpy())
+    (ct, ci, cH), (pt, pi, pH) = out["cuda"], out["cpu"]
+    err = _corner_error(cH, pH, 256, 256)
+    print(f"[4] small pair: card {ct}/{ci}, cpu {pt}/{pi} "
+          f"(tentatives/inliers), H corners {err:.3f} px apart", flush=True)
+    if pi < 20 or abs(ct - pt) > 0.1 * pt or abs(ci - pi) > 0.1 * pi \
+            or err > 1.0:
+        raise RuntimeError("small pair: card and CPU disagree")
+
+
+def _busy_us(spans) -> float:
+    """Length of the union of [start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def _profile_main_path() -> None:
+    """Where the time of one step goes, per pair (phase 5)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mods_tpu_torch.models.flagship import make_two_view_step
+    step = make_two_view_step()
+    for pair in JAX_REFERENCE:
+        img1, img2, _ = _load_pair(pair)
+        _run_step(step, img1, img2)                    # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                _run_step(step, img1, img2)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+        # the stage ranges also appear on the device timeline, as
+        # annotations spanning their kernels; they are not kernels
+        kernels = [e for e in on_device if e.name not in STAGES
+                   and not getattr(e, "is_user_annotation", False)]
+        if not kernels:
+            raise RuntimeError(f"{pair}: the profiler saw no kernel")
+        spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+        busy = _busy_us(spans)
+        by_kernel = defaultdict(float)
+        for e in kernels:
+            by_kernel[e.name] += e.time_range.elapsed_us()
+        stages = {}
+        for name in STAGES:
+            host = [e for e in events if e.name == name
+                    and e.device_type == DeviceType.CPU]
+            ranges = [(e.time_range.start, e.time_range.end)
+                      for e in on_device if e.name == name]
+            inside = [(max(s, a), min(e, b)) for a, b in ranges
+                      for s, e in spans if s < b and e > a]
+            stages[name] = dict(
+                host_ms=sum(e.cpu_time_total for e in host)
+                / PROFILED_STEPS / 1e3,
+                device_busy_ms=(_busy_us(inside) / PROFILED_STEPS / 1e3)
+                if ranges else None,
+                kernel_launches=len(inside) / PROFILED_STEPS
+                if ranges else None)
+        reads = sum(1 for e in events
+                    if e.name == "aten::_local_scalar_dense")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        res = dict(
+            profiled_step_s=wall_us / PROFILED_STEPS / 1e6,
+            device_busy_ms=busy / PROFILED_STEPS / 1e3,
+            device_idle_share=1.0 - busy / wall_us,
+            kernel_launches=len(kernels) / PROFILED_STEPS,
+            host_reads=reads / PROFILED_STEPS, stages=stages,
+            top_kernels_ms=[(n[:90], t / PROFILED_STEPS / 1e3)
+                            for n, t in top])
+        print(f"[5] {pair}: {json.dumps(res)}", flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    if not (ROOT / "mods_tpu_torch").is_dir():
+        print(f"chip_smoke: {ROOT} holds no mods_tpu_torch package",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import mods_tpu_torch  # noqa: F401  (sets the float32 policy)
+    from mods_tpu_torch import csrc
+    from mods_tpu_torch.ops import sampler as S
+
+    card = _card()
+    print(f"[0] card: {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
+
+    t0 = time.perf_counter()
+    for name, log in csrc.build_all().items():
+        print(f"[1] nvcc {name}.cu:\n{log.strip()}", flush=True)
+    print(f"[1] build {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # main-path geometries: Baumberg (6 octaves x 256 keypoints, P=19),
+    # descriptors (per_view 512 x max_angles 2, P=41); and the TPU
+    # probe's shape (scripts/pallas_sampler_probe.py: K=4096, P=41 over a
+    # 4 x 640 x 1280 stack)
+    geoms = [_check_sampler("baumberg", 1536, 19, 12, 1000, 640, 20),
+             _check_sampler("descriptors", 1024, 41, 4, 1000, 640, 20),
+             _check_sampler("probe", 4096, 41, 4, 640, 1280, 20)]
+    for g in geoms:
+        print(f"[2] window_sampler {json.dumps(g)}", flush=True)
+
+    _drive_main_path(S.sample_from_windows)
+    launches = S.sample_from_windows.launches     # read just after
+    print(f"[3] window_sampler launches on the main path: {launches}",
+          flush=True)
+
+    _small_pair_card_vs_cpu()
+    _profile_main_path()
+
+    main_geom = geoms[0]
+    kernels = [dict(
+        name="window_sampler", route="cuda",
+        source="mods_tpu_torch/csrc/window_sampler.cu",
+        replaces="mods_tpu/ops/sampler.py:190",
+        launches=launches,
+        max_abs_err=max(g["max_abs_err"] for g in geoms),
+        ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],
+        bound_ms=main_geom["bound_ms"], bound_by=main_geom["bound_by"],
+        library_ms=main_geom["library_ms"], geometries=geoms)]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,41 @@
+"""Fixed-size selections with the JAX package's exact semantics.
+
+``lax.top_k`` and ``jnp.nonzero(size=...)`` have no exact counterpart
+in PyTorch, and the capped compactions of the main path depend on their
+order:
+
+* **Top-k tie order.**  XLA's ``top_k`` breaks ties toward the lower
+  index; ``torch.topk`` promises no order on CUDA.  ``top_k`` below is a
+  stable descending sort, sliced.
+* **Fixed-size nonzero.**  ``jnp.nonzero(size=n, fill_value=0)`` returns
+  the first ``n`` indices in scan order, padded with 0.
+  ``torch.nonzero`` has a data-dependent length (and syncs the host on
+  CUDA).  ``nonzero_static`` keeps the JAX semantics with a prefix sum
+  and a scatter, and also returns the validity mask of its slots.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def top_k(key: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last
+    axis, descending, ties to the lower index (``lax.top_k``)."""
+    vals, idx = torch.sort(key, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def nonzero_static(mask: torch.Tensor, size: int):
+    """First ``size`` flat indices where the 1-D ``mask`` is set, in scan
+    order, padded with 0 -> (idx (size,) int64, valid (size,) bool)."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    sel = mask & (pos < size)
+    # slot ``size`` is a discard bin for the unselected entries
+    slot = torch.where(sel, pos, torch.full_like(pos, size))
+    out = torch.zeros(size + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(n, device=mask.device))
+    count = torch.clamp(pos[-1] + 1, max=size) if n else pos.new_zeros(())
+    valid = torch.arange(size, device=mask.device) < count
+    return torch.where(valid, out[:size], 0), valid

@@ -1,0 +1,189 @@
+"""Hypothesis-parallel LO-RANSAC for homographies (mirrors
+``mods_tpu/ransac/homography.py``; reference ``exp_ransacHcustom``,
+degensac/exp_ranH.c:223-380, and its local optimization :40-180).
+
+Rounds of ``batch_hypotheses`` 4-point DLT fits are scored at once; the
+best is refined by a batch of inner resamples, each annealed by
+iterated weighted least squares over the inlier set.
+
+Random numbers come from an explicit ``torch.Generator``.  torch cannot
+reproduce ``jax.random``'s stream, so the two packages draw different
+samples: the fit, error and scoring functions agree exactly, and
+``ransac_h`` agrees on outcomes (the H and the inlier set on data with
+clear inliers).  The adaptive round count depends on device values, so
+each round reads the best count back to the host (at most
+``max_rounds`` reads per call).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from mods_tpu_torch.config import RansacErrorType, RansacParams
+from mods_tpu_torch.ops.select import nonzero_static
+from mods_tpu_torch.ransac import errors as E
+
+
+def _normalization(xy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Hartley normalization T (3x3): zero centroid, mean distance
+    sqrt(2) over the masked points (reference normu, degensac/utools.c)."""
+    w = mask.to(torch.float32)
+    n = torch.clamp(w.sum(), min=1.0)
+    mean = (xy * w[:, None]).sum(0) / n
+    d = torch.sqrt(((xy - mean) ** 2).sum(-1))
+    scale = (d * w).sum() / n
+    s = math.sqrt(2.0) / torch.clamp(scale, min=1e-8)
+    z = torch.zeros_like(s)
+    o = torch.ones_like(s)
+    return torch.stack([torch.stack([s, z, -s * mean[0]]),
+                        torch.stack([z, s, -s * mean[1]]),
+                        torch.stack([z, z, o])])
+
+
+def _apply_T(T: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    return xy * T[0, 0] + T[:2, 2][None, :]
+
+
+def _dlt_rows(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Two DLT rows per correspondence p -> q: (..., 2) -> (..., 2, 9)."""
+    x, y = p[..., 0], p[..., 1]
+    u, v = q[..., 0], q[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    r1 = torch.stack([x, y, o, z, z, z, -u * x, -u * y, -u], -1)
+    r2 = torch.stack([z, z, z, x, y, o, -v * x, -v * y, -v], -1)
+    return torch.stack([r1, r2], -2)
+
+
+def _h_from_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Least-squares h from (..., R, 9) DLT rows: the eigenvector of the
+    9x9 normal matrix with the smallest eigenvalue.  Its sign is
+    arbitrary; compare H after dividing by H[2, 2]."""
+    ata = rows.transpose(-1, -2) @ rows
+    _, vecs = torch.linalg.eigh(ata)
+    h = vecs[..., :, 0]
+    return h.reshape(h.shape[:-1] + (3, 3))
+
+
+def _fit_h(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Minimal / least-squares fit; p1, p2 (..., S, 2)."""
+    rows = _dlt_rows(p1, p2).reshape(p1.shape[:-2] + (-1, 9))
+    return _h_from_rows(rows)
+
+
+def _weighted_fit_h(p1, p2, w):
+    """w: (..., N) weights (0 for outliers)."""
+    rows = _dlt_rows(p1, p2) * w[..., None, None]
+    return _h_from_rows(rows.reshape(rows.shape[:-3] + (-1, 9)))
+
+
+def _error_fn(pars: RansacParams):
+    if pars.error_type == RansacErrorType.SYMM_MAX:
+        return lambda H, a, b: E.h_error_symm(H, a, b, mode="max")
+    if pars.error_type == RansacErrorType.SAMPSON:
+        return E.h_error_sampson
+    return lambda H, a, b: E.h_error_symm(H, a, b, mode="sum")
+
+
+def _uniform_index(shape, n: torch.Tensor, generator: torch.Generator,
+                   device) -> torch.Tensor:
+    """Uniform integers in [0, n) for a device-side count ``n``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return torch.minimum((u * n).to(torch.int64), n - 1)
+
+
+def _needed_samples(bestc: int, nvalid: int, pars: RansacParams) -> float:
+    """The adaptive stop (exp_ranH.c:366), in float32 as the JAX cond."""
+    f32 = np.float32
+    nf = max(f32(nvalid), f32(4.0))
+    ratio = np.clip(f32(bestc) / nf, f32(1e-6), f32(1 - 1e-6))
+    needed = np.log1p(f32(-pars.confidence)) / np.log1p(-(ratio ** 4))
+    return float(min(needed, f32(pars.max_samples)))
+
+
+def ransac_h(xy1: torch.Tensor, xy2: torch.Tensor, mask: torch.Tensor,
+             pars: RansacParams, generator: torch.Generator):
+    """Robust H (image1 -> image2) from fixed-capacity correspondences
+    -> (H (3, 3), inliers (N,) bool, n_inl).  Hypotheses are fit in
+    normalized coordinates and scored in pixels, so ``err_threshold``
+    keeps its meaning."""
+    n = xy1.shape[0]
+    dev = xy1.device
+    err_fn = _error_fn(pars)
+    th = pars.err_threshold ** 2
+    B = pars.batch_hypotheses
+
+    T1 = _normalization(xy1, mask)
+    T2 = _normalization(xy2, mask)
+    T2inv = E.inv_3x3(T2)
+    p1 = _apply_T(T1, xy1)
+    p2 = _apply_T(T2, xy2)
+    nvalid = torch.clamp(mask.sum(), min=1)
+    valid_idx, _ = nonzero_static(mask, n)
+
+    def count(e):
+        return ((e < th) & mask).sum(-1)
+
+    def hyp_round():
+        idx = valid_idx[_uniform_index((B, 4), nvalid, generator, dev)]
+        # a sample with a repeated point is degenerate
+        same = idx[:, :, None] == idx[:, None, :]
+        distinct = ~(same & ~torch.eye(4, dtype=torch.bool,
+                                       device=dev)).any((1, 2))
+        Hn = _fit_h(p1[idx], p2[idx])
+        H = T2inv @ Hn @ T1
+        h22 = H[:, 2:3, 2:3]
+        H = H / torch.where(h22.abs() > 1e-12, h22, 1.0)
+        cnt = torch.where(distinct, count(err_fn(H, xy1, xy2)), -1)
+        best = torch.argmax(cnt)
+        return H[best], cnt[best]
+
+    # adaptive round loop: one host read of the best count per round
+    nvalid_host = int(nvalid)
+    bestH = torch.eye(3, dtype=torch.float32, device=dev)
+    bestc = torch.tensor(-1, dtype=torch.int64, device=dev)
+    done = 0
+    for _ in range(pars.max_rounds):
+        if done >= _needed_samples(int(bestc), nvalid_host, pars):
+            break
+        H, c = hyp_round()
+        bestH = torch.where(c > bestc, H, bestH)
+        bestc = torch.maximum(bestc, c)
+        done += B
+
+    if pars.local_optimization:
+        bestH = _lo_refine(bestH, xy1, xy2, p1, p2, T1, T2inv, mask, th,
+                           err_fn, pars, generator)
+
+    inl = (err_fn(bestH, xy1, xy2) < th) & mask
+    return bestH, inl, inl.to(torch.int32).sum()
+
+
+def _lo_refine(H, xy1, xy2, p1, p2, T1, T2inv, mask, th, err_fn,
+               pars: RansacParams, generator):
+    """Local optimization: ``lo_inner_samples`` resamples of the inlier
+    set, batched, each refined by ``lo_iters`` rounds of ILSQ with the
+    threshold annealed from 4x down to 1x (exp_ranH.c:40-180)."""
+    n = xy1.shape[0]
+    dev = xy1.device
+    inl0 = (err_fn(H, xy1, xy2) < th) & mask
+    n_inl = torch.clamp(inl0.sum(), min=1)
+    iidx, _ = nonzero_static(inl0, n)
+    R, S = pars.lo_inner_samples, pars.lo_sample_size
+    ridx = iidx[_uniform_index((R, S), n_inl, generator, dev)]
+    Hs = T2inv @ _fit_h(p1[ridx], p2[ridx]) @ T1            # (R, 3, 3)
+    for i in range(pars.lo_iters):
+        mth = max(4.0 * 0.5 ** i, 1.0) * th
+        w = ((err_fn(Hs, xy1, xy2) < mth) & mask).to(torch.float32)
+        Hn2 = T2inv @ _weighted_fit_h(p1, p2, w) @ T1
+        ok = torch.isfinite(Hn2).all(-1).all(-1)
+        Hs = torch.where(ok[:, None, None], Hn2, Hs)
+    cs = ((err_fn(Hs, xy1, xy2) < th) & mask).sum(-1)
+    c0 = ((err_fn(H, xy1, xy2) < th) & mask).sum()
+    Hall = torch.cat([Hs, H[None]])
+    call = torch.cat([cs, c0[None]])
+    # torch.argmax returns the first maximal index, as jnp.argmax does
+    return Hall[torch.argmax(call)]

@@ -1,0 +1,189 @@
+"""Port vs JAX reference: FGINN matching, the duplicate filter and
+LO-RANSAC H (CPU).
+
+FGINN runs on integer descriptors (0..255, as SIFT quantizes them):
+squared distances are exact in float32 (128 * 255^2 < 2^24), so the
+neighbour lists and decisions must be identical, ties included.  The
+RANSAC fit and error functions are held to float32 rounding: rtol 1e-5
+on closed forms, 1e-4 on squared errors (differences of near-equal
+coordinates), 1e-3 on eigenvector fits.  ``ransac_h`` draws from
+another random stream than ``jax.random``, so it is held on outcomes:
+the H within 0.5 px at the image corners and the same inlier set on
+data with clear inliers.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mods_tpu.config import RansacParams
+from mods_tpu.matching import fginn as jf
+from mods_tpu.ransac import errors as je
+from mods_tpu.ransac import homography as jhm
+from mods_tpu_torch import config as tc
+from mods_tpu_torch.matching import fginn as tf
+from mods_tpu_torch.ransac import errors as te
+from mods_tpu_torch.ransac import homography as thm
+
+torch.set_num_threads(2)
+
+
+def _descs(seed, n1, n2):
+    rng = np.random.default_rng(seed)
+    d2 = rng.integers(0, 256, (n2, 128)).astype(np.float32)
+    # list1: noisy copies of list2 rows plus distractors and exact
+    # duplicates of one row (ties in the neighbour list)
+    src = rng.integers(0, n2, n1)
+    d1 = np.clip(d2[src] + rng.integers(-12, 13, (n1, 128)), 0, 255)
+    d1[: n1 // 4] = rng.integers(0, 256, (n1 // 4, 128))
+    d2[5] = d2[6] = d2[7]
+    return d1.astype(np.float32), d2, src
+
+
+def test_knn_and_fginn_exact():
+    d1, d2, _ = _descs(0, 300, 260)
+    rng = np.random.default_rng(1)
+    m1 = rng.uniform(size=300) < 0.95
+    m2 = rng.uniform(size=260) < 0.95
+    xy2 = rng.uniform(0, 60, (260, 2)).astype(np.float32)
+    jd, ji = jf.knn_squared_l2(*(jnp.asarray(x) for x in (d1, m1, d2, m2)),
+                               50, row_tile=128)
+    td, ti = tf.knn_squared_l2(*(torch.from_numpy(x) for x in
+                                 (d1, m1, d2, m2)), 50, row_tile=128)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    for std2 in (False, True):
+        jt = jf.match_fginn(*(jnp.asarray(x) for x in (d1, m1, d2, m2, xy2)),
+                            0.8, 10.0, 50, standard_2nd=std2)
+        tt = tf.match_fginn(*(torch.from_numpy(x) for x in
+                              (d1, m1, d2, m2, xy2)), 0.8, 10.0, 50,
+                            standard_2nd=std2)
+        for f in ("idx2", "d1", "d2", "ratio", "mask"):
+            np.testing.assert_array_equal(getattr(tt, f).numpy(),
+                                          np.asarray(getattr(jt, f)))
+        assert int(tt.count()) == int(jt.count()) > 50
+
+
+@pytest.mark.parametrize("with_priority", [False, True])
+def test_duplicate_filter_exact(with_priority):
+    rng = np.random.default_rng(2)
+    n = 200
+    xy1 = rng.uniform(0, 40, (n, 2)).astype(np.float32)
+    xy2 = rng.uniform(0, 40, (n, 2)).astype(np.float32)
+    xy1[100:140] = xy1[60:100] + rng.uniform(-2, 2, (40, 2))
+    xy2[100:140] = xy2[60:100] + rng.uniform(-2, 2, (40, 2))
+    mask = rng.uniform(size=n) < 0.9
+    pr = rng.uniform(size=n).astype(np.float32) if with_priority else None
+    ref = jf.duplicate_filter(jnp.asarray(xy1), jnp.asarray(xy2),
+                              jnp.asarray(mask), 3.0,
+                              priority=None if pr is None
+                              else jnp.asarray(pr))
+    got = tf.duplicate_filter(torch.from_numpy(xy1), torch.from_numpy(xy2),
+                              torch.from_numpy(mask), 3.0,
+                              priority=None if pr is None
+                              else torch.from_numpy(pr))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.sum() < mask.sum()
+
+
+def _homography(seed):
+    rng = np.random.default_rng(seed)
+    H = np.eye(3) + rng.normal(0, [[0.1, 0.1, 8], [0.1, 0.1, 8],
+                                   [1e-4, 1e-4, 0]])
+    return H.astype(np.float32)
+
+
+def _correspondences(seed, n, inlier_frac):
+    rng = np.random.default_rng(seed)
+    H = _homography(seed)
+    xy1 = rng.uniform(0, 400, (n, 2))
+    p = np.c_[xy1, np.ones(n)] @ H.T.astype(np.float64)
+    xy2 = p[:, :2] / p[:, 2:]
+    xy2 += rng.normal(0, 0.3, xy2.shape)
+    out = rng.uniform(size=n) > inlier_frac
+    xy2[out] = rng.uniform(0, 400, (out.sum(), 2))
+    mask = rng.uniform(size=n) < 0.97
+    return (xy1.astype(np.float32), xy2.astype(np.float32), mask, H,
+            ~out & mask)
+
+
+def test_error_and_fit_functions():
+    xy1, xy2, mask, H, _ = _correspondences(3, 64, 0.7)
+    Hs = np.stack([_homography(s) for s in range(8)])
+    j = [jnp.asarray(x) for x in (Hs, xy1, xy2)]
+    t = [torch.from_numpy(x) for x in (Hs, xy1, xy2)]
+    np.testing.assert_allclose(te.inv_3x3(t[0]).numpy(),
+                               np.asarray(je.inv_3x3(j[0])), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(te.h_transfer(t[0], t[1]).numpy(),
+                               np.asarray(je.h_transfer(j[0], j[1])),
+                               rtol=1e-5)
+    for mode in ("sum", "max"):
+        np.testing.assert_allclose(
+            te.h_error_symm(*t, mode=mode).numpy(),
+            np.asarray(je.h_error_symm(*j, mode=mode)), rtol=1e-4,
+            atol=1e-4)
+    np.testing.assert_allclose(te.h_error_sampson(*t).numpy(),
+                               np.asarray(je.h_error_sampson(*j)),
+                               rtol=1e-4, atol=1e-4)
+    tm = torch.from_numpy(mask)
+    T1 = thm._normalization(t[1], tm)
+    np.testing.assert_allclose(
+        T1.numpy(), np.asarray(jhm._normalization(j[1], jnp.asarray(mask))),
+        rtol=1e-5, atol=1e-6)
+    p1 = thm._apply_T(T1, t[1])
+    p2 = thm._apply_T(thm._normalization(t[2], tm), t[2])
+    jp1, jp2 = jnp.asarray(p1.numpy()), jnp.asarray(p2.numpy())
+    np.testing.assert_array_equal(thm._dlt_rows(p1, p2).numpy(),
+                                  np.asarray(jhm._dlt_rows(jp1, jp2)))
+
+    # the eigenvector's sign is arbitrary: compare H / H[2, 2].  A fit's
+    # float32 error grows as eps over the gap between the two smallest
+    # eigenvalues of the normal matrix, so the minimal fits are compared
+    # on samples of 4 distinct points whose gap (float64) is > 1e-3 of
+    # the largest eigenvalue; RANSAC scores the others no differently.
+    def norm(h):
+        h = np.asarray(h, np.float64)
+        return h / h[..., 2:3, 2:3]
+    idx = np.random.default_rng(4).integers(0, 64, (64, 4))
+    rows = thm._dlt_rows(p1[idx], p2[idx]).reshape(64, 8, 9).double()
+    ev = np.linalg.eigvalsh((rows.transpose(1, 2) @ rows).numpy())
+    distinct = np.array([len(set(r)) == 4 for r in idx])
+    idx = idx[distinct & (ev[:, 1] > 1e-3 * ev[:, -1])]
+    assert len(idx) >= 16
+    np.testing.assert_allclose(
+        norm(thm._fit_h(p1[idx], p2[idx]).numpy()),
+        norm(jhm._fit_h(jp1[idx], jp2[idx])), rtol=1e-3, atol=1e-3)
+    w = np.random.default_rng(5).uniform(size=(3, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        norm(thm._weighted_fit_h(p1, p2, torch.from_numpy(w)).numpy()),
+        norm(jhm._weighted_fit_h(jp1, jp2, jnp.asarray(w))), rtol=1e-3,
+        atol=1e-3)
+
+
+def _corner_dist(Ha, Hb, w=400, h=400):
+    c = np.array([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1]], np.float64)
+    pa = c @ np.asarray(Ha, np.float64).T
+    pb = c @ np.asarray(Hb, np.float64).T
+    return np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max()
+
+
+def test_ransac_h_outcome():
+    xy1, xy2, mask, H, true_inl = _correspondences(6, 300, 0.7)
+    pars = RansacParams(batch_hypotheses=256, max_rounds=8)
+    tp = tc.from_dict(dataclasses.asdict(pars), tc.RansacParams)
+    jH, jinl, jn = jax.jit(lambda a, b, m, k: jhm.ransac_h(
+        a, b, m, pars, k))(jnp.asarray(xy1), jnp.asarray(xy2),
+                           jnp.asarray(mask), jax.random.PRNGKey(0))
+    tH, tinl, tn = thm.ransac_h(torch.from_numpy(xy1),
+                                torch.from_numpy(xy2),
+                                torch.from_numpy(mask), tp,
+                                torch.Generator().manual_seed(0))
+    assert _corner_dist(tH.numpy(), jH) < 0.5
+    assert _corner_dist(tH.numpy(), H) < 2.0
+    np.testing.assert_array_equal(tinl.numpy(), np.asarray(jinl))
+    assert int(tn) == int(jn) >= 0.9 * true_inl.sum()
