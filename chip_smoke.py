@@ -11,7 +11,10 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    nvcc per source, all started together, and print ptxas's report;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and the nearest
-   PyTorch library call (CUDA graphs of repeated calls, CUDA events);
+   PyTorch library call (CUDA graphs of repeated calls, CUDA events):
+   the window sampler on level stacks and on prefetched windows; the fused
+   Baumberg kernel on the detector's own keypoints of zoom2x, octaves 0
+   and 3, beside the loop of launches it replaces;
 3. drive the main path, ``make_two_view_step()`` at its default caps, on
    the zoom2x and rot90 pairs of ``.parity_work`` (1000x598): one warm-up
    and five timed steps per pair, with every kernel's launch count set
@@ -57,9 +60,15 @@ STAGES = ("mods.detect", "mods.orient", "mods.describe", "mods.match",
 # outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# float32 operations per sample in csrc/window_sampler.cu: coordinates
-# 10, floors 4, fractions and weights 4, bilinear mix 9
+# float32 operations per sample in csrc/sampling.cuh: coordinates 10,
+# floors 4, fractions and weights 4, bilinear mix 9
 SAMPLER_OPS_PER_SAMPLE = 27
+# per sample and iteration in csrc/baumberg_smm.cu: the sampler's, two
+# gradient differences and three masked multiply-accumulates (3 each)
+BAUMBERG_OPS_PER_SAMPLE = SAMPLER_OPS_PER_SAMPLE + 2 + 9
+# a step runs Baumberg once per octave and image (6 x 2) and the sampler
+# for orientation and descriptor patches of each image (2 x 2)
+EXPECTED_LAUNCHES = {"baumberg_smm": 12, "window_sampler": 4}
 
 
 def _card() -> str:
@@ -104,7 +113,6 @@ def _sampler_inputs(K: int, P: int, L: int, H: int, W: int, seed: int):
     sampling matrices fit the (96, 128) windows, as the main path's."""
     import torch
     import torch.nn.functional as F
-    from mods_tpu_torch.ops.sampler import prepare_windows, rows_for_patch
     g = torch.Generator(device="cuda").manual_seed(seed)
     src = torch.rand((L, 1, H, W), generator=g, device="cuda") * 255.0
     src = F.avg_pool2d(src, 5, stride=1, padding=2)[:, 0].contiguous()
@@ -117,15 +125,15 @@ def _sampler_inputs(K: int, P: int, L: int, H: int, W: int, seed: int):
     lvl = torch.randint(0, L, (K,), generator=g, device="cuda")
     vhw = torch.tensor([[H - 3, W - 5]] * L, dtype=torch.int32,
                        device="cuda")
-    rows = 96 if P == 19 else rows_for_patch(P)
-    ws = prepare_windows(src, lvl, xy, vhw, rows=rows)
-    return ws, xy, A
+    return src, lvl, vhw, xy, A
 
 
-def _touched_window_bytes(ws, xy, A, P: int) -> int:
-    """Bytes of the distinct window texels that this run's samples
-    interpolate from (the samples left at ``fill`` need none): the least
-    the function must read of the (K, rows, 128) windows."""
+def _touched_bytes(ws, xy, A, P: int, stack=None) -> int:
+    """Bytes of the distinct texels that this run's samples interpolate
+    from (the samples left at ``fill`` need none): the least the function
+    must read.  ``ws`` holds the keypoints' windows; with ``stack`` =
+    (lvl, (L, H, W)) the windows are views into a level stack, and a
+    texel that several keypoints touch counts once."""
     import torch
     from mods_tpu_torch.ops import sampler as S
     K, R, X = ws.windows.shape
@@ -133,26 +141,26 @@ def _touched_window_bytes(ws, xy, A, P: int) -> int:
     ok = ((torch.floor(gx) >= 0) & (torch.floor(gy) >= 0)
           & (torch.floor(gx) < (ws.vw - 1.0)[:, None])
           & (torch.floor(gy) < (ws.vh - 1.0)[:, None]))
-    base = S._tap(torch.floor(rely), R) * X + S._tap(torch.floor(relx), X)
-    base = base + torch.arange(K, device=base.device)[:, None] * (R * X)
+    yi = S._tap(torch.floor(rely), R)
+    xi = S._tap(torch.floor(relx), X)
+    if stack is None:
+        row, size = X, K * R * X
+        base = (torch.arange(K, device=xi.device)[:, None] * R + yi) * X + xi
+    else:
+        lvl, (L, H, W) = stack
+        row, size = W, L * H * W
+        base = ((lvl.clamp(0, L - 1)[:, None] * H + ws.y0[:, None] + yi) * W
+                + ws.x0[:, None] + xi)
     base = base[ok]
-    touched = torch.zeros(K * R * X, dtype=torch.bool, device=base.device)
-    for off in (0, 1, X, X + 1):
+    touched = torch.zeros(size, dtype=torch.bool, device=base.device)
+    for off in (0, 1, row, row + 1):
         touched[base + off] = True
     return int(touched.sum()) * ws.windows.element_size()
 
 
-def _check_sampler(name: str, K: int, P: int, L: int, H: int, W: int,
-                   reps: int) -> dict:
-    """Kernel vs plain version at one geometry, plus times."""
+def _check_patches(name: str, got, ref, shape) -> float:
     import torch
-    import torch.nn.functional as F
-    from mods_tpu_torch.ops import sampler as S
-    ws, xy, A = _sampler_inputs(K, P, L, H, W, seed=K + P)
-    got = S.sample_from_windows(ws, xy, A, P, fill=0.0)
-    torch.cuda.synchronize()
-    ref = S.sample_from_windows_plain(ws, xy, A, P, fill=0.0)
-    if got.shape != (K, P, P) or not torch.isfinite(got).all():
+    if got.shape != shape or not torch.isfinite(got).all():
         raise RuntimeError(f"{name}: kernel output bad shape or not finite")
     fill_ok = torch.equal(got == 0.0, ref == 0.0)
     err = (got - ref).abs().max().item()
@@ -160,29 +168,169 @@ def _check_sampler(name: str, K: int, P: int, L: int, H: int, W: int,
         raise RuntimeError(f"{name}: kernel disagrees with its plain "
                            f"version: max |d| {err}, fill positions "
                            f"{'equal' if fill_ok else 'differ'}")
-    # the nearest library call: bilinear grid_sample on the same windows,
-    # replicate border, no fill mask
-    _, _, relx, rely = S._sample_coords(ws, xy, A, P)
+    return err
+
+
+def _check_sampler(name: str, K: int, P: int, L: int, H: int, W: int,
+                   reps: int, from_stack: bool) -> dict:
+    """The window sampler's wrapper against its plain version at one
+    geometry, plus times.  ``from_stack``: ``sample_affine_patches`` on
+    the level stack; else ``sample_from_windows`` on windows prefetched
+    from it.
+    Tolerance 1e-3 on 0..255 values and identical fill positions (kernel
+    and plain version round every operation alike)."""
+    import torch
+    import torch.nn.functional as F
+    from mods_tpu_torch.ops import sampler as S
+    src, lvl, vhw, xy, A = _sampler_inputs(K, P, L, H, W, seed=K + P)
+    lvl = lvl.to(torch.int32)       # as the kernel takes it: no cast timed
+    rows = S.rows_for_patch(P) if from_stack else 96
+
+    def windows():
+        return S.prepare_windows(src, lvl, xy, vhw, rows=rows)
+
+    ws = windows()
     R, X = ws.windows.shape[1:]
+    if from_stack:
+        def kernel():
+            return S.sample_affine_patches(src, lvl, xy, A, P, vhw)
+
+        def plain():
+            return S.sample_affine_patches_plain(src, lvl, xy, A, P, vhw)
+    else:
+        def kernel():
+            return S.sample_from_windows(ws, xy, A, P)
+
+        def plain():
+            return S.sample_from_windows_plain(ws, xy, A, P)
+
+    err = _check_patches(name, kernel(), plain(), (K, P, P))
+    torch.cuda.synchronize()
+    # the nearest library call: bilinear grid_sample on prefetched
+    # windows, replicate border, no fill mask.  From a stack that route
+    # must build the windows first; that time is part of it.
+    _, _, relx, rely = S._sample_coords(ws, xy, A, P)
     grid = torch.stack([relx / (X - 1) * 2 - 1, rely / (R - 1) * 2 - 1],
                        -1).reshape(K, P, P, 2)
     win4 = ws.windows[:, None]
-    # the raw launcher, so that timing launches are not counted
-    ms = _time_ms(lambda: S._sample_from_windows_cuda(ws, xy, A, P, 0.0),
-                  reps)
-    plain_ms = _time_ms(
-        lambda: S.sample_from_windows_plain(ws, xy, A, P, 0.0), 5)
-    library_ms = _time_ms(lambda: F.grid_sample(
+    ms = _time_ms(kernel, reps)
+    plain_ms = _time_ms(plain, 5)
+    grid_sample_ms = _time_ms(lambda: F.grid_sample(
         win4, grid, mode="bilinear", padding_mode="border",
         align_corners=True), reps)
-    nbytes = _touched_window_bytes(ws, xy, A, P) + K * P * P * 4 + sum(
+    windows_ms = _time_ms(windows, 5)
+    library_ms = grid_sample_ms + (windows_ms if from_stack else 0.0)
+    nbytes = _touched_bytes(ws, xy, A, P,
+                            (lvl, src.shape) if from_stack else None)
+    nbytes += K * P * P * 4 + sum(
         t.numel() * t.element_size()
-        for t in (xy, A, ws.y0, ws.x0, ws.vw, ws.vh))
+        for t in ((xy, A, lvl, vhw) if from_stack
+                  else (xy, A, ws.y0, ws.x0, ws.vw, ws.vh)))
     ops = SAMPLER_OPS_PER_SAMPLE * K * P * P
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
-    return dict(geometry=name, K=K, P=P, rows=R, max_abs_err=err, ms=ms,
+    return dict(geometry=name, source="stack" if from_stack else "windows",
+                K=K, P=P, rows=R, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
+                grid_sample_ms=grid_sample_ms, build_windows_ms=windows_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, operations=ops)
+
+
+def _zoom2x_octaves() -> list:
+    """Baumberg's inputs on the main path: per octave of zoom2x's first
+    image, (stack, lvl, xy, s, ok) from the detector's own stages."""
+    import torch
+    from mods_tpu_torch.config import PyramidParams
+    from mods_tpu_torch.detectors.hessaff import octave_keypoints
+    from mods_tpu_torch.models.flagship import default_config
+    img, _, _ = _load_pair("zoom2x")
+    hw = torch.tensor([list(img.shape)], dtype=torch.int32)
+    return [(stack, lvl, xy.reshape(-1, 2), s.reshape(-1), ok.reshape(-1))
+            for _, stack, lvl, xy, s, ok, _, _ in octave_keypoints(
+                img[None], hw, PyramidParams(), default_config().caps)]
+
+
+def _check_baumberg(octave: int, inputs, reps: int) -> dict:
+    """``baumberg_adapt`` on the card (the fused kernel's wrapper) against
+    ``baumberg_adapt_plain`` on one octave's real keypoints, plus times of
+    the kernel alone and of the loops it stands for.
+
+    Tolerance: ``ok`` differs on at most 1 % of the valid keypoints and
+    the shapes agree to 1e-3 where both converged.  The kernel copies the
+    plain version's operations, but its block reduction adds the 361
+    terms of each second-moment sum in another order than ``torch.sum``;
+    over up to 16 fed-back iterations a keypoint on a threshold (0.05,
+    6.0) may fall to the other side."""
+    import torch
+    from mods_tpu_torch.config import AffineShapeParams
+    from mods_tpu_torch.detectors import baumberg as B
+    from mods_tpu_torch.ops import sampler as S
+    stack, lvl, xy, s, ok = inputs
+    aff = AffineShapeParams()
+    K = lvl.shape[0]
+    name = f"baumberg_smm octave {octave}"
+    u, good = B.baumberg_adapt(stack, lvl, xy, s, ok, aff)
+    torch.cuda.synchronize()
+    ru, rgood = B.baumberg_adapt_plain(stack, lvl, xy, s, ok, aff)
+    n_valid = int(ok.sum())
+    flips = int((good != rgood).sum())
+    both = good & rgood
+    err = (u - ru)[both].abs().max().item() if both.any() else 0.0
+    if (u.shape != (K, 2, 2) or not torch.isfinite(u).all()
+            or good[~ok].any() or flips > 0.01 * n_valid or err > 1e-3):
+        raise RuntimeError(
+            f"{name}: kernel disagrees with its plain version: {flips} of "
+            f"{n_valid} valid keypoints differ in ok, max |du| {err}")
+
+    # the times are the loop's alone, kernel and plain version on the same
+    # prepared inputs: the raw launcher, which also returns the iterations
+    # that each keypoint ran
+    big, lvl_eff, xy_eff, inv_scale, ratio, mask = B._smm_inputs(
+        stack, lvl, xy, s, aff)
+    lvl_eff = lvl_eff.to(torch.int32)   # as the kernel takes it
+    P = mask.shape[-1]
+
+    def kernel():
+        return B._smm_loop_cuda(big, lvl_eff, xy_eff, ratio, inv_scale, ok,
+                                mask, aff)
+
+    iters = kernel()[2]
+    ws = B._prepare_smm_windows(big, lvl_eff, xy_eff)
+
+    def loop():
+        return B.smm_loop_plain(ws, xy_eff, ratio, inv_scale, ok, mask, aff)
+
+    ms = _time_ms(kernel, reps)
+    plain_ms = _time_ms(loop, 1, replays=5)
+    # the loop as it ran before the fused kernel: one window-sampler launch
+    # and the eager operations per iteration
+    B.sample_from_windows_plain = S.sample_from_windows
+    try:
+        loop_ms = _time_ms(loop, 1, replays=5)
+    finally:
+        B.sample_from_windows_plain = S.sample_from_windows_plain
+    # bytes: the texels that the first iteration's samples (u = I) touch;
+    # every valid keypoint runs that iteration, later ones only add to it
+    A0 = (torch.eye(2, device="cuda") * (ratio * inv_scale)[:, None, None])
+    ws_valid = S.WindowSource(ws.windows[ok], ws.y0[ok], ws.x0[ok],
+                              ws.vw[ok], ws.vh[ok])
+    nbytes = _touched_bytes(ws_valid, xy_eff[ok], A0[ok], P,
+                            (lvl_eff[ok], big.shape))
+    nbytes += mask.numel() * 4 + sum(
+        t.numel() * t.element_size()
+        for t in (lvl_eff, xy_eff, inv_scale, ratio, ok,
+                  u, good, iters))
+    total_iters = int(iters.sum())
+    ops = BAUMBERG_OPS_PER_SAMPLE * P * P * total_iters
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return dict(geometry=f"zoom2x octave {octave}", K=K, P=P, valid=n_valid,
+                ok_kernel=int(good.sum()), ok_plain=int(rgood.sum()),
+                ok_flips=flips, max_abs_err=err, iterations=total_iters,
+                max_iterations_run=int(iters.max()), ms=ms,
+                plain_ms=plain_ms, earlier_loop_ms=loop_ms, library_ms=None,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, operations=ops)
@@ -216,12 +364,20 @@ def _run_step(step, img1, img2) -> dict:
     return out
 
 
-def _drive_main_path(sampler) -> None:
+def _drive_main_path(wrappers: dict) -> dict:
+    """Phase 3.  ``wrappers``: kernel name -> the wrappers that count its
+    launches.  Returns each kernel's launches over the whole drive."""
     import numpy as np
     import torch
     from mods_tpu_torch.models.flagship import make_two_view_step
+
+    def counts():
+        return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+
     step = make_two_view_step()
-    sampler.launches = 0          # every kernel's count, just before
+    for ws in wrappers.values():  # every kernel's count, just before
+        for w in ws:
+            w.launches = 0
     for pair, (j_tent, j_inl) in JAX_REFERENCE.items():
         img1, img2, H_gt = _load_pair(pair)
 
@@ -235,14 +391,16 @@ def _drive_main_path(sampler) -> None:
         per_step, launches = [], []
         t0 = time.perf_counter()
         for _ in range(TIMED_STEPS):
-            before = sampler.launches
+            before = counts()
             ts = time.perf_counter()
             out = run()
             per_step.append(time.perf_counter() - ts)
-            launches.append(sampler.launches - before)
-            if launches[-1] == 0:
-                raise RuntimeError(f"{pair}: the step never launched the "
-                                   "window-sampler kernel")
+            launches.append({k: n - before[k] for k, n in counts().items()})
+            if launches[-1] != EXPECTED_LAUNCHES:
+                raise RuntimeError(
+                    f"{pair}: a step launched {launches[-1]}, expected "
+                    f"{EXPECTED_LAUNCHES} (a count of 0: the step never "
+                    "reached that kernel)")
         total = time.perf_counter() - t0
         H = out["H"].cpu().numpy()
         n_tent = int(out["n_tentatives"])
@@ -257,7 +415,8 @@ def _drive_main_path(sampler) -> None:
             pairs_per_s=TIMED_STEPS / total,
             median_step_s=statistics.median(per_step), step_s=per_step,
             warmup_s=warm_s, peak_mem_bytes=torch.cuda.max_memory_allocated(),
-            sampler_launches_per_step=launches)
+            kernel_launches_per_step=launches,
+            expected_launches_per_step=EXPECTED_LAUNCHES)
         print(f"[3] {pair}: {json.dumps(res)}", flush=True)
         if abs(n_tent - j_tent) > 0.2 * j_tent:
             raise RuntimeError(f"{pair}: {n_tent} tentatives, JAX {j_tent}")
@@ -265,6 +424,7 @@ def _drive_main_path(sampler) -> None:
             raise RuntimeError(f"{pair}: {n_inl} inliers, JAX {j_inl}")
         if err > 8.0:
             raise RuntimeError(f"{pair}: corner error {err:.2f} px > 8")
+    return counts()                                    # read just after
 
 
 def _small_pair_card_vs_cpu():
@@ -392,6 +552,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import mods_tpu_torch  # noqa: F401  (sets the float32 policy)
     from mods_tpu_torch import csrc
+    from mods_tpu_torch.detectors import baumberg as B
     from mods_tpu_torch.ops import sampler as S
 
     card = _card()
@@ -404,34 +565,48 @@ def main() -> int:
         print(f"[1] nvcc {name}.cu:\n{log.strip()}", flush=True)
     print(f"[1] build {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # main-path geometries: Baumberg (6 octaves x 256 keypoints, P=19),
-    # descriptors (per_view 512 x max_angles 2, P=41); and the TPU
-    # probe's shape (scripts/pallas_sampler_probe.py: K=4096, P=41 over a
-    # 4 x 640 x 1280 stack)
-    geoms = [_check_sampler("baumberg", 1536, 19, 12, 1000, 640, 20),
-             _check_sampler("descriptors", 1024, 41, 4, 1000, 640, 20),
-             _check_sampler("probe", 4096, 41, 4, 640, 1280, 20)]
+    # the sampler on level stacks, as the main path calls it for
+    # orientation and descriptor patches (per_view 512 x max_angles 2,
+    # P=41), and at the TPU probe's shape
+    # (scripts/pallas_sampler_probe.py: K=4096, P=41 over 4 x 640 x 1280);
+    # and on prefetched windows at the Baumberg geometries (all six
+    # octaves at once, and the K=256 of one baumberg_adapt call)
+    geoms = [
+        _check_sampler("descriptors", 1024, 41, 4, 1000, 640, 20, True),
+        _check_sampler("probe", 4096, 41, 4, 640, 1280, 20, True),
+        _check_sampler("baumberg windows", 1536, 19, 12, 1000, 640, 20,
+                       False),
+        _check_sampler("baumberg windows, one call", 256, 19, 12, 1000, 640,
+                       20, False)]
     for g in geoms:
         print(f"[2] window_sampler {json.dumps(g)}", flush=True)
+    octaves = _zoom2x_octaves()
+    smm = [_check_baumberg(o, octaves[o], 20) for o in (0, 3)]
+    for g in smm:
+        print(f"[2] baumberg_smm {json.dumps(g)}", flush=True)
 
-    _drive_main_path(S.sample_from_windows)
-    launches = S.sample_from_windows.launches     # read just after
-    print(f"[3] window_sampler launches on the main path: {launches}",
+    launches = _drive_main_path({
+        "baumberg_smm": [B.baumberg_adapt],
+        "window_sampler": [S.sample_affine_patches, S.sample_from_windows]})
+    print(f"[3] kernel launches on the main path: {json.dumps(launches)}",
           flush=True)
 
     _small_pair_card_vs_cpu()
     _profile_main_path()
 
-    main_geom = geoms[0]
-    kernels = [dict(
-        name="window_sampler", route="cuda",
-        source="mods_tpu_torch/csrc/window_sampler.cu",
-        replaces="mods_tpu/ops/sampler.py:190",
-        launches=launches,
-        max_abs_err=max(g["max_abs_err"] for g in geoms),
-        ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],
-        bound_ms=main_geom["bound_ms"], bound_by=main_geom["bound_by"],
-        library_ms=main_geom["library_ms"], geometries=geoms)]
+    kernels = []
+    for name, replaces, checks in (
+            ("baumberg_smm", "mods_tpu/ops/sampler.py:190", smm),
+            ("window_sampler", "mods_tpu/ops/sampler.py:190", geoms)):
+        main_geom = checks[0]          # the main path's shape
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"mods_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(g["max_abs_err"] for g in checks),
+            ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],
+            bound_ms=main_geom["bound_ms"], bound_by=main_geom["bound_by"],
+            library_ms=main_geom["library_ms"], geometries=checks))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

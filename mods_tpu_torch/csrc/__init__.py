@@ -3,7 +3,8 @@
 Each ``<name>.cu`` has a plain C interface.  It is compiled with ``nvcc``
 for Hopper (``sm_90a``) into ``mods_tpu_torch/_build/`` at first use and
 bound with ``ctypes``; nothing here runs at import.  The library's file
-name carries a hash of its source, so an edited kernel is rebuilt.
+name carries a hash of its source and of the ``*.cuh`` headers beside it,
+so an edited kernel or header is rebuilt.
 """
 
 from __future__ import annotations
@@ -17,8 +18,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
+# -fmad=false: nvcc must not contract a multiply and an add into an FMA,
+# which rounds once where the plain PyTorch versions round twice.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -36,8 +40,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -97,18 +97,16 @@ def apply_detection_mode(regs: Regions, p: PyramidParams, out_cap: int,
     return out.masked_where(keep)
 
 
-def detect_affine_keypoints(imgs: torch.Tensor, valid_hw: torch.Tensor,
-                            p: PyramidParams, aff: AffineShapeParams,
-                            caps: CapacityParams,
-                            reg_number: torch.Tensor | None = None
-                            ) -> Regions:
-    """Full detector over a view batch: imgs (V, H, W) float32 (0..255);
-    valid_hw (V, 2) int32 actual (h, w) per view.  Returns Regions
-    (V, caps.per_view) in view coordinates, |response|-ordered."""
+def octave_keypoints(imgs: torch.Tensor, valid_hw: torch.Tensor,
+                     p: PyramidParams, caps: CapacityParams):
+    """Per octave, the localized keypoints of all views as Baumberg takes
+    them: yields (pixel_distance, stack, lvl_flat, xy, s, ok, val,
+    sub_type) with the views folded into the level axis of one
+    (V*(L+2), H, W) stack (hessaff.py:144-152) and xy (V, cap, 2), the
+    rest (V, cap), octave-local."""
     pos_th, fin_th = _thresholds(p)
     octaves = ss.build_pyramid(imgs, p)
     hw_host = [tuple(int(v) for v in row) for row in valid_hw.tolist()]
-    per_oct = []
     for octv in octaves:
         pd = octv.pixel_distance
         oh, ow = octv.blurs.shape[-2:]
@@ -121,17 +119,29 @@ def detect_affine_keypoints(imgs: torch.Tensor, valid_hw: torch.Tensor,
             baum_cap, pos_th, fin_th, octv.sigmas) for v in range(V)]
         xy_o, s_o, lvl_o, ok_o, val_o, sub_o = (
             torch.stack(t) for t in zip(*outs))
-        # Baumberg over ALL views at once: views fold into the level axis
-        # of one (V*(L+2), H, W) stack (hessaff.py:144-152)
         stack = octv.blurs.reshape(V * L2, oh, ow)
         lvl_flat = (torch.arange(V, device=imgs.device)[:, None] * L2
                     + lvl_o - 1).reshape(-1)
+        yield pd, stack, lvl_flat, xy_o, s_o, ok_o, val_o, sub_o
+
+
+def detect_affine_keypoints(imgs: torch.Tensor, valid_hw: torch.Tensor,
+                            p: PyramidParams, aff: AffineShapeParams,
+                            caps: CapacityParams,
+                            reg_number: torch.Tensor | None = None
+                            ) -> Regions:
+    """Full detector over a view batch: imgs (V, H, W) float32 (0..255);
+    valid_hw (V, 2) int32 actual (h, w) per view.  Returns Regions
+    (V, caps.per_view) in view coordinates, |response|-ordered."""
+    per_oct = []
+    for pd, stack, lvl_flat, xy_o, s_o, ok_o, val_o, sub_o in \
+            octave_keypoints(imgs, valid_hw, p, caps):
+        # Baumberg over ALL views at once
         A_f, ok_f = baumberg_adapt(
             stack, lvl_flat, xy_o.reshape(-1, 2), s_o.reshape(-1),
             ok_o.reshape(-1), aff)
         per_oct.append(Regions(
-            xy=xy_o * pd, A=A_f.reshape(V, baum_cap, 2, 2), s=s_o * pd,
-            response=val_o, sub_type=sub_o,
-            mask=ok_f.reshape(V, baum_cap)))
+            xy=xy_o * pd, A=A_f.reshape(ok_o.shape + (2, 2)), s=s_o * pd,
+            response=val_o, sub_type=sub_o, mask=ok_f.reshape(ok_o.shape)))
     regs = concat_regions(per_oct)
     return apply_detection_mode(regs, p, caps.per_view, reg_number)

@@ -2,9 +2,11 @@
 ``mods_tpu/models/flagship.py``): detect -> orient -> describe -> FGINN
 match -> LO-RANSAC H, for one identity view per image.
 
-Every patch the step reads goes through the window-sampler kernel
-(``ops/sampler.py::sample_from_windows``): Baumberg, orientation and
-descriptor patches.  The stages run inside ``torch.profiler`` ranges
+Every patch the step reads is sampled by a hand-written kernel: the
+Baumberg iteration inside ``csrc/baumberg_smm.cu``
+(``detectors/baumberg.py::baumberg_adapt``), orientation and descriptor
+patches by ``csrc/window_sampler.cu``
+(``ops/sampler.py::sample_affine_patches``).  The stages run inside ``torch.profiler`` ranges
 (``mods.detect``, ``mods.orient``, ``mods.describe``, ``mods.match``,
 ``mods.ransac``), which cost nothing unless a profiler is recording
 (``chip_smoke.py`` phase 5).

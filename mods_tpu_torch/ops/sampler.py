@@ -1,16 +1,21 @@
 """Windowed affine patch sampling (mirrors ``mods_tpu/ops/sampler.py``).
 
-Every patch the main path reads goes through ``sample_from_windows``:
-Baumberg SMM resampling (P=19), orientation patches and descriptor
-patches (P=41).  Per keypoint, ``prepare_windows`` fetches one
-(rows, 128) window around the center from a (L, H, W) level stack;
-``sample_from_windows`` then takes the P x P bilinear samples inside it.
+Orientation and descriptor patches (P=41) go through
+``sample_affine_patches``; the Baumberg iteration (P=19) samples the same
+way inside its own kernel (``detectors/baumberg.py``).  Per keypoint the
+samples are taken inside one (rows, 128) window of its level, centred on
+the keypoint and clipped into the canvas.
 
-``sample_from_windows`` is the wrapper of the hand-written CUDA kernel
-``csrc/window_sampler.cu`` (the port of the TPU kernel
-``_make_sample_kernel``).  A CUDA tensor launches the kernel or raises;
-a CPU tensor runs ``sample_from_windows_plain``, the same arithmetic in
-PyTorch.  There is no fallback from the one to the other.
+``sample_affine_patches`` and ``sample_from_windows`` are the wrappers of
+the hand-written CUDA kernel ``csrc/window_sampler.cu`` (the port of the
+TPU kernel ``_make_sample_kernel`` and of the window gather that feeds
+it).  On the card the kernel reads the (L, H, W) level stack directly and
+computes each window's origin itself: no (K, rows, 128) window tensor is
+built.  ``sample_from_windows`` hands the same kernel prefetched windows
+as a K-plane stack.  A CUDA tensor launches the kernel or raises; a CPU
+tensor runs the plain version (``prepare_windows`` +
+``sample_from_windows_plain``), the same arithmetic in PyTorch.  There is
+no fallback from the one to the other.
 
 A patch sample is valid iff floor(x) in [0, Wv-2] and floor(y) in
 [0, Hv-2] of its level's valid extent; everything else returns ``fill``.
@@ -144,36 +149,76 @@ def sample_from_windows_plain(ws: WindowSource, xy: torch.Tensor,
 def _window_sample_fn():
     from mods_tpu_torch import csrc
     fn = csrc.load("window_sampler").window_sample
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _sample_from_windows_cuda(ws: WindowSource, xy: torch.Tensor,
-                              A: torch.Tensor, patch_size: int,
-                              fill: float) -> torch.Tensor:
+def _require(what: str, t: torch.Tensor, dtype, dev, shape) -> torch.Tensor:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"window sampler: {what} must be {dtype} {shape} on {dev}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _window_sample_cuda(src: torch.Tensor, xy: torch.Tensor,
+                        A: torch.Tensor, patch_size: int, fill: float,
+                        rows: int, cols: int, *, lvl=None, valid_hw=None,
+                        origin=None) -> torch.Tensor:
+    """Launch the window-sampler kernel (no launch is counted here).
+
+    Stack mode: ``lvl`` (K,) and ``valid_hw`` (planes, 2) given; the
+    kernel places each (rows, cols) window in plane ``lvl_k`` of ``src``.
+    Window mode: ``origin`` = (y0, x0, vw, vh), each (K,); plane k of
+    ``src`` is keypoint k's window.  The kernel copies rows in 16-byte
+    pieces, so W must be a multiple of 4 (every canvas of ``pad_canvas``
+    and every window is).
+    """
+    dev = src.device
     K = xy.shape[0]
-    _, R, X = ws.windows.shape
-    args = (ws.windows, xy, A, ws.y0, ws.x0, ws.vw, ws.vh)
-    dtypes = (torch.float32,) * 3 + (torch.int32,) * 2 + (torch.float32,) * 2
-    dev = ws.windows.device
-    for t, dt in zip(args, dtypes):
-        if t.device != dev or t.dtype != dt or t.shape[0] != K:
-            raise ValueError(
-                f"window sampler: expected {dt} on {dev} with {K} rows, "
-                f"got {t.dtype} on {t.device} with shape {tuple(t.shape)}")
-    if xy.shape != (K, 2) or A.shape != (K, 2, 2) or R < 2 or X < 2:
-        raise ValueError(f"window sampler: bad shapes xy {tuple(xy.shape)}"
-                         f" A {tuple(A.shape)} windows {(K, R, X)}")
-    args = tuple(t.contiguous() for t in args)
+    if not src.is_cuda or src.dtype != torch.float32 or src.dim() != 3:
+        raise ValueError(f"window sampler: source must be a float32 "
+                         f"(planes, H, W) CUDA tensor, got {src.dtype} "
+                         f"{tuple(src.shape)} on {dev}")
+    planes, H, W = src.shape
+    if not 2 <= rows <= H or not 2 <= cols <= W:
+        raise ValueError(f"window sampler: a ({rows}, {cols}) window does "
+                         f"not fit planes of ({H}, {W})")
+    src = src.contiguous()
+    if W % 4 or src.data_ptr() % 16:
+        raise ValueError(f"window sampler: rows of {W} floats at "
+                         f"{src.data_ptr():#x} are not 16-byte aligned")
+    xy = _require("xy", xy, torch.float32, dev, (K, 2))
+    A = _require("A", A, torch.float32, dev, (K, 2, 2))
+    if origin is None:
+        if lvl.is_floating_point() or valid_hw.is_floating_point():
+            raise ValueError("window sampler: lvl and valid_hw are integers")
+        lvl = _require("lvl", lvl.to(torch.int32), torch.int32, dev, (K,))
+        valid_hw = _require("valid_hw", valid_hw.to(torch.int32),
+                            torch.int32, dev, (planes, 2))
+        per_kp = (lvl, valid_hw, None, None, None, None)
+    else:
+        if planes != K:
+            raise ValueError(f"window sampler: {planes} windows for {K} "
+                             "keypoints")
+        y0, x0, vw, vh = origin
+        per_kp = (None, None,
+                  _require("y0", y0, torch.int32, dev, (K,)),
+                  _require("x0", x0, torch.int32, dev, (K,)),
+                  _require("vw", vw, torch.float32, dev, (K,)),
+                  _require("vh", vh, torch.float32, dev, (K,)))
     out = torch.empty((K, patch_size, patch_size), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _window_sample_fn()(
-            *(t.data_ptr() for t in args), out.data_ptr(), K, patch_size,
-            R, X, float(fill), stream)
+            src.data_ptr(), planes, H, W,
+            *(None if t is None else t.data_ptr() for t in per_kp),
+            xy.data_ptr(), A.data_ptr(), out.data_ptr(), K, patch_size,
+            rows, cols, float(fill), stream)
     if err != 0:
         raise RuntimeError(f"window_sampler launch failed: CUDA error {err}")
     return out
@@ -185,11 +230,13 @@ def sample_from_windows(ws: WindowSource, xy: torch.Tensor, A: torch.Tensor,
 
     xy must be the centers the windows were prepared around (level
     coords); A is the current sampling matrix.  CUDA tensors launch the
-    window-sampler kernel (and count the launch); CPU tensors run the
-    plain version.
+    window-sampler kernel on the windows as a K-plane stack (and count
+    the launch); CPU tensors run the plain version.
     """
     if ws.windows.is_cuda:
-        out = _sample_from_windows_cuda(ws, xy, A, patch_size, fill)
+        _, R, X = ws.windows.shape
+        out = _window_sample_cuda(ws.windows, xy, A, patch_size, fill, R, X,
+                                  origin=(ws.y0, ws.x0, ws.vw, ws.vh))
         sample_from_windows.launches += 1
         return out
     return sample_from_windows_plain(ws, xy, A, patch_size, fill)
@@ -198,16 +245,37 @@ def sample_from_windows(ws: WindowSource, xy: torch.Tensor, A: torch.Tensor,
 sample_from_windows.launches = 0    # kernel launches, for chip_smoke.py
 
 
+def sample_affine_patches_plain(src: torch.Tensor, lvl: torch.Tensor,
+                                xy: torch.Tensor, A: torch.Tensor,
+                                patch_size: int, valid_hw: torch.Tensor,
+                                fill: float = 0.0) -> torch.Tensor:
+    """The kernel's plain PyTorch version on a level stack: gather the
+    (K, rows, 128) windows, then the 4-tap gather inside them."""
+    ws = prepare_windows(src, lvl, xy, valid_hw,
+                         rows=rows_for_patch(patch_size))
+    return sample_from_windows_plain(ws, xy, A, patch_size, fill)
+
+
 def sample_affine_patches(src: torch.Tensor, lvl: torch.Tensor,
                           xy: torch.Tensor, A: torch.Tensor,
                           patch_size: int, valid_hw: torch.Tensor,
                           fill: float = 0.0) -> torch.Tensor:
     """Batched affine patch sampling from a (L, H, W) level stack:
     patch[k, j, i] = src[lvl_k](xy_k + A_k @ [di, dj]), bilinear, with the
-    reference's out-of-bounds fill."""
-    ws = prepare_windows(src, lvl, xy, valid_hw,
-                         rows=rows_for_patch(patch_size))
-    return sample_from_windows(ws, xy, A, patch_size, fill)
+    reference's out-of-bounds fill.  CUDA tensors launch the
+    window-sampler kernel on the stack (and count the launch); CPU
+    tensors run the plain version."""
+    if src.is_cuda:
+        out = _window_sample_cuda(
+            src, xy, A, patch_size, fill, rows_for_patch(patch_size),
+            PALLAS_COLS, lvl=lvl, valid_hw=valid_hw)
+        sample_affine_patches.launches += 1
+        return out
+    return sample_affine_patches_plain(src, lvl, xy, A, patch_size,
+                                       valid_hw, fill)
+
+
+sample_affine_patches.launches = 0  # kernel launches, for chip_smoke.py
 
 
 # ---------------------------------------------------------------------------

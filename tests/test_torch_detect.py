@@ -29,6 +29,7 @@ from mods_tpu_torch import config as tc
 from mods_tpu_torch.detectors import baumberg as tb
 from mods_tpu_torch.detectors import hessaff as th
 from mods_tpu_torch.detectors import scale_space as tss
+from mods_tpu_torch.ops import sampler as tb_sampler
 from mods_tpu_torch import regions as tr
 
 torch.set_num_threads(2)
@@ -152,6 +153,140 @@ def test_baumberg_adapt_same_inputs():
     both = jok & tok
     np.testing.assert_allclose(tA.numpy()[both], np.asarray(jA)[both],
                                atol=1e-3)
+
+
+def _smm_case(seed, K, s_lo, s_hi, edge):
+    """An octave blur stack and K keypoints with scales log-uniform in
+    [s_lo, s_hi];
+    ``edge``: every third keypoint lies within 45 px of the canvas edge."""
+    img = _texture(seed, 200, 300)[None]
+    octv = jss.build_pyramid(jnp.asarray(img), PyramidParams())[0]
+    blurs = np.array(octv.blurs[0])
+    rng = np.random.default_rng(seed + 1)
+    xy = np.stack([rng.uniform(50, 250, K), rng.uniform(50, 150, K)],
+                  -1).astype(np.float32)
+    if edge:
+        side = rng.integers(0, 4, K)
+        d = rng.uniform(1, 45, K).astype(np.float32)
+        near = np.stack([np.where(side == 0, d, np.where(side == 1, 300 - d,
+                                                         xy[:, 0])),
+                         np.where(side == 2, d, np.where(side == 3, 200 - d,
+                                                         xy[:, 1]))], -1)
+        xy[::3] = near[::3]
+    s = np.exp(rng.uniform(np.log(s_lo), np.log(s_hi), K)).astype(np.float32)
+    lvl = rng.integers(0, 4, K).astype(np.int32)
+    valid = rng.uniform(size=K) < 0.9
+    return blurs, lvl, xy, s, valid
+
+
+def test_baumberg_adapt_decimated_and_edges():
+    """Keypoints large enough to read the 2x-decimated copy of the stack
+    (s up to 20), a third of them within 45 px of the canvas edge."""
+    blurs, lvl, xy, s, valid = _smm_case(11, 96, 1.6, 20.0, edge=True)
+    aff = AffineShapeParams()
+    max_norm = np.sqrt(6.0) * s / aff.initial_sigma
+    use_half = max_norm * 9 * 1.4143 > 42.0
+    assert min(use_half.sum(), (~use_half).sum()) >= 5    # both branches
+    jA, jok = jax.jit(lambda *a: jb.baumberg_adapt(*a, aff))(
+        *(jnp.asarray(x) for x in (blurs, lvl, xy, s, valid)))
+    tA, tok = tb.baumberg_adapt(*(torch.from_numpy(x) for x in
+                                  (blurs, lvl, xy, s, valid)),
+                                _port(aff))
+    jok, tok = np.asarray(jok), tok.numpy()
+    assert jok.sum() > 10 and (jok & use_half).sum() > 3
+    # as test_baumberg_adapt_same_inputs: 1e-3 on the unit-det shape;
+    # convergence near the 0.05 threshold may flip one
+    assert (jok != tok).sum() <= 2
+    both = jok & tok
+    np.testing.assert_allclose(tA.numpy()[both], np.asarray(jA)[both],
+                               atol=1e-3)
+
+
+def test_baumberg_early_exit_equals_plain():
+    """A per-keypoint loop that stops at the first iteration its keypoint
+    fails or converges gives ``baumberg_adapt_plain``'s result bit for
+    bit: ``done`` is absorbing.  The fused kernel relies on this."""
+    blurs, lvl, xy, s, valid = (torch.from_numpy(x) for x in
+                                _smm_case(12, 64, 1.6, 8.0, edge=True))
+    aff = _port(AffineShapeParams())
+    ru, rok = tb.baumberg_adapt_plain(blurs, lvl, xy, s, valid, aff)
+    big, lvl_eff, xy_eff, inv_scale, ratio, mask = tb._smm_inputs(
+        blurs, lvl, xy, s, aff)
+    ws = tb._prepare_smm_windows(big, lvl_eff, xy_eff)
+    npix = float(mask.numel())
+    iters = []
+    for k in range(xy.shape[0]):
+        w1 = tb.WindowSource(*(getattr(ws, f)[k:k + 1] for f in
+                               ("windows", "y0", "x0", "vw", "vh")))
+        u = torch.eye(2)[None]
+        act = torch.zeros(1)
+        conv, it = False, 0
+        while bool(valid[k]) and it < aff.max_iterations:
+            it += 1
+            A = (u * ratio[k]) * inv_scale[k]
+            patch = tb.sample_from_windows_plain(w1, xy_eff[k:k + 1], A,
+                                                 mask.shape[-1])
+            fx, fy = tb.patch_gradient(patch)
+            a, b, c = ((g * mask).sum((1, 2)) / npix
+                       for g in (fx * fx, fx * fy, fy * fy))
+            na, nb, nc, l1s, l2s = tb.inv_sqrt_2x2(a, b, c)
+            new_act = 1.0 - l2s / l1s
+            nu = torch.stack([
+                torch.stack([na * u[:, 0, 0] + nb * u[:, 1, 0],
+                             na * u[:, 0, 1] + nb * u[:, 1, 1]], -1),
+                torch.stack([nb * u[:, 0, 0] + nc * u[:, 1, 0],
+                             nb * u[:, 0, 1] + nc * u[:, 1, 1]], -1)], -2)
+            e1, e2, real = tb.eigenvalues_2x2(
+                nu[:, 0, 0], nu[:, 0, 1], nu[:, 1, 0], nu[:, 1, 1])
+            if (not bool(torch.isfinite(na) & torch.isfinite(nb)
+                         & torch.isfinite(nc)) or not bool(real)
+                    or bool((e1 / e2 > 6.0) | (e2 / e1 > 6.0))):
+                break
+            conv = bool((new_act < aff.convergence_threshold)
+                        & (act < aff.convergence_threshold))
+            u, act = nu, new_act
+            if conv:
+                break
+        iters.append(it)
+        assert torch.equal(u[0], ru[k]), k
+        assert conv == bool(rok[k]), k
+    # the loop really stops early, and at different iterations
+    assert 1 < max(iters) and len(set(iters)) > 3
+    assert sum(iters) < 0.7 * aff.max_iterations * len(iters)
+
+
+def test_baumberg_samples_stay_in_window():
+    """For every shape of anisotropy <= 6 (the loop fails a keypoint
+    beyond it) and the scales the detector yields (the top level's sigma
+    is 1.6 * 2^(4/3) < 4.3), each Baumberg sample has its taps inside the
+    keypoint's 96 x 128 window or is filled: one window a keypoint serves
+    all iterations."""
+    blurs, lvl, xy, s, _ = (torch.from_numpy(x) for x in
+                            _smm_case(13, 200, 1.6, 4.3, edge=True))
+    aff = _port(AffineShapeParams())
+    big, lvl_eff, xy_eff, inv_scale, ratio, mask = tb._smm_inputs(
+        blurs, lvl, xy, s, aff)
+    assert 0 < (inv_scale < 1).sum() < 200
+    ws = tb._prepare_smm_windows(big, lvl_eff, xy_eff)
+    rng = np.random.default_rng(14)
+    K = xy.shape[0]
+    th, ph = rng.uniform(0, 2 * np.pi, (2, K))
+    for aniso in (1.0, 3.0, 6.0):
+        def rot(t):
+            return np.stack([np.stack([np.cos(t), -np.sin(t)], -1),
+                             np.stack([np.sin(t), np.cos(t)], -1)], -2)
+        D = np.zeros((K, 2, 2))
+        D[:, 0, 0], D[:, 1, 1] = np.sqrt(aniso), 1.0 / np.sqrt(aniso)
+        u = torch.from_numpy((rot(th) @ D @ rot(ph)).astype(np.float32))
+        A = (u * ratio[:, None, None]) * inv_scale[:, None, None]
+        gx, gy, relx, rely = tb_sampler._sample_coords(ws, xy_eff, A, 19)
+        filled = ~((torch.floor(gx) >= 0) & (torch.floor(gy) >= 0)
+                   & (torch.floor(gx) < (ws.vw - 1.0)[:, None])
+                   & (torch.floor(gy) < (ws.vh - 1.0)[:, None]))
+        inside = ((torch.floor(relx) >= 0) & (torch.floor(relx) <= 126)
+                  & (torch.floor(rely) >= 0) & (torch.floor(rely) <= 94))
+        assert bool((inside | filled).all()), aniso
+        assert 0 < int(filled.sum()) < filled.numel() // 2
 
 
 def _sorted_regions(xy, A, s, resp, mask):

@@ -8,18 +8,27 @@ machine, which has no JAX:
 (``--noconftest``: tests/conftest.py configures JAX).  Tests marked
 ``gpu`` skip here, inside the ``cuda`` fixture, when there is no card.
 
-Tolerance, kernel vs plain version: 1e-3 absolute on 0..255 values and
-identical fill positions.  Both round every float operation the same
-way in the same order (see csrc/window_sampler.cu), so they agree bit
-for bit in practice.
+Tolerances, kernel vs plain version:
+
+* window sampler: 1e-3 absolute on 0..255 values and identical fill
+  positions.  Both round every float operation the same way in the same
+  order (see csrc/sampling.cuh), so they agree bit for bit in practice.
+* Baumberg: ``ok`` differs on at most 1 % of the valid keypoints, shapes
+  within 1e-3 where both converged.  The kernel's block reduction adds
+  the second-moment sums in another order than ``torch.sum``, and 16
+  fed-back iterations can carry a keypoint across a threshold.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import mods_tpu_torch.detectors.baumberg as TB
 import mods_tpu_torch.ops.sampler as TS
-from mods_tpu_torch.config import CapacityParams, RansacParams
+from mods_tpu_torch.config import (AffineShapeParams, CapacityParams,
+                                   PyramidParams, RansacParams)
+from mods_tpu_torch.detectors.hessaff import octave_keypoints
+from mods_tpu_torch.models.flagship import default_config
 from mods_tpu_torch.models.flagship import make_two_view_step
 from mods_tpu_torch.pipeline import EngineConfig
 
@@ -36,7 +45,7 @@ def _regions(rng, k, h, w, max_scale):
     return xy, (R * sc[:, None, None]).astype(np.float32)
 
 
-def _inputs(K, P, device, L=6, H=1000, W=640, seed=0):
+def _stack_inputs(K, P, device, L=6, H=1000, W=640, seed=0):
     """A (L, H, W) stack and K keypoints at patch size P, as the main
     path's Baumberg (P=19) and descriptor (P=41) calls see them."""
     rng = np.random.default_rng(seed)
@@ -48,6 +57,12 @@ def _inputs(K, P, device, L=6, H=1000, W=640, seed=0):
     vhw = torch.tensor([[H - 7, W - 3]] * L, dtype=torch.int32,
                        device=device)
     xy, A = (torch.from_numpy(a).to(device) for a in (xy, A))
+    return src, lvl, vhw, xy, A
+
+
+def _inputs(K, P, device, **kw):
+    """The same keypoints with their windows prefetched."""
+    src, lvl, vhw, xy, A = _stack_inputs(K, P, device, **kw)
     ws = TS.prepare_windows(src, lvl, xy, vhw, rows=96)
     return ws, xy, A
 
@@ -61,6 +76,33 @@ def test_cpu_runs_plain_without_counting():
     assert torch.equal(a, b)
     # out-of-extent and NaN centers give fill
     assert (a[0, :, :10] == 2.5).all() and (a[2] == 2.5).all()
+
+
+def test_cpu_stack_runs_plain_without_counting():
+    src, lvl, vhw, xy, A = _stack_inputs(32, 41, "cpu", L=2, H=160, W=256)
+    before = TS.sample_affine_patches.launches
+    a = TS.sample_affine_patches(src, lvl, xy, A, 41, vhw, fill=2.5)
+    b = TS.sample_affine_patches_plain(src, lvl, xy, A, 41, vhw, fill=2.5)
+    assert TS.sample_affine_patches.launches == before
+    assert torch.equal(a, b)
+    assert (a[2] == 2.5).all()                      # NaN center
+
+
+def test_cpu_baumberg_runs_plain_without_counting():
+    rng = np.random.default_rng(1)
+    blurs = torch.from_numpy(rng.uniform(0, 255, (5, 140, 260))
+                             .astype(np.float32))
+    K = 8
+    lvl = torch.from_numpy(rng.integers(0, 4, K))
+    xy = torch.from_numpy(rng.uniform(20, 120, (K, 2)).astype(np.float32))
+    s = torch.full((K,), 2.0)
+    valid = torch.ones(K, dtype=torch.bool)
+    before = TB.baumberg_adapt.launches
+    got = TB.baumberg_adapt(blurs, lvl, xy, s, valid, AffineShapeParams())
+    ref = TB.baumberg_adapt_plain(blurs, lvl, xy, s, valid,
+                                  AffineShapeParams())
+    assert TB.baumberg_adapt.launches == before
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def _small_cfg():
@@ -91,21 +133,44 @@ def test_cpu_step_on_shifted_pair():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
+def _same_patches(got, ref, fill=0.0):
+    assert torch.equal(got == fill, ref == fill)
+    assert (got - ref).abs().max().item() <= 1e-3
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,P", [(1536, 19), (1024, 41)])
+@pytest.mark.parametrize("K,P", [(1536, 19), (256, 19), (1024, 41)])
 def test_kernel_matches_plain(cuda, K, P):
     ws, xy, A = _inputs(K, P, cuda)
     before = TS.sample_from_windows.launches
     got = TS.sample_from_windows(ws, xy, A, P, fill=0.0)
     torch.cuda.synchronize()
     assert TS.sample_from_windows.launches == before + 1
-    ref = TS.sample_from_windows_plain(ws, xy, A, P, fill=0.0)
-    assert torch.equal(got == 0.0, ref == 0.0)
-    assert (got - ref).abs().max().item() <= 1e-3
+    _same_patches(got, TS.sample_from_windows_plain(ws, xy, A, P, fill=0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,P,L,H,W", [
+    (1024, 41, 4, 1000, 640),       # orientation and descriptor patches
+    (4096, 41, 4, 640, 1280),       # scripts/pallas_sampler_probe.py
+    (256, 19, 12, 1000, 640), (300, 31, 3, 144, 384), (300, 32, 3, 144, 384),
+    (300, 21, 3, 144, 384)])        # 21: the generic instance
+def test_stack_kernel_matches_plain(cuda, K, P, L, H, W):
+    src, lvl, vhw, xy, A = _stack_inputs(K, P, cuda, L=L, H=H, W=W)
+    before = TS.sample_affine_patches.launches
+    got = TS.sample_affine_patches(src, lvl, xy, A, P, vhw, fill=0.0)
+    torch.cuda.synchronize()
+    assert TS.sample_affine_patches.launches == before + 1
+    ref = TS.sample_affine_patches_plain(src, lvl, xy, A, P, vhw, fill=0.0)
+    _same_patches(got, ref)
+    _same_patches(
+        TS.sample_affine_patches(src, lvl, xy, A, P, vhw, fill=7.0),
+        TS.sample_affine_patches_plain(src, lvl, xy, A, P, vhw, fill=7.0),
+        fill=7.0)
 
 
 @pytest.mark.gpu
@@ -115,15 +180,70 @@ def test_kernel_rejects_bad_inputs(cuda):
         TS.sample_from_windows(ws, xy.double(), A, 19)
     with pytest.raises(ValueError):
         TS.sample_from_windows(ws, xy.cpu(), A, 19)
+    src, lvl, vhw, xy, A = _stack_inputs(8, 41, cuda, L=1, H=160, W=256)
+    with pytest.raises(ValueError):
+        TS.sample_affine_patches(src.double(), lvl, xy, A, 41, vhw)
+    with pytest.raises(ValueError):
+        TS.sample_affine_patches(src, lvl.cpu(), xy, A, 41, vhw)
+    with pytest.raises(ValueError):
+        TS.sample_affine_patches(src[:, :64], lvl, xy, A, 41, vhw)
+    with pytest.raises(ValueError):             # rows not 16-byte aligned
+        TS.sample_affine_patches(src[:, :, :253], lvl, xy, A, 41, vhw)
+
+
+def _zoom2x_octaves(device):
+    """Baumberg's inputs on the main path: per octave of the zoom2x
+    image, (stack, lvl, xy, s, ok) from the detector's own stages."""
+    from pathlib import Path
+    from mods_tpu_torch.io.png import read_png_gray
+    png = Path(__file__).resolve().parent.parent / ".parity_work" \
+        / "zoom2x_1.png"
+    img = torch.as_tensor(read_png_gray(png), dtype=torch.float32,
+                          device=device)
+    hw = torch.tensor([list(img.shape)], dtype=torch.int32)
+    return [(stack, lvl, xy.reshape(-1, 2), s.reshape(-1), ok.reshape(-1))
+            for _, stack, lvl, xy, s, ok, _, _ in octave_keypoints(
+                img[None], hw, PyramidParams(), default_config().caps)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("octave", [0, 3])
+def test_baumberg_kernel_matches_plain(cuda, octave):
+    stack, lvl, xy, s, ok = _zoom2x_octaves(cuda)[octave]
+    aff = AffineShapeParams()
+    assert lvl.shape[0] == 256 and int(ok.sum()) >= 5
+    before = TB.baumberg_adapt.launches
+    u, good = TB.baumberg_adapt(stack, lvl, xy, s, ok, aff)
+    torch.cuda.synchronize()
+    assert TB.baumberg_adapt.launches == before + 1
+    ru, rgood = TB.baumberg_adapt_plain(stack, lvl, xy, s, ok, aff)
+    assert int(rgood.sum()) >= 3
+    assert int((good != rgood).sum()) <= 0.01 * int(ok.sum())
+    both = good & rgood
+    assert (u - ru)[both].abs().max().item() <= 1e-3
+    assert not good[~ok].any()
+
+
+@pytest.mark.gpu
+def test_baumberg_rejects_bad_inputs(cuda):
+    stack, lvl, xy, s, ok = _zoom2x_octaves(cuda)[3]
+    aff = AffineShapeParams()
+    with pytest.raises(ValueError):
+        TB.baumberg_adapt(stack, lvl, xy.double(), s, ok, aff)
+    with pytest.raises(ValueError):
+        TB.baumberg_adapt(stack, lvl, xy, s.cpu(), ok, aff)
+    with pytest.raises(ValueError):
+        TB.baumberg_adapt(stack, lvl.float(), xy, s, ok, aff)
 
 
 @pytest.mark.gpu
 def test_step_on_card_matches_cpu(cuda):
     i1, i2 = _small_pair()
-    before = TS.sample_from_windows.launches
+    before = (TS.sample_affine_patches.launches, TB.baumberg_adapt.launches)
     card = make_two_view_step(_small_cfg())(
         i1, i2, torch.Generator(device="cuda").manual_seed(0))
-    assert TS.sample_from_windows.launches > before
+    assert TS.sample_affine_patches.launches == before[0] + 4
+    assert TB.baumberg_adapt.launches > before[1]
     cpu = make_two_view_step(_small_cfg(), device="cpu")(
         i1, i2, torch.Generator().manual_seed(0))
     for k in ("n_tentatives", "n_inliers"):

@@ -67,6 +67,33 @@ def test_sample_affine_patches_matches_einsum(P, h, w, fill):
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("P", [19, 31, 32, 41])
+def test_sample_affine_patches_patch_sizes(P):
+    """The patch sizes the engine uses (odd and even), with a NaN center
+    and a center outside the canvas among the keypoints."""
+    rng = np.random.default_rng(100 + P)
+    h, w = 150, 290
+    img = ndimage.gaussian_filter(rng.uniform(0, 255, (3, h, w)),
+                                  (0, 2.0, 2.0)).astype(np.float32)
+    canvas = np.asarray(JS.pad_canvas(jnp.asarray(img)))
+    k = 48
+    xy, A = _regions(rng, k, h, w, max_scale=1.4)
+    xy[:4] = [[np.nan, 40.0], [w + 200.0, h + 50.0], [3.0, h - 1.5],
+              [w - 0.5, 2.0]]
+    lvl = rng.integers(0, 3, k).astype(np.int32)
+    vhw = np.asarray([[h, w], [h - 9, w - 17], [h // 2, w // 2]], np.int32)
+    fill = 3.25
+    ref = np.asarray(JS.sample_affine_patches(
+        jnp.asarray(canvas), jnp.asarray(lvl), jnp.asarray(xy),
+        jnp.asarray(A), P, jnp.asarray(vhw), fill=fill, chunk=16))
+    got = TS.sample_affine_patches(*_t(canvas, lvl, xy, A), P,
+                                   torch.from_numpy(vhw), fill=fill).numpy()
+    assert got.shape == (k, P, P)
+    assert (got[:2] == fill).all()
+    np.testing.assert_array_equal(got == fill, ref == fill)
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+
+
 def test_prepare_windows_identical():
     rng = np.random.default_rng(3)
     src = rng.uniform(0, 255, (3, 144, 384)).astype(np.float32)
