@@ -1,15 +1,17 @@
-"""Typed configuration tree for the flagship two-view step.
+"""Typed configuration tree for the flagship step and the escalation
+ladder.
 
-A copy of the dataclasses of ``mods_tpu/config.py`` that the flagship
-path reads, with the same field names and defaults (the reference's
+A copy of the dataclasses of ``mods_tpu/config.py`` that the ported
+paths read, with the same field names and defaults (the reference's
 constructor defaults: detectors/structures.hpp:127-167, affine.h:91-132,
 descriptors_parameters.hpp:23-37, matching.hpp:97-171).  The port keeps
 its own copy because importing anything of ``mods_tpu`` imports JAX.
 
 ``from_dict`` turns ``dataclasses.asdict`` of a JAX-side ``EngineConfig``
-into this package's ``EngineConfig``.  The flagship path has no learned
-weights (SIFT bins, Gaussian taps and masks all derive from the config),
-so this is all the state the two packages share.
+(or of one ladder rung, with ``cls=IterationParams``) into this
+package's.  The ported paths have no learned weights (SIFT bins,
+Gaussian taps and masks all derive from the config), so this is all the
+state the two packages share.
 """
 
 from __future__ import annotations
@@ -109,9 +111,21 @@ class SIFTDescriptorParams:
 
 
 @dataclass(frozen=True)
+class OrbParams:
+    """reference ORBParams (detectors_parameters.hpp:203-233)."""
+    nfeatures: int = 500
+    scale_factor: float = 1.2
+    nlevels: int = 8
+    edge_threshold: int = 31
+    first_level: int = 0
+    wta_k: int = 2
+    do_nms: int = 1
+    fast_threshold: float = 20.0    # cv::ORB internal default
+
+
+@dataclass(frozen=True)
 class MatchParams:
-    """reference matching.hpp:97-146 (the fields the flagship reads,
-    plus the ones a JAX-side config carries, so ``from_dict`` is total)."""
+    """reference matching.hpp:97-146."""
     ratio_threshold: float = 0.8
     distance_threshold: float = 64.0
     contrad_dist: float = 10.0
@@ -123,6 +137,26 @@ class MatchParams:
     dist_per_desc: tuple = ()
     use_db_for_fginn: bool = False
     sift_db_file: str = ""
+
+    def group_fginn(self, desc: str) -> float:
+        return dict(self.fginn_per_desc).get(desc, 0.0)
+
+    def group_distance(self, desc: str) -> float:
+        return dict(self.dist_per_desc).get(desc, 0.0)
+
+
+@dataclass(frozen=True)
+class MatchPlan:
+    """Per-rung matching plan (the reference ``WhatToMatch`` struct,
+    io_mods.cpp:487-501): each descriptor in ``group_descriptors`` is
+    matched once over the pooled regions of all ``group_detectors`` with
+    the global thresholds; each (detector, descriptor) of
+    ``separate_detectors`` x ``separate_descriptors`` on its own with the
+    rung's thresholds, and only when that detector ran this rung."""
+    group_descriptors: tuple = ()
+    group_detectors: tuple = ()
+    separate_detectors: tuple = ()
+    separate_descriptors: tuple = ()
 
 
 class RansacErrorType:
@@ -164,11 +198,91 @@ class CapacityParams:
     tentatives: int = 2048
 
 
+@dataclass(frozen=True)
+class ViewParams:
+    """One synthetic view: (tilt, phi, zoom), reference
+    ViewSynthParameters (structures.hpp:219-231).  phi in radians; a
+    negative tilt in a tilt set means vertical-tilt mode and is stored
+    with ``vertical=True`` and positive tilt."""
+    tilt: float = 1.0
+    phi: float = 0.0
+    zoom: float = 1.0
+    init_sigma: float = 0.5
+    do_blur: bool = True
+    vertical: bool = False
+
+
+@dataclass(frozen=True)
+class IterationParams:
+    """One rung of the escalation ladder: detector -> views -> descriptors
+    with per-descriptor match thresholds (reference iters_*.ini sections,
+    io_mods.cpp:653-688)."""
+    detector: str = "HessianAffine"
+    descriptors: tuple[str, ...] = ("RootSIFT",)
+    tilt_set: tuple[float, ...] = (1.0,)
+    scale_set: tuple[float, ...] = (1.0,)
+    phi_base: float = 360.0
+    init_sigma: float = 0.5
+    do_blur: bool = True
+    fginn_threshold: tuple[float, ...] = (0.8,)
+    distance_threshold: tuple[float, ...] = (0.0,)
+
+    def fginn_for(self, desc: str) -> float:
+        m = dict(zip(self.descriptors, self.fginn_threshold))
+        return m.get(desc, 0.0)
+
+    def distance_for(self, desc: str) -> float:
+        m = dict(zip(self.descriptors, self.distance_threshold))
+        return m.get(desc, 0.0)
+
+
+@dataclass(frozen=True)
+class Rung:
+    """One ladder step: the detector iterations that run (the reference
+    allows several per step, io_mods.cpp:663-688) plus the step's
+    matching plan."""
+    dets: tuple[IterationParams, ...] = (IterationParams(),)
+    plan: MatchPlan | None = None
+
+    @property
+    def detectors(self) -> tuple[str, ...]:
+        return tuple(d.detector for d in self.dets)
+
+    def default_plan(self) -> MatchPlan:
+        """With no plan given: match each of this rung's (detector,
+        descriptor) pairs separately."""
+        descs = []
+        for d in self.dets:
+            for name in d.descriptors:
+                if name not in descs:
+                    descs.append(name)
+        return MatchPlan(separate_detectors=self.detectors,
+                         separate_descriptors=tuple(descs))
+
+
+def as_rungs(ladder) -> list:
+    """Normalize a ladder given as IterationParams list / Rung list."""
+    out = []
+    for item in ladder:
+        if isinstance(item, Rung):
+            out.append(item)
+        elif isinstance(item, IterationParams):
+            out.append(Rung(dets=(item,)))
+        else:
+            out.append(Rung(dets=tuple(item)))
+    return out
+
+
+def replace(obj, **kw):
+    return dataclasses.replace(obj, **kw)
+
+
 def from_dict(d: dict, cls=None):
     """``dataclasses.asdict(<mods_tpu EngineConfig>)`` -> this package's
     ``EngineConfig`` (or ``cls``, for one parameter group such as
-    ``PyramidParams``).  Keys this package has no field for (the
-    ladder's other detectors and descriptors) are ignored."""
+    ``PyramidParams`` or ``IterationParams``).  Keys this package has
+    no field for (the detectors and descriptors not ported yet) are
+    ignored."""
     if cls is None:
         from mods_tpu_torch.pipeline import EngineConfig
         cls = EngineConfig

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from mods_tpu_torch.config import DetectorType, PyramidParams
 from mods_tpu_torch.ops.gaussian import gaussian_blur
-from mods_tpu_torch.ops.image import half_image
+from mods_tpu_torch.ops.image import gradient, half_image
 from mods_tpu_torch.ops.select import nonzero_static
 
 MAX_SUBPIXEL_SHIFT = 0.6   # pyramid.cpp:27
@@ -38,6 +38,21 @@ def hessian_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
     norm2 = (sigma * sigma) ** 2
     out[..., 1:-1, 1:-1] = (lxx * lyy - lxy * lxy) * norm2
     return out
+
+
+def harris_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Harris corner measure on (..., H, W) (reference
+    pyramid.cpp:283-305, norm = sigma^2).  The ORB detector ranks its
+    FAST corners by it; the Harris scale space itself is not ported."""
+    norm = sigma * sigma
+    sigmasq = 0.6 * norm
+    s = math.sqrt(sigmasq)
+    lx, ly = gradient(img)
+    dx2 = sigmasq * gaussian_blur(lx * lx, s)
+    dy2 = sigmasq * gaussian_blur(ly * ly, s)
+    dxdy = sigmasq * gaussian_blur(lx * ly, s)
+    tr = dx2 + dy2
+    return dx2 * dy2 - dxdy * dxdy - 0.04 * tr * tr
 
 
 @dataclass

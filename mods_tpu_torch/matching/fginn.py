@@ -89,6 +89,28 @@ def match_fginn(desc1: torch.Tensor, mask1: torch.Tensor,
         mask=ok)
 
 
+def match_distance(desc1: torch.Tensor, mask1: torch.Tensor,
+                   desc2: torch.Tensor, mask2: torch.Tensor, threshold,
+                   row_tile: int = 1024,
+                   squared_threshold: bool = False) -> Tentatives:
+    """Absolute-distance matching (``MatchFLANNDistance``,
+    matching.cpp:607-666): the nearest neighbour with distance <=
+    threshold.  For binary (0/1 float) descriptors the squared L2 is the
+    Hamming distance: pass ``squared_threshold=True`` with the Hamming
+    budget (the ladder's distance threshold of 60 for ORB).  The product
+    of 0/1 rows is exact in float32 only with TF32 off, which the package
+    sets at import."""
+    dists, idx = knn_squared_l2(desc1, mask1, desc2, mask2, 2, row_tile)
+    d0 = dists[:, 0]
+    thr = float(threshold)
+    thr2 = thr if squared_threshold else thr * thr
+    ok = mask1 & (d0 <= thr2) & torch.isfinite(d0)
+    return Tentatives(idx2=idx[:, 0], d1=d0, d2=dists[:, 1],
+                      ratio=torch.sqrt(d0 / torch.clamp(dists[:, 1],
+                                                        min=1e-12)),
+                      mask=ok)
+
+
 def duplicate_filter(xy1: torch.Tensor, xy2: torch.Tensor,
                      mask: torch.Tensor, radius: float, iters: int = 8,
                      priority: torch.Tensor | None = None) -> torch.Tensor:

@@ -82,6 +82,18 @@ def two_view_step(img1: torch.Tensor, img2: torch.Tensor,
     return dict(H=H, n_tentatives=n_tent, n_inliers=n_inl)
 
 
+def batched_pair_step(imgs1: torch.Tensor, imgs2: torch.Tensor,
+                      generators: list, cfg: EngineConfig) -> dict:
+    """(P, H, W) x2 pair batch -> ``two_view_step``'s outputs stacked
+    along the pair axis (``mods_tpu/models/flagship.py::batched_pair_step``,
+    a ``jax.vmap`` there).  Here it is a loop over the pairs with one
+    ``torch.Generator`` a pair; the truly batched form belongs with the
+    pair-batched serving path (ROADMAP.md item 22)."""
+    outs = [two_view_step(a, b, g, cfg)
+            for a, b, g in zip(imgs1, imgs2, generators, strict=True)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def default_config() -> EngineConfig:
     """The caps of ``mods_tpu/models/flagship.py:75-80``."""
     return EngineConfig(caps=CapacityParams(

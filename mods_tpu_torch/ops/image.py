@@ -66,3 +66,16 @@ def gauss_mask(size: int) -> np.ndarray:
 def const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A host constant (mask, taps, bin weights) on ``like``'s device."""
     return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+
+
+def to_gray_np(img: np.ndarray) -> np.ndarray:
+    """RGB (H, W, 3) or gray (H, W) -> float32 equal-weight mean gray on
+    the host (synth-detection.cpp:257-262)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 3:
+        img = img.mean(axis=-1, dtype=np.float32)
+    return img
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m

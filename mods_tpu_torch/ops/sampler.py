@@ -292,25 +292,25 @@ def _mip_step_sigma() -> float:
 
 
 def mip_stack(img: torch.Tensor, n_levels: int):
-    """(H, W) -> (levels (n, Hc, Wc), valid_hw (n, 2) int32).  Level l is
-    the image 2x-decimated l times with cumulative blur ~MIP_SIGMA in its
-    own pixels, stored top-left in the padded canvas."""
+    """(..., H, W) -> (levels (..., n, Hc, Wc), valid_hw (n, 2) int32).
+    Level l is the image 2x-decimated l times with cumulative blur
+    ~MIP_SIGMA in its own pixels, stored top-left in the padded canvas.
+    Leading axes (the views of a group) share the level extents."""
     from mods_tpu_torch.ops.gaussian import gaussian_blur
-    h, w = img.shape
+    h, w = img.shape[-2:]
     img = pad_canvas(img)
-    hc, wc = img.shape
     levels = [img]
     valids = [(h, w)]
     cur = img
     for _ in range(1, n_levels):
         blurred = gaussian_blur(cur, _mip_step_sigma())
         h, w = max(h // 2, 1), max(w // 2, 1)
-        dec = blurred[::2, ::2]
-        cur = torch.zeros((hc, wc), dtype=img.dtype, device=img.device)
-        cur[:dec.shape[0], :dec.shape[1]] = dec
+        dec = blurred[..., ::2, ::2]
+        cur = torch.zeros_like(img)
+        cur[..., :dec.shape[-2], :dec.shape[-1]] = dec
         levels.append(cur)
         valids.append((h, w))
-    stack = torch.stack(levels)
+    stack = torch.stack(levels, dim=-3)
     valid_hw = torch.tensor(valids, dtype=torch.int32, device=img.device)
     return stack, valid_hw
 

@@ -1,4 +1,5 @@
-"""Bilinear gathers and patch grids (mirrors ``mods_tpu/ops/warp.py``).
+"""Bilinear gathers, patch grids and the view-synthesis warps (mirrors
+``mods_tpu/ops/warp.py``).
 
 Out-of-bounds samples return ``fill``; a sample is valid iff
 floor(x) in [0, W-2] and floor(y) in [0, H-2], the reference's safe
@@ -6,6 +7,8 @@ floor(x) in [0, W-2] and floor(y) in [0, H-2], the reference's safe
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -104,3 +107,91 @@ def touches_border(img_w, img_h, xy, A, half_extent_x, half_extent_y,
     bad = ((torch.floor(ix) <= 0) | (torch.floor(iy) <= 0)
            | (torch.ceil(ix) >= img_w - 2) | (torch.ceil(iy) >= img_h - 2))
     return bad.any(dim=-1)
+
+
+def _shear_x(img: torch.Tensor, slope: torch.Tensor, off: torch.Tensor,
+             out_w: int, fill: float) -> torch.Tensor:
+    """out[r, c] = img[r, c + slope*r + off], linear along x, ``fill``
+    outside; img (H, W), slope and off 0-dim tensors.
+
+    The JAX package reads one slice per 8-row block at the block's least
+    integer offset and resolves each row's residual shift in [0, 8]
+    inside it; the block origin is clipped into the padded row.  This is
+    the same arithmetic per row (block origin, clip, residual, weight) as
+    one gather, so both give the same values also where the clip acts.
+    |slope| <= 1 keeps the residual within the block."""
+    H, W = img.shape
+    Hp = -(-H // 8) * 8
+    pad = out_w + 16
+    img_p = torch.nn.functional.pad(img, (pad, pad, 0, Hp - H), value=fill)
+    r = torch.arange(Hp, dtype=torch.float32, device=img.device)
+    s = slope * r + off
+    sb = s.reshape(Hp // 8, 8)
+    base = torch.floor(sb.amin(dim=1))
+    delta = sb - base[:, None]                              # [0, 8]
+    basei = (to_index(base) + pad).clamp(0, W + 2 * pad - out_w - 10)
+    d0 = torch.floor(delta)
+    w = (delta - d0).reshape(Hp, 1)
+    d0i = to_index(d0).reshape(Hp)
+    # a residual outside [0, 8] matches none of the JAX form's 9 shifted
+    # views and gives 0 there
+    inside = ((d0i >= 0) & (d0i <= 8))[:, None]
+    start = basei.repeat_interleave(8) + d0i.clamp(0, 8)
+    idx = start[:, None] + torch.arange(out_w, device=img.device)
+    lo = torch.gather(img_p, 1, idx)
+    hi = torch.gather(img_p, 1, idx + 1)
+    out = torch.where(inside, lo * (1.0 - w) + hi * w, 0.0)
+    return out[:H]
+
+
+def shear_rotate(img: torch.Tensor, rot_inv: torch.Tensor, out_h: int,
+                 out_w: int, fill: float = 128.0) -> torch.Tensor:
+    """Rotation warp of (H, W) as three x-shears (with transposes
+    between), for a 2x3 inverse map whose linear part is a pure rotation
+    (``mods_tpu/ops/warp.py::shear_rotate``): with
+    theta = atan2(-rot_inv[1,0], rot_inv[0,0]), alpha = tan(theta/2),
+    beta = -sin(theta).  |theta| > pi/2 first flips the source (both axes
+    reversed == rotation by pi), so alpha stays <= 1.  Three 1-D linear
+    interpolations, not one 2-D bilinear: values differ from a bilinear
+    warp by up to 1 %, and equal the JAX package's."""
+    a = rot_inv[0, 0]
+    c_ = rot_inv[1, 0]
+    tx = rot_inv[0, 2]
+    ty = rot_inv[1, 2]
+    theta = torch.atan2(-c_, a)
+    H, W = img.shape
+    flip = theta.abs() > (math.pi / 2 + 1e-6)
+    theta_f = theta - torch.sign(theta) * math.pi
+    img_eff = torch.where(flip, img.flip(0, 1), img)
+    th = torch.where(flip, theta_f, theta)
+    txe = torch.where(flip, (W - 1.0) - tx, tx)
+    tye = torch.where(flip, (H - 1.0) - ty, ty)
+    alpha = torch.tan(th / 2.0)
+    beta = -torch.sin(th)
+    wa = out_w + H + 8
+    sa = _shear_x(img_eff, alpha, txe - alpha * tye, wa, fill)
+    sb = _shear_x(sa.T, beta, tye, out_h, fill).T
+    return _shear_x(sb, alpha, torch.zeros_like(alpha), out_w, fill)
+
+
+def separable_scale(img: torch.Tensor, inv_sx, inv_sy, out_h: int,
+                    out_w: int) -> torch.Tensor:
+    """Axis-aligned scale warp of (..., H, W) (x_src = inv_sx * x,
+    y_src = inv_sy * y) as two 1-D resamples, indices clamped into the
+    image; inv_sx and inv_sy are floats or 0-dim tensors."""
+    H, W = img.shape[-2:]
+    dev = img.device
+    src_y = torch.arange(out_h, dtype=torch.float32, device=dev) * inv_sy
+    y0 = torch.floor(src_y)
+    wy = (src_y - y0)[:, None]
+    i0 = to_index(y0).clamp(0, H - 1)
+    i1 = (i0 + 1).clamp(0, H - 1)
+    rows = (img.index_select(-2, i0) * (1.0 - wy)
+            + img.index_select(-2, i1) * wy)
+    src_x = torch.arange(out_w, dtype=torch.float32, device=dev) * inv_sx
+    x0 = torch.floor(src_x)
+    wx = src_x - x0
+    j0 = to_index(x0).clamp(0, W - 1)
+    j1 = (j0 + 1).clamp(0, W - 1)
+    return (rows.index_select(-1, j0) * (1.0 - wx)
+            + rows.index_select(-1, j1) * wx)

@@ -1,21 +1,98 @@
-"""Engine-level constants and the configuration the flagship step reads
-(mirrors ``mods_tpu/pipeline.py:52,117-132``; the escalation ladder
-itself is a later slice of the port)."""
+"""The two-view matching engine: the escalation ladder (mirrors
+``mods_tpu/pipeline.py``).
+
+Reference call stack (mods.cpp:229-415): per iteration,
+SynthDetectDescribeKeypoints on both images
+(imagerepresentation.cpp:603), MatchImgReps
+(correspondencebank.cpp:237), DuplicateFiltering, geometric
+verification; stop when verified matches >= minMatches.
+
+Per (tilt, zoom) view group three stages run one after the other, all
+batched over the group's rotations: render (shear rotation, anti-alias
+blur, squash), detect (HessianAffine or ORB) and describe (orientation
+families + shared patch extraction + the SIFT-variant normalizations or
+rBRIEF).  Matching and verification run over fixed-capacity
+per-descriptor feature stores on the device, with tentative lists
+concatenated across descriptors like the reference's
+CorrespondenceBank.
+
+Every patch the ladder samples goes through
+``ops/sampler.py::sample_affine_patches`` and every Baumberg call through
+``detectors/baumberg.py::baumberg_adapt``: on the card these launch the
+hand-written kernels ``csrc/window_sampler.cu`` and
+``csrc/baumberg_smm.cu``.
+
+Ported here: the device detectors HessianAffine and ORB, the ``sift`` and
+``binary`` descriptor kinds, LO-RANSAC H verification (and GR_TRUTH with
+its dual mode), the ``sync`` and ``async`` stop modes.  What is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
+import torch
+
+from mods_tpu_torch import synthesis
 from mods_tpu_torch.config import (AffineShapeParams, CapacityParams,
-                                   DominantOrientationParams, MatchParams,
-                                   PyramidParams, RansacParams,
-                                   SIFTDescriptorParams)
+                                   DominantOrientationParams,
+                                   IterationParams, MatchParams, OrbParams,
+                                   PyramidParams, RansacParams, Rung,
+                                   SIFTDescriptorParams, as_rungs, replace)
+from mods_tpu_torch.descriptors.describe import (DESC_MIP_LEVELS,
+                                                 aa_filter_patches,
+                                                 image_to_patch_scale)
+from mods_tpu_torch.descriptors.orientation import (find_peaks,
+                                                    orientation_histograms,
+                                                    rotate_shapes,
+                                                    smooth_circular)
+from mods_tpu_torch.descriptors.registry import get_spec, spec_for
+from mods_tpu_torch.descriptors.sift import sift_histograms, sift_norm
+from mods_tpu_torch.detectors.hessaff import detect_affine_keypoints
+from mods_tpu_torch.device import resolve_device
+from mods_tpu_torch.matching.fginn import (duplicate_filter, match_distance,
+                                           match_fginn)
+from mods_tpu_torch.ops.gaussian import gaussian_blur_rt
+from mods_tpu_torch.ops.image import to_gray_np
+from mods_tpu_torch.ops.sampler import (mip_stack, sample_affine_patches,
+                                        select_level)
+from mods_tpu_torch.ops.select import nonzero_static
+from mods_tpu_torch.ops.warp import (separable_scale, shear_rotate,
+                                     touches_border)
+from mods_tpu_torch.ransac.homography import ransac_h
+from mods_tpu_torch.ransac.laf_check import K_SIGMA, h_laf_check
+from mods_tpu_torch.timing import TimeLog
+from mods_tpu_torch.verify import gt_h_inliers
 
 MIN_POINTS = 8  # matching.hpp MIN_POINTS
+
+# Border-rejection band cap as a fraction of the original image extent:
+# the reprojection filter (ReprojectRegions, synth-detection.cpp:567-580)
+# equals the reference's whenever region supports are below this fraction
+# of the image, and degrades gracefully on tiny images.
+BORDER_CLAMP_FRAC = 0.2
+
+# detectors that run fully on the device; the rest (MSER, ReadAffs,
+# External) need a host stage
+DEVICE_DETECTORS = ("HessianAffine", "DoG", "HarrisAffine", "ORB", "SURF",
+                    "KAZE", "TILDE", "FAST", "STAR", "BRISK")
+# the ROADMAP.md item that ports each detector this slice leaves out
+_DETECTOR_ITEM = {"DoG": 19, "HarrisAffine": 19, "SURF": 19, "KAZE": 19,
+                  "TILDE": 19, "FAST": 19, "STAR": 19, "BRISK": 19,
+                  "MSER": 16, "ReadAffs": 16, "External": 16}
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md item {item}")
 
 
 @dataclass(frozen=True)
 class EngineConfig:
+    """The fields of ``mods_tpu/pipeline.py::EngineConfig`` that the
+    ported paths read."""
     pyramid: PyramidParams = field(default_factory=PyramidParams)
     affine: AffineShapeParams = field(default_factory=AffineShapeParams)
     dom_ori: DominantOrientationParams = field(
@@ -25,3 +102,863 @@ class EngineConfig:
     match: MatchParams = field(default_factory=MatchParams)
     ransac: RansacParams = field(default_factory=RansacParams)
     caps: CapacityParams = field(default_factory=CapacityParams)
+    min_matches: int = 10
+    max_steps: int = 7
+    orb: OrbParams = field(default_factory=OrbParams)
+    # GR_TRUTH | LORANSACH | LORANSACF | ORSA (mods.cpp:310-371); empty
+    # defers to ransac.use_f
+    ver_type: str = ""
+    # GR_TRUTH dual mode: additionally run RANSAC and GT-check its output
+    # (doBothRANSACgroundTruth, mods.cpp:320-334)
+    do_both_ransac_gt: bool = False
+    # tentative-bank drops at given steps: mods.cpp:288-289 hardcodes
+    # ClearCorrespondences("ORB","ORB") at step 2 of the CVIU ladder
+    clear_tentatives: tuple = ((2, "ORB", "ORB"),)
+
+    def pyramid_for(self, detector: str) -> PyramidParams:
+        if detector != "HessianAffine":
+            raise _not_ported(f"the {detector} scale space",
+                              _DETECTOR_ITEM.get(detector, 19))
+        return self.pyramid
+
+
+class DeviceStore:
+    """Device-resident fixed-capacity feature store of one image for one
+    (detector, descriptor): the reference's ImageRepresentation slot
+    (imagerepresentation.h:66).  ``append`` scatters a group's compacted
+    rows in place at the running count; rows past the capacity go to a
+    spare row that no consumer reads.  Nothing crosses to the host until
+    a consumer asks (``.xy``/``.count`` properties)."""
+
+    def __init__(self, cap: int, dim: int, device="cpu"):
+        self.cap = cap
+        self.dim = dim
+        z = dict(dtype=torch.float32, device=device)
+        self._xy = torch.zeros((cap + 1, 2), **z)
+        self._A = torch.zeros((cap + 1, 2, 2), **z)
+        self._s = torch.zeros((cap + 1,), **z)
+        self._r = torch.zeros((cap + 1,), **z)
+        self._d = torch.zeros((cap + 1, dim), **z)
+        self._n = torch.zeros((), dtype=torch.int64, device=device)
+
+    def reset(self) -> None:
+        """New pair: rewind the count.  Rows past the count are never
+        read (every consumer masks by the count prefix)."""
+        self._n.zero_()
+
+    def append(self, xy, A, s, r, d, n) -> None:
+        """Write the first ``n`` (a 0-dim tensor) of the C given rows at
+        offset count, dropping what does not fit."""
+        C = xy.shape[0]
+        row = torch.arange(C, device=xy.device)
+        pos = self._n + row
+        pos = torch.where((row < n) & (pos < self.cap), pos, self.cap)
+        self._xy[pos] = xy
+        self._A[pos] = A
+        self._s[pos] = s
+        self._r[pos] = r
+        self._d[pos] = d
+        self._n = torch.clamp(self._n + n, max=self.cap)
+
+    def device_arrays(self):
+        """(xy, A, s, desc, count), all on the device."""
+        c = self.cap
+        return self._xy[:c], self._A[:c], self._s[:c], self._d[:c], self._n
+
+    # host views (tests and export paths only: these synchronize)
+    @property
+    def count(self) -> int:
+        return int(self._n)
+
+    @property
+    def xy(self):
+        return self._xy[: self.count].cpu().numpy()
+
+    @property
+    def A(self):
+        return self._A[: self.count].cpu().numpy()
+
+    @property
+    def s(self):
+        return self._s[: self.count].cpu().numpy()
+
+    @property
+    def response(self):
+        return self._r[: self.count].cpu().numpy()
+
+    @property
+    def desc(self):
+        return self._d[: self.count].cpu().numpy()
+
+
+def stores_from_numpy(xy, A, s, response, desc, cap: int,
+                      device="cpu") -> DeviceStore:
+    """A ``DeviceStore`` holding the given (N, ...) host rows: carries a
+    JAX-side store across, so matching and verification can be checked on
+    identical input."""
+    n = min(len(xy), cap)
+    st = DeviceStore(cap, np.asarray(desc).shape[-1], device)
+    for buf, a in ((st._xy, xy), (st._A, A), (st._s, s), (st._r, response),
+                   (st._d, desc)):
+        buf[:n] = torch.as_tensor(np.asarray(a)[:n], dtype=torch.float32,
+                                  device=device)
+    st._n = torch.tensor(n, dtype=torch.int64, device=device)
+    return st
+
+
+# --------------------------------------------------------------------------
+# per-group stages
+
+def _make_render_fn(V: int, h0: int, w0: int, hr: int, wr: int, hc: int,
+                    wc: int, do_blur: bool, identity: bool):
+    """Batched view-group renderer: ``render(img, rot_inv, squash_inv,
+    sig_x, sig_y, valid_hw)`` -> (V, hc, wc) views.  The per-group
+    geometry (rotation maps, anti-alias sigmas, squash scales) arrives as
+    device tensors that ``_prep_groups`` caches."""
+
+    def clamp_pad(views, valid_hw):
+        # replicate the last valid row/col into the bucketed-canvas pad:
+        # a constant-fill pad would manufacture a strong artificial edge
+        # at the valid boundary and spawn junk detections there
+        dev = views.device
+        vh = valid_hw[:, 0].clamp(min=1).to(torch.int64)
+        vw = valid_hw[:, 1].clamp(min=1).to(torch.int64)
+        rows = torch.minimum(torch.arange(hc, device=dev)[None],
+                             vh[:, None] - 1)
+        cols = torch.minimum(torch.arange(wc, device=dev)[None],
+                             vw[:, None] - 1)
+        v = torch.arange(V, device=dev)[:, None, None]
+        return views[v, rows[:, :, None], cols[:, None, :]]
+
+    def render(img, rot_inv, squash_inv, sig_x, sig_y, valid_hw):
+        if identity:
+            views = torch.full((V, hc, wc), 128.0, dtype=img.dtype,
+                               device=img.device)
+            views[:, :h0, :w0] = img
+        else:
+            # rotation as 3 shears, the tilt squash as a separable
+            # axis-aligned resample (ops/warp.py); one view at a time
+            # bounds the gather indices to a single canvas
+            rots = torch.stack([shear_rotate(img, rot_inv[v], hr, wr)
+                                for v in range(V)])
+            if do_blur:
+                rots = gaussian_blur_rt(rots, sig_x, sig_y)
+            views = separable_scale(rots, squash_inv[0, 0],
+                                    squash_inv[1, 1], hc, wc)
+        return clamp_pad(views, valid_hw)
+
+    return render
+
+
+def _take_fill(a: torch.Tensor, idx: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(a, idx, axis=0, mode="fill", fill_value=0)`` for the
+    (idx, valid) of ``nonzero_static``: the padding slots read 0, and no
+    out-of-range index reaches the device."""
+    out = a[idx]
+    return torch.where(valid.reshape((-1,) + (1,) * (out.ndim - 1)), out,
+                       torch.zeros_like(out))
+
+
+def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
+                  specs: tuple, dom_ori: DominantOrientationParams,
+                  pe_mr: float, pe_patch: int, pe_photo: bool,
+                  caps: CapacityParams):
+    """views + Regions(V, K) + hinv -> per-descriptor compacted regions,
+    appended to the descriptors' ``DeviceStore``.
+
+    Detections are compacted across the whole view group to
+    C1 = caps.per_group rows (with a per-row source-view index) before any
+    patch work, so orientation and description each sample C rows in one
+    kernel launch instead of V*K padded rows.  Orientation families
+    (SIFT-like vs HalfSIFT-like, imagerepresentation.cpp:1253-1269) share
+    one gradient histogram and differ only in peak folding; SIFT variants
+    share patches and histograms and differ only in folding and
+    normalization (siftdesc.cpp operator())."""
+    specs = tuple(get_spec(s) for s in specs)
+    for sp in specs:
+        if sp.kind not in ("sift", "binary"):
+            raise _not_ported(f"descriptor kind {sp.kind!r} ({sp.name})", 20)
+    M = caps.max_angles
+    C1 = min(caps.per_group, V * K)          # detection-stage rows
+    C2 = min(caps.per_group, C1 * M)         # descriptor-stage rows
+    L = DESC_MIP_LEVELS
+
+    def fam_key(sp):
+        if sp.kind == "binary":
+            # detected frames used directly, no dominant orientation
+            return "none"
+        return "half" if sp.half_sift_like else "sift"
+
+    families = sorted({fam_key(sp) for sp in specs})
+
+    def program(views, valid_hw, regs_xy, regs_A, regs_s, regs_resp,
+                regs_mask, hinv, stores):
+        dev = views.device
+        mips_v, mip_hw = mip_stack(views, L)          # (V, L, Hp, Wp)
+        Hp, Wp = mips_v.shape[-2:]
+        src = mips_v.reshape(V * L, Hp, Wp)
+        hw_flat = mip_hw.repeat(V, 1)                 # (V*L, 2)
+
+        # stage 1: compact detections across views (bucket-padded views
+        # carry valid_hw == 0 and are dropped here)
+        view_ok = valid_hw[:, 0] > 0
+        flat0 = (regs_mask.reshape(V, K) & view_ok[:, None]).reshape(-1)
+        idx1, ok1 = nonzero_static(flat0, C1)
+        vidx = idx1 // K
+
+        def take1(a):
+            return _take_fill(a.reshape((V * K,) + a.shape[2:]), idx1, ok1)
+
+        xy1 = take1(regs_xy)
+        A1 = take1(regs_A)
+        s1 = take1(regs_s)
+        r1 = take1(regs_resp)
+        hv = hinv[vidx]                               # (C1, 2, 3)
+        lin = hv[:, :, :2]
+        xy_r1 = torch.einsum("cab,cb->ca", lin, xy1) + hv[:, :, 2]
+        inside1 = ((xy_r1[:, 0] > 0) & (xy_r1[:, 0] < w0)
+                   & (xy_r1[:, 1] > 0) & (xy_r1[:, 1] < h0))
+
+        # shared orientation histogram (families differ only in folding)
+        o_pe = dom_ori.patch_extraction
+        P_o = o_pe.patch_size
+        if any(f != "none" for f in families):
+            patch_image_size = 2 * int(o_pe.mr_size) + 1
+            img_to_patch = patch_image_size / P_o
+            # The reference also drops regions whose orientation support
+            # leaves the view (synth-detection.cpp:877-886).  Canvases
+            # are replicate-padded and the sampler clamps its reads, so
+            # the reprojection filter against the original image below
+            # (ReprojectRegions, synth-detection.cpp:567-580) is the gate.
+            As_o = A1 * (img_to_patch * s1)[:, None, None]
+            lvl_o, sc_o = select_level(As_o, P_o, L)
+            patches_o = sample_affine_patches(
+                src, vidx * L + lvl_o, xy1 / sc_o[:, None],
+                As_o / sc_o[:, None, None], P_o, hw_flat)
+            hist_o = smooth_circular(orientation_histograms(patches_o))
+
+        half = torch.ceil(K_SIGMA * s1 / 2.0)
+
+        def stage2(fam):
+            """-> compacted descriptor-stage rows for one family."""
+            if fam == "none":
+                # detected regions used directly
+                # (imagerepresentation.cpp:1299-1302), compacted to the
+                # front so the store's count prefix holds
+                A_r = torch.einsum("cab,cbd->cad", lin, A1)
+                tb = touches_border(float(w0), float(h0), xy_r1, A_r, half,
+                                    half, clamp_frac=BORDER_CLAMP_FRAC)
+                idx2, ok2 = nonzero_static(ok1 & inside1 & ~tb, C1)
+
+                def takeN(a):
+                    return _take_fill(a, idx2, ok2)
+                return (takeN(xy1), takeN(A1), takeN(s1), takeN(r1),
+                        takeN(vidx), takeN(xy_r1), takeN(A_r),
+                        ok2.sum())
+            angles, pmask = find_peaks(
+                hist_o, M, dom_ori.threshold,
+                half_sift=(fam == "half" or dom_ori.half_sift_mode))
+            amask = pmask & ok1[:, None]
+            if dom_ori.max_angles >= 0:
+                amask = amask & (torch.arange(M, device=dev)
+                                 < dom_ori.max_angles)[None]
+            if dom_ori.add_up_right:
+                # keep one un-rotated copy of every region in the last
+                # angle slot (addUpRight, synth-detection.cpp:913-915)
+                angles = angles.clone()
+                amask = amask.clone()
+                angles[:, M - 1] = 0.0
+                amask[:, M - 1] = ok1
+            Arot = rotate_shapes(A1, angles)          # (C1, M, 2, 2)
+            A_rf = torch.einsum("cab,cmbd->cmad", lin, Arot)
+            tb = touches_border(
+                float(w0), float(h0), xy_r1[:, None].expand(C1, M, 2), A_rf,
+                half[:, None], half[:, None], clamp_frac=BORDER_CLAMP_FRAC)
+            m_f = amask & inside1[:, None] & ~tb      # (C1, M)
+            idx2, ok2 = nonzero_static(m_f.reshape(-1), C2)
+            row = idx2 // M
+
+            def takeA(a):   # (C1, M, ...) -> (C2, ...)
+                return _take_fill(a.reshape((C1 * M,) + a.shape[2:]), idx2,
+                                  ok2)
+
+            return (xy1[row], takeA(Arot), s1[row], r1[row], vidx[row],
+                    xy_r1[row], takeA(A_rf), ok2.sum())
+
+        out = {}
+        base = SIFTDescriptorParams()  # raw histogram params
+        for fam in families:
+            fam_specs = [sp for sp in specs if fam_key(sp) == fam]
+            xyv, Av, sv, rv, vi, xy_r, A_r, n2 = stage2(fam)
+
+            def desc_patches(scale_coef=1.0):
+                t = image_to_patch_scale(sv * scale_coef, pe_mr, pe_patch)
+                As = Av * t[:, None, None]
+                lvl, sc = select_level(As, pe_patch, L)
+                raw = sample_affine_patches(
+                    src, vi * L + lvl, xyv / sc[:, None],
+                    As / sc[:, None, None], pe_patch, hw_flat)
+                return aa_filter_patches(raw, lvl, t, photo_norm=pe_photo)
+
+            res = {}
+            if any(sp.kind == "binary" for sp in fam_specs):
+                from mods_tpu_torch.detectors.orb import brief_from_patches
+                As_b = Av * (sv * 5.1962 / 31.0)[:, None, None]
+                lvl_b, sc_b = select_level(As_b, 31, L)
+                p31 = sample_affine_patches(
+                    src, vi * L + lvl_b, xyv / sc_b[:, None],
+                    As_b / sc_b[:, None, None], 31, hw_flat)
+                bits = brief_from_patches(p31)
+                for sp in fam_specs:
+                    if sp.kind == "binary":
+                        res[sp.name] = bits
+            if any(sp.kind == "sift" for sp in fam_specs):
+                hist = sift_histograms(desc_patches(), base)
+                for sp in fam_specs:
+                    if sp.kind != "sift":
+                        continue
+                    h = hist
+                    if sp.dsp_levels > 0:
+                        # DSP-SIFT: pool histograms over region scales
+                        # (imagerepresentation.cpp:1547-1598)
+                        for c in np.linspace(0.5, 1.5, sp.dsp_levels):
+                            if abs(c - 1.0) < 1e-6:
+                                continue
+                            h = h + sift_histograms(
+                                desc_patches(float(c)), base)
+                    p = sp.sift
+                    if p.half_sift:
+                        ob = p.orientation_bins
+                        h = h[..., :ob // 2] + h[..., ob // 2:]
+                    v = h.reshape(h.shape[0], -1)
+                    if p.do_norm:
+                        v = sift_norm(v, p.max_bin_value, p.root_sift)
+                    res[sp.name] = v
+            for sp in fam_specs:
+                out[sp.name] = (xy_r, A_r, sv, rv, res[sp.name], n2)
+
+        for st, sp in zip(stores, specs, strict=True):
+            st.append(*out[sp.name])
+
+    return program
+
+
+def _make_detect_fn(det: str, cfg: EngineConfig):
+    """Detection dispatch (the reference's 20-way if-else,
+    imagerepresentation.cpp:717-1224) for the device detectors:
+    ``detect(views, valid_hw, valid_hw_host, reg_number)`` -> Regions
+    (V, K).  ``valid_hw_host`` is the same (V, 2) extents as a CPU
+    tensor, which the scale-space detector reads without a device
+    sync."""
+    caps = cfg.caps
+    if det == "HessianAffine":
+        pyr = cfg.pyramid_for(det)
+        aff = cfg.affine
+        return lambda v, hw, hw_host, rn: detect_affine_keypoints(
+            v, hw_host, pyr, aff, caps, rn)
+    if det == "ORB":
+        from mods_tpu_torch.detectors.orb import detect_orb
+        o = cfg.orb
+        return lambda v, hw, hw_host, rn: detect_orb(
+            v, hw, caps, n_features=o.nfeatures,
+            scale_factor=o.scale_factor, n_levels=o.nlevels,
+            edge_threshold=o.edge_threshold,
+            fast_threshold=o.fast_threshold)
+    if det in _DETECTOR_ITEM:
+        raise _not_ported(f"detector {det!r}", _DETECTOR_ITEM[det])
+    raise KeyError(det)
+
+
+def _pool_match_parts(parts1, parts2, ratio, dist_thr, db, cap, knn,
+                      contrad, dup_mode, run_fginn, run_dist, binary,
+                      standard_2nd):
+    """One matching step over pooled store parts (grouped matching pools
+    several detectors' stores, correspondencebank.cpp:248-288).  Emits
+    fixed-shape tentative parts with the image-2 endpoints already
+    gathered."""
+    if db is not None:
+        raise _not_ported("FGINN with a descriptor database", 17)
+
+    def pool(parts):
+        xy = torch.cat([p[0] for p in parts])
+        A = torch.cat([p[1] for p in parts])
+        s = torch.cat([p[2] for p in parts])
+        d = torch.cat([p[3] for p in parts])
+        m = torch.cat([torch.arange(cap, device=xy.device) < p[4]
+                       for p in parts])
+        return xy, A, s, d, m
+
+    xy1, A1, s1, d1, m1 = pool(parts1)
+    xy2, A2, s2, d2, m2 = pool(parts2)
+
+    def finish(t):
+        if dup_mode == "fginn":
+            prio = t.ratio
+        elif dup_mode == "distance":
+            prio = t.d1
+        elif dup_mode == "bigger_region":
+            prio = -s1
+        else:
+            prio = torch.arange(xy1.shape[0], dtype=torch.float32,
+                                device=xy1.device)
+        return dict(xy1=xy1, A1=A1, s1=s1, xy2=xy2[t.idx2],
+                    A2=A2[t.idx2], s2=s2[t.idx2], prio=prio,
+                    mask=t.mask)
+
+    outs = []
+    if run_fginn:
+        t = match_fginn(d1, m1, d2, m2, xy2, ratio, contrad, knn,
+                        standard_2nd=standard_2nd)
+        outs.append(finish(t))
+    if run_dist:
+        t = match_distance(d1, m1, d2, m2, dist_thr,
+                           squared_threshold=binary)
+        outs.append(finish(t))
+    return outs
+
+
+def _concat_compact_parts(parts, tcap: int):
+    """Concatenate tentative parts and compact the masked rows to the
+    tentative capacity (GetCorresponcesVector, mods.cpp:298)."""
+    keys_ = ("xy1", "A1", "s1", "xy2", "A2", "s2", "prio")
+    mask_all = torch.cat([p["mask"] for p in parts])
+    idx, valid = nonzero_static(mask_all, tcap)
+    comb = {k: _take_fill(torch.cat([p[k] for p in parts]), idx, valid)
+            for k in keys_}
+    comb["mask"] = valid
+    return comb
+
+
+def _verify_core(cfg: EngineConfig, w: int, h: int, xy1, A1, s1, xy2, A2,
+                 s2, prio, mask, generator: torch.Generator):
+    """duplicate filter -> RANSAC -> LAF check.  Verification dispatch
+    mirrors mods.cpp:310-371; LO-RANSAC H is the ported mode."""
+    ver = cfg.ver_type or ("LORANSACF" if cfg.ransac.use_f else "LORANSACH")
+    if ver in ("ORSA", "LORANSACF"):
+        raise _not_ported(f"verification mode {ver}", 18)
+    keep = duplicate_filter(xy1, xy2, mask, cfg.match.duplicate_dist,
+                            priority=prio)
+    tmask = mask & keep
+    n_tent = tmask.sum()
+    M, inl, n_inl = ransac_h(xy1, xy2, tmask, cfg.ransac, generator)
+    lafm = h_laf_check(
+        M, xy1, A1, s1, xy2, A2, s2, inl,
+        3.0 * cfg.ransac.h_laf_coef * cfg.ransac.err_threshold)
+    enough = (n_tent >= MIN_POINTS) & (lafm.sum() >= MIN_POINTS)
+    final = lafm & enough
+    return dict(model=M, inlier_mask=final, n_tent=n_tent,
+                n_inl=final.sum())
+
+
+def _verify_parts(parts, tcap: int, cfg: EngineConfig, w: int, h: int,
+                  generator: torch.Generator, gt_h=None):
+    """Bank concat -> compaction to the tentative capacity -> duplicate
+    filter -> verification (``_verify_bank_program`` of the JAX package).
+    With ``gt_h`` the GR_TRUTH mode, and its dual mode when
+    ``cfg.do_both_ransac_gt``."""
+    c = _concat_compact_parts(parts, tcap)
+    if gt_h is None:
+        out = _verify_core(cfg, w, h, c["xy1"], c["A1"], c["s1"], c["xy2"],
+                           c["A2"], c["s2"], c["prio"], c["mask"], generator)
+    else:
+        keep = duplicate_filter(c["xy1"], c["xy2"], c["mask"],
+                                cfg.match.duplicate_dist, priority=c["prio"])
+        tmask = c["mask"] & keep
+        inl = gt_h_inliers(gt_h, c["xy1"], c["xy2"], tmask,
+                           cfg.ransac.err_threshold, cfg.ransac.error_type)
+        out = dict(model=torch.as_tensor(gt_h, dtype=torch.float32,
+                                         device=tmask.device),
+                   inlier_mask=inl, n_tent=tmask.sum(), n_inl=inl.sum())
+        if cfg.do_both_ransac_gt:
+            # dual mode (mods.cpp:320-334): LO-RANSAC on the same
+            # tentatives, GT-checked
+            r = _verify_core(replace(cfg, ver_type="LORANSACH"), w, h,
+                             c["xy1"], c["A1"], c["s1"], c["xy2"], c["A2"],
+                             c["s2"], c["prio"], c["mask"], generator)
+            rtrue = gt_h_inliers(gt_h, c["xy1"], c["xy2"], r["inlier_mask"],
+                                 cfg.ransac.err_threshold,
+                                 cfg.ransac.error_type)
+            out["ransac_matches"] = r["inlier_mask"].sum()
+            out["ransac_true"] = rtrue.sum()
+    out["xy1_all"] = c["xy1"]
+    out["xy2_all"] = c["xy2"]
+    return out
+
+
+@dataclass
+class MatchResult:
+    H: np.ndarray
+    xy1: np.ndarray
+    xy2: np.ndarray
+    n_matches: int
+    n_tentatives: int
+    steps_used: int
+    log: TimeLog
+    # dual GR_TRUTH+RANSAC mode counters (doBothRANSACgroundTruth,
+    # mods.cpp:320-334): {"ransac_matches": N, "ransac_true": N}
+    extras: dict = field(default_factory=dict)
+
+
+class TwoViewMatcher:
+    """The ``mods`` CLI equivalent: escalation-laddered two-view matching
+    on ``device`` (the card unless the caller passes ``"cpu"``)."""
+
+    def __init__(self, ladder: list | None = None,
+                 cfg: EngineConfig | None = None, seed: int = 0,
+                 sync_timing: bool = False, stop_mode: str = "sync",
+                 monolith: bool = False,
+                 device: str | torch.device = "cuda"):
+        if monolith:
+            raise _not_ported("the monolith ladder program", 23)
+        if stop_mode == "pipelined":
+            raise _not_ported("stop_mode 'pipelined'", 17)
+        if stop_mode not in ("sync", "async"):
+            raise ValueError(f"unknown stop_mode {stop_mode!r}")
+        self.device = resolve_device(device)
+        self.cfg = EngineConfig() if cfg is None else cfg
+        self.ladder = ladder if ladder is not None else [IterationParams()]
+        for rung in as_rungs(self.ladder):
+            for it in rung.dets:
+                if not self._device_det(it.detector):
+                    raise _not_ported(
+                        f"host-stage detector {it.detector!r}", 16)
+        self._seed = seed
+        # per-(rung, image-size) geometry cache (see _prep_groups)
+        self._prep_cache: dict = {}
+        # sync_timing=True waits for the device at phase boundaries so
+        # the TimeLog attributes wall-clock to the right phase; False
+        # lets the kernels of a rung queue up behind the host
+        self.sync_timing = sync_timing
+        # "sync" reads each rung's match count before deciding to
+        # escalate (the reference's control flow, mods.cpp:229-230);
+        # "async" runs every rung and reads all counts in one transfer at
+        # the end, selecting the first rung that crossed min_matches
+        self.stop_mode = stop_mode
+        # peak device memory of each rung of the last match() call
+        self.rung_peak_bytes: list = []
+
+    def _specs(self, it: IterationParams) -> tuple:
+        return tuple(spec_for(n, self.cfg) for n in it.descriptors)
+
+    def _device_det(self, det: str) -> bool:
+        return det in DEVICE_DETECTORS
+
+    def _new_log(self) -> TimeLog:
+        if self.sync_timing and self.device.type == "cuda":
+            return TimeLog(sync=lambda: torch.cuda.synchronize(self.device))
+        return TimeLog()
+
+    # -- feature extraction ------------------------------------------------
+
+    def _region_budgets(self, plans, det, vb: int | None = None):
+        """Per-view region budget scaling
+        (scale-space-detector.cpp:50-51), padded to ``vb`` rows for
+        bucketed view batches."""
+        cfg = self.cfg
+        regn = []
+        base_rn = cfg.pyramid_for(det).reg_number \
+            if det in ("HessianAffine", "DoG", "HarrisAffine") else -1
+        for p in plans:
+            t, z = p.view.tilt, p.view.zoom
+            rn = base_rn
+            if base_rn > 0 and (t > 2.0 or z < 0.5):
+                rn = int(np.floor(z * base_rn / t))
+            regn.append(rn if rn > 0 else 10**9)
+        if vb is not None:
+            regn += [10**9] * (vb - len(regn))
+        return torch.tensor(regn, dtype=torch.int32, device=self.device)
+
+    def _prep_groups(self, it: IterationParams, h: int, w: int,
+                     prev_views: list):
+        """Per-(rung, image-size) group preparation, cached across pairs:
+        the view grid, bucketed canvas shapes, inverse-rotation maps,
+        H inverses and budgets are computed once and uploaded once, and
+        the group's stage functions resolved once.  A steady-state pair
+        then runs on device-resident arguments."""
+        key = (it, h, w, tuple(prev_views))
+        hit = self._prep_cache.get(key)
+        if hit is not None:
+            return hit
+        cfg = self.cfg
+        dev = self.device
+        views, new_prev = synthesis.expand_views(it, prev_views)
+        plans = [synthesis.plan_view(v, w, h) for v in views]
+        specs = self._specs(it)
+        pe = cfg.sift.patch_extraction
+        detect = _make_detect_fn(it.detector, cfg)
+        preps = []
+        for group in synthesis.group_views(plans):
+            p0 = group[0]
+            V = len(group)
+            # bucketed shapes, as the JAX package's: padded view slots
+            # carry valid_hw == 0 and produce nothing
+            Vb = synthesis.snap_views(V)
+            if p0.identity:
+                hr = wr = 0
+                hc = synthesis.snap_dim(h)
+                wc = synthesis.snap_dim(w)
+                rot_inv = np.zeros((Vb, 2, 3), np.float32)
+            else:
+                hr = synthesis.snap_dim(max(p.h_rot for p in group))
+                wr = synthesis.snap_dim(max(p.w_rot for p in group))
+                hc = synthesis.snap_dim(max(p.h_new for p in group))
+                wc = synthesis.snap_dim(max(p.w_new for p in group))
+                rot_inv = []
+                for p in group:
+                    a, b, tx, c, d, ty = p.rot
+                    det = a * d - b * c
+                    ia, ib = d / det, -b / det
+                    ic, id_ = -c / det, a / det
+                    rot_inv.append([[ia, ib, -(ia * tx + ib * ty)],
+                                    [ic, id_, -(ic * tx + id_ * ty)]])
+                rot_inv += [rot_inv[0]] * (Vb - V)
+                rot_inv = np.asarray(rot_inv, np.float32)
+            sx, sy = p0.tilt_scale
+            squash_inv = np.asarray(
+                [[1.0 / sx, 0.0, 0.0], [0.0, 1.0 / sy, 0.0]], np.float32)
+            valid_np = np.zeros((Vb, 2), np.int32)
+            valid_np[:V] = [[p.h_new, p.w_new] for p in group]
+            hinv = np.asarray(
+                [np.linalg.inv(np.asarray(p.H, np.float64).reshape(3, 3)
+                               )[:2, :] for p in group], np.float32)
+            hinv = np.concatenate(
+                [hinv, np.repeat(hinv[:1], Vb - V, 0)]) if Vb > V else hinv
+            preps.append(dict(
+                group=group, V=V, Vb=Vb, hr=hr, wr=wr, hc=hc, wc=wc,
+                identity=p0.identity, do_blur=p0.view.do_blur,
+                rot_inv=torch.as_tensor(rot_inv, device=dev),
+                squash_inv=torch.as_tensor(squash_inv, device=dev),
+                sig_x=torch.tensor(p0.sigma_x, dtype=torch.float32,
+                                   device=dev),
+                sig_y=torch.tensor(p0.sigma_y, dtype=torch.float32,
+                                   device=dev),
+                valid_hw=torch.as_tensor(valid_np, device=dev),
+                valid_hw_host=torch.as_tensor(valid_np),
+                hinv=torch.as_tensor(hinv, device=dev),
+                regn=self._region_budgets(group, it.detector, Vb),
+                render=_make_render_fn(Vb, h, w, hr, wr, hc, wc,
+                                       p0.view.do_blur, p0.identity),
+                detect=detect,
+                describe=_make_desc_fn(
+                    Vb, hc, wc, h, w, cfg.caps.per_view, specs,
+                    cfg.dom_ori, pe.mr_size, pe.patch_size, pe.photo_norm,
+                    cfg.caps)))
+        hit = (new_prev, preps)
+        self._prep_cache[key] = hit
+        return hit
+
+    def _process_image(self, img: torch.Tensor, it: IterationParams,
+                       prev_views: list, stores: dict, log: TimeLog):
+        """Synthesize, detect and describe one image for one detector
+        iteration: per view group render -> detect -> describe, the
+        group's rows appended to the (detector, descriptor) stores.  One
+        group's views and pyramids are alive at a time."""
+        cfg = self.cfg
+        h, w = img.shape
+        new_prev, preps = self._prep_groups(it, h, w, prev_views)
+        sts = []
+        for sp in self._specs(it):
+            key = (it.detector, sp.name)
+            st = stores.get(key)
+            if st is None:
+                stores[key] = st = DeviceStore(cfg.caps.per_image, sp.dim,
+                                               self.device)
+            sts.append(st)
+        for gp in preps:
+            with log.phase("SynthTime"):
+                views = gp["render"](img, gp["rot_inv"], gp["squash_inv"],
+                                     gp["sig_x"], gp["sig_y"],
+                                     gp["valid_hw"])
+            with log.phase("DetectTime"):
+                regs = gp["detect"](views, gp["valid_hw"],
+                                    gp["valid_hw_host"], gp["regn"])
+            with log.phase("DescTime"):
+                gp["describe"](views, gp["valid_hw"], regs.xy, regs.A,
+                               regs.s, regs.response, regs.mask, gp["hinv"],
+                               sts)
+        return new_prev
+
+    # -- matching ----------------------------------------------------------
+
+    def _match_one(self, parts1: list, parts2: list, spec,
+                   ratio: float, dist_thr: float, log: TimeLog) -> list:
+        """FGINN and/or distance matching over pooled device stores.
+        Both run when both thresholds are positive
+        (correspondencebank.cpp:281-285)."""
+        cfg = self.cfg
+        run_f = ratio > 0
+        run_d = dist_thr > 0
+        if not (run_f or run_d):
+            return []
+        if run_f and cfg.match.use_db_for_fginn and cfg.match.sift_db_file:
+            raise _not_ported("FGINN with a descriptor database", 17)
+        with log.phase("MatchingTime"):
+            return _pool_match_parts(
+                [p.device_arrays() for p in parts1],
+                [p.device_arrays() for p in parts2], ratio, dist_thr, None,
+                cfg.caps.per_image, cfg.match.knn, cfg.match.contrad_dist,
+                cfg.match.duplicate_mode, run_f, run_d,
+                spec.kind == "binary", cfg.match.standard_2nd_closest)
+
+    def _execute_plan(self, stores1: dict, stores2: dict, rung: Rung,
+                      log: TimeLog) -> None:
+        """Run the rung's matching plan, replacing the recomputed keys in
+        the persistent tentative bank (MatchImgReps,
+        correspondencebank.cpp:237-351)."""
+        cfg = self.cfg
+        plan = rung.plan or rung.default_plan()
+
+        # grouped: pool stores across group_detectors per descriptor,
+        # thresholds from the global [Matching] maps
+        for desc in plan.group_descriptors:
+            spec = spec_for(desc, cfg)
+            pooled1 = [stores1[(det, desc)] for det in plan.group_detectors
+                       if (det, desc) in stores1]
+            pooled2 = [stores2[(det, desc)] for det in plan.group_detectors
+                       if (det, desc) in stores2]
+            key = ("Group", desc)
+            self._bank.pop(key, None)
+            if not (pooled1 and pooled2):
+                continue
+            parts = self._match_one(pooled1, pooled2, spec,
+                                    cfg.match.group_fginn(desc),
+                                    cfg.match.group_distance(desc), log)
+            if parts:
+                self._bank[key] = parts
+
+        # separate: per (detector, descriptor), detector must have run
+        # this rung; thresholds from the rung's per-descriptor maps
+        rung_dets = {d.detector: d for d in rung.dets}
+        for det in plan.separate_detectors:
+            it = rung_dets.get(det)
+            if it is None:
+                continue      # not synthesized this step -> keep stale key
+            for desc in plan.separate_descriptors:
+                key = (det, desc)
+                self._bank.pop(key, None)
+                if key not in stores1 or key not in stores2:
+                    continue
+                parts = self._match_one(
+                    [stores1[key]], [stores2[key]], spec_for(desc, cfg),
+                    it.fginn_for(desc), it.distance_for(desc), log)
+                if parts:
+                    self._bank[key] = parts
+
+    def _verify_bank(self, log: TimeLog):
+        """Concatenate the tentative bank (GetCorresponcesVector,
+        mods.cpp:298) -> duplicate filter -> geometric verification, all
+        on the device."""
+        cfg = self.cfg
+        tent_parts = [p for parts in self._bank.values() for p in parts]
+        if not tent_parts:
+            return None
+        w, h = self._wh
+        gt = self._gt_h if cfg.ver_type == "GR_TRUTH" else None
+        with log.phase("RANSACTime"):
+            return _verify_parts(tent_parts, cfg.caps.tentatives, cfg, w, h,
+                                 self._generator, gt)
+
+    def match(self, img1, img2, gt_h=None) -> MatchResult:
+        cfg = self.cfg
+        dev = self.device
+        self._gt_h = gt_h
+        # deterministic per pair: one generator, seeded anew for each
+        # pair, feeds every rung's RANSAC draws in order
+        self._generator = torch.Generator(device=dev).manual_seed(self._seed)
+        log = self._new_log()
+        g1 = to_gray_np(img1)
+        g2 = to_gray_np(img2)
+        self._wh = (max(g1.shape[1], g2.shape[1]),
+                    max(g1.shape[0], g2.shape[0]))
+        # one upload per image per pair; every rung reuses these
+        g1_dev = torch.as_tensor(g1, device=dev)
+        g2_dev = torch.as_tensor(g2, device=dev)
+        self._bank = {}
+        # store pooling: buffers persist across pairs (only the counts
+        # rewind), so a steady-state pair allocates no store
+        if not hasattr(self, "_stores"):
+            self._stores = ({}, {})
+        for side in self._stores:
+            for st in side.values():
+                st.reset()
+        stores1, stores2 = self._stores
+        prev1: dict = {}      # per-detector accumulated synth views
+        prev2: dict = {}
+        steps = 0
+        rungs = as_rungs(self.ladder)[:cfg.max_steps]
+        outs: list = []               # (step_1based, out) per rung
+        stop_counts: list = []        # host ints, sync mode only
+        self.rung_peak_bytes = []
+        for step, rung in enumerate(rungs):
+            steps += 1
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            for it in rung.dets:
+                prev1[it.detector] = self._process_image(
+                    g1_dev, it, prev1.get(it.detector, []), stores1, log)
+                prev2[it.detector] = self._process_image(
+                    g2_dev, it, prev2.get(it.detector, []), stores2, log)
+            # hardcoded tentative drops (mods.cpp:288-289)
+            for cstep, cdet, cdesc in cfg.clear_tentatives:
+                if step == cstep:
+                    self._bank.pop((cdet, cdesc), None)
+            self._execute_plan(stores1, stores2, rung, log)
+            out = self._verify_bank(log)
+            if dev.type == "cuda":
+                self.rung_peak_bytes.append(
+                    torch.cuda.max_memory_allocated(dev))
+            if out is None:
+                continue
+            outs.append((steps, out))
+            if self.stop_mode == "sync":
+                # the rung's one read for the stop rule: its match count
+                # (dual GR_TRUTH mode stops on the RANSAC match count,
+                # mods.cpp:412-414)
+                n_inl, n_stop = torch.stack(
+                    [out["n_inl"],
+                     out.get("ransac_matches", out["n_inl"])]).tolist()
+                stop_counts.append((n_inl, n_stop))
+                if n_stop >= cfg.min_matches:
+                    break
+        if not outs:
+            log.finalize()
+            return MatchResult(H=np.eye(3), xy1=np.zeros((0, 2)),
+                               xy2=np.zeros((0, 2)), n_matches=0,
+                               n_tentatives=0, steps_used=steps, log=log)
+        if self.stop_mode == "sync":
+            inls = [n for n, _ in stop_counts]
+            nstops = [s for _, s in stop_counts]
+        else:
+            # one batched count read for the whole ladder
+            with log.phase("MiscTime"):
+                counts = torch.stack(
+                    [torch.stack([o["n_inl"],
+                                  o.get("ransac_matches", o["n_inl"])])
+                     for _, o in outs]).tolist()
+            inls = [c[0] for c in counts]
+            nstops = [c[1] for c in counts]
+        # first rung that crossed min_matches ends the ladder
+        # (mods.cpp:229-230); the result is the best rung up to there
+        stop_i = next((i for i, s in enumerate(nstops)
+                       if s >= cfg.min_matches), len(outs) - 1)
+        best_i = max(range(stop_i + 1), key=lambda i: inls[i])
+        steps_used = (outs[stop_i][0]
+                      if nstops[stop_i] >= cfg.min_matches else steps)
+        n_inl, out = inls[best_i], outs[best_i][1]
+        log.finalize()
+        extras = {}
+        if "ransac_matches" in out:
+            extras = dict(ransac_matches=int(out["ransac_matches"]),
+                          ransac_true=int(out["ransac_true"]))
+        # the only bulk read, after the ladder stops: the verified rows,
+        # compacted on the device
+        tcap = out["inlier_mask"].shape[0]
+        idx, valid = nonzero_static(out["inlier_mask"], tcap)
+        cxy1 = _take_fill(out["xy1_all"], idx, valid)
+        cxy2 = _take_fill(out["xy2_all"], idx, valid)
+        return MatchResult(
+            H=out["model"].cpu().numpy(),
+            xy1=cxy1[:n_inl].cpu().numpy(), xy2=cxy2[:n_inl].cpu().numpy(),
+            n_matches=n_inl, n_tentatives=int(out["n_tent"]),
+            steps_used=steps_used, log=log, extras=extras)

@@ -91,3 +91,23 @@ def compact_topk(r: Regions, k: int, by: str = "mask") -> Regions:
     kk, idx = top_k(key, k)
     out = r.take(idx)
     return out.replace(mask=out.mask & (kk > -float("inf")))
+
+
+def regions_from_numpy(xy, A, s, response, mask, sub_type=None,
+                       device="cpu") -> Regions:
+    """``Regions`` from host arrays (for instance the fields of a JAX-side
+    ``Regions``), so that a later stage can be checked on identical
+    input."""
+    import numpy as np
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+    mask = torch.as_tensor(np.asarray(mask), dtype=torch.bool, device=device)
+    if sub_type is None:
+        sub = torch.zeros(mask.shape, dtype=torch.int32, device=device)
+    else:
+        sub = torch.as_tensor(np.asarray(sub_type), dtype=torch.int32,
+                              device=device)
+    return Regions(xy=f32(xy), A=f32(A), s=f32(s), response=f32(response),
+                   sub_type=sub, mask=mask)

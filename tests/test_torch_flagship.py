@@ -27,7 +27,8 @@ from mods_tpu.pipeline import EngineConfig as JaxEngineConfig
 from mods_tpu_torch import config as tc
 from mods_tpu_torch.device import resolve_device
 from mods_tpu_torch.io.png import read_png_gray
-from mods_tpu_torch.models.flagship import (default_config,
+from mods_tpu_torch.models.flagship import (batched_pair_step,
+                                            default_config,
                                             make_two_view_step,
                                             two_view_step)
 from mods_tpu_torch.pipeline import EngineConfig
@@ -81,10 +82,16 @@ def test_two_view_step_matches_jax():
 
 
 def test_config_bridge_and_defaults():
-    # every default of the seven groups the step reads is the JAX one
+    # every default the port's EngineConfig carries is the JAX one: the
+    # parameter groups field by field, the ladder's scalars as they are
     jd = dataclasses.asdict(JaxEngineConfig())
     td = dataclasses.asdict(EngineConfig())
+    assert {"orb", "min_matches", "max_steps", "ver_type",
+            "do_both_ransac_gt", "clear_tentatives"} <= set(td)
     for group, fields in td.items():
+        if not isinstance(fields, dict):
+            assert jd[group] == fields, group
+            continue
         for k, v in fields.items():
             assert jd[group][k] == v, (group, k)
     assert EngineConfig().dom_ori.max_angles == 1
@@ -95,6 +102,20 @@ def test_config_bridge_and_defaults():
     assert port.ransac.max_rounds == 1
     assert default_config().caps == tc.CapacityParams(
         per_octave=512, per_view=512, per_image=1024, max_angles=2)
+    # the ladder's own state crosses the same bridge
+    from mods_tpu.config import IterationParams as JaxIteration
+    jcfg = dataclasses.replace(cfg, min_matches=12, ver_type="GR_TRUTH",
+                               clear_tentatives=((1, "ORB", "ORB"),))
+    port = tc.from_dict(dataclasses.asdict(jcfg))
+    assert (port.min_matches, port.ver_type) == (12, "GR_TRUTH")
+    assert port.clear_tentatives == ((1, "ORB", "ORB"),)
+    assert port.orb == tc.OrbParams()
+    jit = JaxIteration(detector="ORB", descriptors=("ORB",),
+                       tilt_set=(1.0, 5.0), fginn_threshold=(0.0,),
+                       distance_threshold=(60.0,))
+    it = tc.from_dict(dataclasses.asdict(jit), tc.IterationParams)
+    assert dataclasses.asdict(it) == dataclasses.asdict(jit)
+    assert it.distance_for("ORB") == 60.0 and it.fginn_for("SIFT") == 0.0
 
 
 def test_device_selection():
@@ -115,6 +136,23 @@ def test_cpu_step_accepts_tensors_and_arrays():
         i1, i2, torch.Generator().manual_seed(3))
     assert torch.equal(a["H"], b["H"])
     assert int(a["n_inliers"]) == int(b["n_inliers"])
+
+
+def test_batched_pair_step_equals_the_step_pair_by_pair():
+    i1, i2 = _pair()
+    cfg = tc.from_dict(dataclasses.asdict(_tiny_cfg()))
+    a = torch.from_numpy(np.stack([i1, i2]))
+    b = torch.from_numpy(np.stack([i2, i1]))
+    out = batched_pair_step(
+        a, b, [torch.Generator().manual_seed(s) for s in (3, 4)], cfg)
+    assert out["H"].shape == (2, 3, 3) and out["n_inliers"].shape == (2,)
+    for p, seed in enumerate((3, 4)):
+        one = two_view_step(a[p], b[p], torch.Generator().manual_seed(seed),
+                            cfg)
+        for k in one:
+            assert torch.equal(out[k][p], one[k]), (p, k)
+    with pytest.raises(ValueError):
+        batched_pair_step(a, b, [torch.Generator()], cfg)
 
 
 def _write_png(path, img, filters):

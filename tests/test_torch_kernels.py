@@ -251,3 +251,106 @@ def test_step_on_card_matches_cpu(cuda):
     Hc = card["H"].cpu().numpy()
     Hp = cpu["H"].numpy()
     np.testing.assert_allclose(Hc / Hc[2, 2], Hp / Hp[2, 2], atol=0.05)
+
+
+# -- the ladder's geometries --------------------------------------------------
+
+def _ladder_pair():
+    """A block texture and its copy squashed to a third of the width: the
+    identity rung fails on it, the tilt rung recovers it."""
+    rng = np.random.default_rng(3)
+    b = np.kron(rng.uniform(0, 255, (14, 19)), np.ones((12, 12)))
+    i1 = b[:160, :224].astype(np.float32)
+    xs = np.arange(224) * 3.0
+    x0 = np.clip(np.floor(xs).astype(int), 0, 222)
+    i2 = np.full_like(i1, 128.0)
+    i2[:, :74] = i1[:, x0[:74]]
+    return i1, i2
+
+
+def _ladder_matcher(device):
+    from mods_tpu_torch.config import IterationParams
+    from mods_tpu_torch.pipeline import TwoViewMatcher
+    cfg = EngineConfig(
+        caps=CapacityParams(per_octave=512, per_view=512, per_image=1024,
+                            max_angles=2),
+        ransac=RansacParams(err_threshold=3.0, batch_hypotheses=256,
+                            max_rounds=3, error_type="sampson"))
+    ladder = [
+        IterationParams(detector="ORB", descriptors=("ORB",),
+                        fginn_threshold=(0.0,), distance_threshold=(60.0,)),
+        IterationParams(tilt_set=(1.0, 3.0), phi_base=360.0)]
+    return TwoViewMatcher(ladder, cfg, device=device)
+
+
+def test_cpu_ladder_runs_plain_without_counting():
+    i1, i2 = _ladder_pair()
+    before = (TS.sample_affine_patches.launches, TB.baumberg_adapt.launches)
+    r = _ladder_matcher("cpu").match(i1, i2)
+    assert (TS.sample_affine_patches.launches,
+            TB.baumberg_adapt.launches) == before
+    assert r.steps_used == 2 and r.n_matches >= 10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [41, 31])
+def test_stack_kernel_on_a_view_group_stack(cuda, P):
+    """caps.per_group rows from the 12 x 4 mip planes of a view group,
+    the last view's planes with extent 0 (a bucket-padded view)."""
+    src, lvl, vhw, xy, A = _stack_inputs(768, P, cuda, L=48, H=256, W=1280)
+    vhw[44:] = 0
+    got = TS.sample_affine_patches(src, lvl, xy, A, P, vhw)
+    torch.cuda.synchronize()
+    ref = TS.sample_affine_patches_plain(src, lvl, xy, A, P, vhw)
+    _same_patches(got, ref)
+    on_empty = lvl >= 44
+    assert on_empty.any() and (got[on_empty] == 0).all()
+    assert (got[~on_empty] != 0).any()
+
+
+@pytest.mark.gpu
+def test_baumberg_kernel_over_views(cuda):
+    """K = V x 256 keypoints over a (V (L + 2), h, w) stack, one view
+    bucket-padded: its keypoints are invalid and leave before staging."""
+    from pathlib import Path
+    from mods_tpu_torch.io.png import read_png_gray
+    png = Path(__file__).resolve().parent.parent / ".parity_work"
+    views = torch.stack([
+        torch.as_tensor(read_png_gray(png / f"{n}_1.png")[:512, :512],
+                        dtype=torch.float32, device=cuda)
+        for n in ("zoom2x", "tilt4", "rot90")])
+    views[2] = 128.0
+    hw = torch.tensor([[512, 512], [500, 480], [0, 0]], dtype=torch.int32)
+    stack, lvl, xy, s, ok = [
+        (stack, lvl, xy.reshape(-1, 2), s.reshape(-1), ok.reshape(-1))
+        for _, stack, lvl, xy, s, ok, _, _ in octave_keypoints(
+            views, hw, PyramidParams(), EngineConfig().caps)][0]
+    assert stack.shape[0] == 3 * 5 and lvl.shape[0] == 3 * 256
+    assert not ok[512:].any() and int(ok[:512].sum()) >= 100
+    aff = AffineShapeParams()
+    before = TB.baumberg_adapt.launches
+    u, good = TB.baumberg_adapt(stack, lvl, xy, s, ok, aff)
+    torch.cuda.synchronize()
+    assert TB.baumberg_adapt.launches == before + 1
+    ru, rgood = TB.baumberg_adapt_plain(stack, lvl, xy, s, ok, aff)
+    assert int((good != rgood).sum()) <= 0.01 * int(ok.sum())
+    both = good & rgood
+    assert int(both.sum()) >= 50
+    assert (u - ru)[both].abs().max().item() <= 1e-3
+    assert not good[~ok].any()
+
+
+@pytest.mark.gpu
+def test_ladder_on_card_matches_cpu(cuda):
+    i1, i2 = _ladder_pair()
+    before = (TS.sample_affine_patches.launches, TB.baumberg_adapt.launches)
+    card = _ladder_matcher("cuda").match(i1, i2)
+    # 2 images x (1 ORB group: BRIEF patches; 2 HessianAffine groups:
+    # orientation + descriptor patches each)
+    assert TS.sample_affine_patches.launches == before[0] + 2 * (1 + 2 * 2)
+    assert TB.baumberg_adapt.launches > before[1]
+    cpu = _ladder_matcher("cpu").match(i1, i2)
+    assert card.steps_used == cpu.steps_used == 2
+    assert abs(card.n_matches - cpu.n_matches) <= 0.2 * cpu.n_matches
+    Hc, Hp = card.H / card.H[2, 2], cpu.H / cpu.H[2, 2]
+    np.testing.assert_allclose(Hc, Hp, atol=0.1)

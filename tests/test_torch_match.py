@@ -187,3 +187,171 @@ def test_ransac_h_outcome():
     assert _corner_dist(tH.numpy(), H) < 2.0
     np.testing.assert_array_equal(tinl.numpy(), np.asarray(jinl))
     assert int(tn) == int(jn) >= 0.9 * true_inl.sum()
+
+
+# ---------------------------------------------------------------------------
+# the ladder's matching and verification pieces
+
+def _bits(seed, n1, n2):
+    """ORB-like 0/1 descriptors: list1 rows are list2 rows with a few
+    flipped bits, plus distractors."""
+    rng = np.random.default_rng(seed)
+    d2 = (rng.uniform(size=(n2, 256)) < 0.5).astype(np.float32)
+    d1 = d2[rng.integers(0, n2, n1)].copy()
+    flips = rng.uniform(size=d1.shape) < rng.uniform(0, 0.3, (n1, 1))
+    d1 = np.where(flips, 1.0 - d1, d1).astype(np.float32)
+    return d1, d2
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_match_distance_exact(binary):
+    """Hamming distances through a float product are exact integers
+    (TF32 off), so the decisions against the budget of 60 are equal."""
+    if binary:
+        d1, d2 = _bits(10, 240, 200)
+        thr = 60.0
+    else:
+        d1, d2, _ = _descs(10, 240, 200)
+        thr = 150.0
+    rng = np.random.default_rng(11)
+    m1 = rng.uniform(size=240) < 0.9
+    m2 = rng.uniform(size=200) < 0.9
+    jt = jf.match_distance(*(jnp.asarray(x) for x in (d1, m1, d2, m2)),
+                           thr, squared_threshold=binary)
+    tt = tf.match_distance(*(torch.from_numpy(x) for x in (d1, m1, d2, m2)),
+                           thr, squared_threshold=binary)
+    for f in ("idx2", "d1", "d2", "mask"):
+        np.testing.assert_array_equal(getattr(tt, f).numpy(),
+                                      np.asarray(getattr(jt, f)))
+    np.testing.assert_allclose(tt.ratio.numpy(), np.asarray(jt.ratio),
+                               rtol=1e-6)
+    assert 30 < int(tt.count()) < int(m1.sum())
+
+
+@pytest.mark.parametrize("case", ["equal", "near_1e3", "ratios"])
+def test_duplicate_filter_priority_ties(case):
+    """The ladder passes a priority (FGINN ratio, distance, -scale).  The
+    JAX rule adds ``arange * 1e-9`` to break ties, which vanishes in
+    float32 beside values near 1e3 and beside equal values above ~0.02:
+    then neither of two equal duplicates beats the other and both stay.
+    The port copies the rule, so the results are equal."""
+    rng = np.random.default_rng(12)
+    n = 160
+    xy1 = rng.uniform(0, 30, (n, 2)).astype(np.float32)
+    xy2 = rng.uniform(0, 30, (n, 2)).astype(np.float32)
+    xy1[80:120] = xy1[40:80] + rng.uniform(-1.5, 1.5, (40, 2))
+    xy2[80:120] = xy2[40:80] + rng.uniform(-1.5, 1.5, (40, 2))
+    mask = rng.uniform(size=n) < 0.92
+    if case == "equal":
+        pr = np.full(n, 0.5, np.float32)
+    elif case == "near_1e3":
+        pr = (1000.0 + rng.integers(0, 3, n)).astype(np.float32)
+    else:
+        pr = rng.uniform(0.2, 0.8, n).astype(np.float32)
+        pr[80:120] = pr[40:80]                      # ties among duplicates
+    ref = np.asarray(jf.duplicate_filter(
+        jnp.asarray(xy1), jnp.asarray(xy2), jnp.asarray(mask), 3.0,
+        priority=jnp.asarray(pr)))
+    got = tf.duplicate_filter(
+        torch.from_numpy(xy1), torch.from_numpy(xy2),
+        torch.from_numpy(mask), 3.0, priority=torch.from_numpy(pr)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.sum() < mask.sum()
+    if case == "near_1e3":
+        # the 1e-9 steps vanish beside 1e3: of two duplicates with the
+        # same priority neither beats the other, and both stay
+        pr32 = (pr + np.arange(n, dtype=np.float32) * np.float32(1e-9))
+        np.testing.assert_array_equal(pr32, pr)
+        i = np.arange(40, 80)
+        both = mask[i] & mask[i + 40] & (pr[i] == pr[i + 40])
+        assert both.sum() > 3
+
+
+def _store_parts(seed, cap, n, binary):
+    rng = np.random.default_rng(seed)
+    d = ((rng.uniform(size=(cap, 256)) < 0.5).astype(np.float32) if binary
+         else rng.integers(0, 256, (cap, 128)).astype(np.float32))
+    th = rng.uniform(0, 6.28, cap)
+    A = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                  np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    return (rng.uniform(0, 300, (cap, 2)).astype(np.float32),
+            A.astype(np.float32), rng.uniform(2, 9, cap).astype(np.float32),
+            d, np.int32(n))
+
+
+@pytest.mark.parametrize("dup_mode,binary", [("random", False),
+                                             ("fginn", False),
+                                             ("distance", True),
+                                             ("bigger_region", True)])
+def test_pool_match_parts_and_compaction(dup_mode, binary):
+    from mods_tpu import pipeline as jp
+    from mods_tpu_torch import pipeline as tp
+    cap = 96
+    p1 = [_store_parts(20, cap, 70, binary), _store_parts(21, cap, 40, binary)]
+    p2 = [_store_parts(22, cap, 80, binary)]
+    # make list1 rows near copies of list2 rows, so that matches exist
+    for part in p1:
+        src = np.random.default_rng(23).integers(0, 80, cap)
+        part[3][:] = p2[0][3][src]
+        if not binary:
+            part[3][:, :8] += 3.0
+    args = (0.8, 60.0 if binary else 200.0, None, cap, 20, 10.0, dup_mode,
+            not binary, True, binary, False)
+    jouts = jp._pool_match_parts(
+        [tuple(jnp.asarray(a) for a in p) for p in p1],
+        [tuple(jnp.asarray(a) for a in p) for p in p2], *args)
+    touts = tp._pool_match_parts(
+        [tuple(torch.as_tensor(a) for a in p) for p in p1],
+        [tuple(torch.as_tensor(a) for a in p) for p in p2], *args)
+    assert len(touts) == len(jouts) == (1 if binary else 2)
+    for jo, to in zip(jouts, touts):
+        m = np.asarray(jo["mask"])
+        np.testing.assert_array_equal(to["mask"].numpy(), m)
+        assert m.sum() > 20
+        for k in ("xy1", "A1", "s1", "xy2", "A2", "s2"):
+            np.testing.assert_array_equal(to[k].numpy()[m],
+                                          np.asarray(jo[k])[m])
+        np.testing.assert_allclose(to["prio"].numpy()[m],
+                                   np.asarray(jo["prio"])[m], rtol=1e-6)
+    for tcap in (64, 512):                   # over and under the capacity
+        jc = jp._concat_compact_parts(jouts, tcap)
+        tcm = tp._concat_compact_parts(touts, tcap)
+        for k in jc:
+            np.testing.assert_allclose(tcm[k].numpy(), np.asarray(jc[k]),
+                                       rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 17"):
+        tp._pool_match_parts([], [], 0.8, 0.0, (None, None), *args[3:])
+
+
+def test_h_laf_check_and_gt_inliers():
+    from mods_tpu.ransac.laf_check import K_SIGMA as JK
+    from mods_tpu.ransac.laf_check import h_laf_check as jax_laf
+    from mods_tpu.verify import gt_h_inliers as jax_gt
+    from mods_tpu_torch.ransac.laf_check import K_SIGMA, h_laf_check
+    from mods_tpu_torch.verify import gt_h_inliers, load_h_file
+    assert K_SIGMA == JK
+    xy1, xy2, mask, H, _ = _correspondences(30, 200, 0.7)
+    rng = np.random.default_rng(31)
+    xy1b, A1, s1, _, _ = _store_parts(32, 200, 200, True)
+    # frames of image 2 = H's local affine map of image 1's, some perturbed
+    lin = H[:2, :2].astype(np.float32)
+    A2 = lin @ A1
+    det = np.sqrt(np.abs(np.linalg.det(A2)))
+    A2 = (A2 / det[:, None, None]).astype(np.float32)
+    s2 = (s1 * det * rng.choice([1.0, 1.0, 1.0, 3.0], 200)).astype(np.float32)
+    j = [jnp.asarray(x) for x in (H, xy1, A1, s1, xy2, A2, s2, mask)]
+    t = [torch.from_numpy(x) for x in (H, xy1, A1, s1, xy2, A2, s2, mask)]
+    for thr in (60.0, 15.0, 0.0):
+        ref = np.asarray(jax_laf(*j, thr))
+        got = h_laf_check(*t, thr).numpy()
+        np.testing.assert_array_equal(got, ref)
+    assert 20 < np.asarray(jax_laf(*j, 60.0)).sum() < mask.sum()
+    for et in ("sampson", "symm_sum", "symm_max"):
+        ref = np.asarray(jax_gt(jnp.asarray(H), j[1], j[4], j[7], 3.0, et))
+        got = gt_h_inliers(H, t[1], t[4], t[7], 3.0, et).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert 100 < got.sum() < mask.sum()
+    import os
+    h_file = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".parity_work", "tilt4_H.txt")
+    assert load_h_file(h_file).shape == (3, 3)
