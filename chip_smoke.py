@@ -8,7 +8,10 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
 
 0. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 1. build every CUDA kernel under ``mods_tpu_torch/csrc`` for sm_90a, one
-   nvcc per source, all started together, and print ptxas's report;
+   nvcc per source, all started together, and print ptxas's report; build
+   ``native/mser.cpp`` and ``native/render.cpp`` with g++ into
+   ``mods_tpu_torch/_build/native``, and print the compiler, the host's
+   cores and the OpenMP thread count;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and the nearest
    PyTorch library call (CUDA graphs of repeated calls, CUDA events):
@@ -17,12 +20,14 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    and 3, beside the loop of launches it replaces; and both at the
    ladder's geometries: the sampler at (768, 41) and (768, 31) on a
    48-plane stack of 1280-wide canvases with some planes of extent 0,
-   Baumberg over the two views of a rendered tilt-4 group;
+   Baumberg over the two views of a rendered tilt-4 group; the sampler at
+   the MSER rungs' (512, 41) on 4 planes and (768, 41) on 16;
 3. drive the main path, ``make_two_view_step()`` at its default caps, on
    the zoom2x and rot90 pairs of ``.parity_work`` (1000x598): one warm-up
    and three timed steps per pair, with every kernel's launch count set
    to 0 just before and read just after; hold the result against the
-   ground-truth homographies and the JAX package's figures;
+   ground-truth homographies and the JAX package's figures (rot90's
+   corner error, a RANSAC draw for both packages, over 50 seeds);
 4. run a small pair on the card and on the CPU (the plain versions) and
    hold the two results against each other;
 5. profile the main path: one ``torch.profiler`` window over three steps
@@ -31,18 +36,39 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    reads of device values, and each stage range's (``mods.detect``,
    ``mods.orient``, ``mods.describe``, ``mods.match``, ``mods.ransac``)
    host time, device busy time and launches, and the kernels that take
-   the most device time; and one profiled pair (tilt4) of the ladder,
-   per ``TimeLog`` phase;
+   the most device time; one profiled pair (tilt4) of the ladder, per
+   ``TimeLog`` phase; one profiled pair (tilt6_rot45) of the CVIU-shaped
+   ladder, and the host reads of that pair in ``pipelined`` mode;
 6. drive the escalation ladder, ``TwoViewMatcher(LADDER, EngineConfig(),
    device="cuda").match``, on all four ``.parity_work`` pairs at full
-   size: one warm-up and three timed pairs each, the kernels' launch
-   counts held against those reckoned from the plan, the result held
-   against the ground truth and the JAX matcher's figures
-   (``JAX_LADDER_REFERENCE``).
+   size: one warm-up and one timed pair each (phase 7 holds the timed
+   repeats), the kernels' launch counts held against those reckoned from
+   the plan, the result held against the ground truth and the JAX
+   matcher's figures (``JAX_LADDER_REFERENCE``);
+7. hold the host render (``native/render.cpp``, what MSER sees) against
+   the card's render of every MSER view group of tilt4 and tilt6_rot45
+   (< 0.05 grey levels), then drive the CVIU-shaped ladder
+   (``CVIU_LADDER``: ORB, MSER and HessianAffine rungs) on all four pairs:
+   one warm-up and three timed pairs in ``sync`` mode and one in
+   ``pipelined`` mode each, the launch counts held against the plan, the
+   result against the JAX matcher's figures (``JAX_CVIU_REFERENCE``;
+   on tilt6_rot45, where the JAX matcher's own stop rung is RANSAC's
+   draw, over 200 seeds of the verification of each rung:
+   ``JAX_CVIU_SPREAD``); it prints the MSER host time, the share the
+   prefetch hid and the residual wait, and for the pairs that stop in
+   the ORB rungs both ladders' seconds a pair, alternating;
+8. run ``python -m mods_tpu_torch.cli match`` on tilt4 with this
+   script's INI files for that ladder, once for each of LORANSACH,
+   LORANSACF, ORSA and GR_TRUTH, and check its outputs.
 
 The last lines are the card (nvidia-smi), one JSON line of kernel
 figures and one JSON line ``{"ok": true, "device": {...}}``.  The script
 needs no network and imports nothing of JAX or of ``mods_tpu``.
+
+``python3 chip_smoke.py --seed-spread PAIR N`` instead measures how far a
+pair's stop rung on the CVIU-shaped ladder is the RANSAC draw's: the
+tentatives of every rung on the card, and the spread of the card's
+verification of them over N seeds (``seed_spread``).
 """
 
 from __future__ import annotations
@@ -62,6 +88,13 @@ PAIRS = ROOT / ".parity_work"
 # The JAX package's make_two_view_step() at its default caps on these
 # pairs, on the CPU: (tentatives, inliers).
 JAX_REFERENCE = {"zoom2x": (83, 76), "rot90": (140, 103)}
+# The share of the JAX package's RANSAC seeds whose flagship H is within
+# 8 px of the ground truth at the image corners, where that is a draw
+# (``PYTHONPATH=. python tests/test_torch_flagship.py --seeds 20 rot90``):
+# rot90's matches cover x 34-288 of a 598 px wide image, so its corners
+# are extrapolated.  zoom2x's H is the same for every seed.
+JAX_FLAGSHIP_CORNER_SHARE = {"rot90": 0.85}
+FLAGSHIP_SEEDS = 50
 TIMED_STEPS = 3
 PROFILED_STEPS = 3
 
@@ -97,9 +130,140 @@ JAX_LADDER_REFERENCE = {
     "tilt6_rot45": dict(steps=5, tentatives=73, matches=0, gt_consistent=0,
                         corner_error_px=584.660),
 }
-LADDER_TIMED_PAIRS = 3
+LADDER_TIMED_PAIRS = 1
 LADDER_PHASES = ("mods.SynthTime", "mods.DetectTime", "mods.DescTime",
                  "mods.MatchingTime", "mods.RANSACTime")
+
+# The CVIU-shaped ladder of phases 7 and 8: (detector iterations as
+# ``IterationParams`` keywords, matching plan as ``MatchPlan`` keywords or
+# None).  What ``tests/test_ini.py:11-38`` pins of the reference's
+# iters_mods_cviu.ini is copied; what it does not pin is this script's
+# choice, not the reference file's: rung 3's tilts (1, 2, 4, 6, 8) at
+# phi 360, rung 3's plan, FGINN 0.85 on rung 3, and RootSIFT as the
+# separate descriptor of rungs 4-6.
+_MSER = dict(detector="MSER", descriptors=("RootSIFT",),
+             fginn_threshold=(0.85,), distance_threshold=(0.0,))
+_TILTS = (1.0, 2.0, 4.0, 6.0, 8.0)
+_HESAFF_PLAN = dict(separate_detectors=("MSER", "HessianAffine"),
+                    separate_descriptors=("RootSIFT",))
+CVIU_LADDER = [
+    ([dict(tilt_set=(1.0,), **_ORB)],
+     dict(separate_detectors=("ORB",), separate_descriptors=("ORB",))),
+    ([dict(tilt_set=(1.0, 5.0, 9.0), phi_base=360.0, **_ORB)],
+     dict(separate_detectors=("ORB",), separate_descriptors=("ORB",))),
+    ([dict(scale_set=(1.0, 0.25, 0.125), **_MSER)],
+     dict(separate_detectors=("MSER", "ORB"),
+          separate_descriptors=("RootSIFT", "ORB"))),
+    ([dict(tilt_set=_TILTS, phi_base=360.0, **_MSER)],
+     dict(separate_detectors=("MSER",), separate_descriptors=("RootSIFT",))),
+    ([dict(tilt_set=_TILTS, phi_base=360.0, **_HESAFF)], _HESAFF_PLAN),
+    ([dict(tilt_set=_TILTS, phi_base=120.0, **_HESAFF)], _HESAFF_PLAN),
+    ([dict(tilt_set=_TILTS, phi_base=60.0, **_HESAFF)], _HESAFF_PLAN),
+]
+
+
+# The JAX package's TwoViewMatcher(cviu_rungs(mods_tpu.config),
+# EngineConfig(), seed=0) on the same pairs on a CPU (``python
+# tests/test_torch_ladder.py --cviu PAIR``, one pair a process), as
+# JAX_LADDER_REFERENCE.
+JAX_CVIU_REFERENCE = {
+    "zoom2x": dict(steps=1, tentatives=126, matches=37, gt_consistent=37,
+                   corner_error_px=4.040),
+    "rot90": dict(steps=2, tentatives=562, matches=65, gt_consistent=65,
+                  corner_error_px=1.139),
+    "tilt4": dict(steps=4, tentatives=143, matches=24, gt_consistent=24,
+                  corner_error_px=3.438),
+    "tilt6_rot45": dict(steps=5, tentatives=124, matches=12,
+                        gt_consistent=12, corner_error_px=44.847),
+}
+# Where the JAX matcher's own result is RANSAC's draw, the port is held
+# over draws (``_hold_spread``).  On tilt6_rot45 the JAX matcher's
+# verification of its own tentatives reaches 10 matches at rung 4 for 14
+# of 100 seeds and at rung 5 for 66 (``python tests/test_torch_ladder.py
+# --seeds 100 tilt6_rot45``), so it breaks the rule of PERF.md section 2
+# for about 30 % of its own seeds; the port's tentatives are its rows
+# (bar one outlier the card adds at rungs 4-6).  Per rung: the share of
+# seeds that verify ``min_matches``; at JAX's rung the mean verified
+# matches and the mean of those within 3 px of the ground truth.  Rungs
+# 1-3 hold fewer than 10 tentatives within 3 px: they cannot stop.
+JAX_CVIU_SPREAD = {
+    "tilt6_rot45": dict(seeds=100, share={4: 0.14, 5: 0.66},
+                        mean_verified=9.46, mean_within_3px=9.06),
+}
+SPREAD_SEEDS = 200
+CVIU_TIMED_PAIRS = 3
+
+
+def cviu_iters_ini(ladder=CVIU_LADDER, min_matches: int = 10) -> str:
+    """An iters INI (the reference's iters_*.ini layout, io_mods.cpp:
+    653-688) for ``ladder``: this script's own text, not the reference's
+    file."""
+    def num(v):
+        return ",".join(f"{x:g}" for x in v)
+
+    lines = ["[Iterations]", f"Steps={len(ladder)}",
+             f"minMatches={min_matches}; ladder stop count", ""]
+    for step, (dets, plan) in enumerate(ladder):
+        for d in dets:
+            lines += [f"[{d['detector']}{step}]",
+                      f"TiltSet={num(d.get('tilt_set', (1.0,)))}",
+                      f"ScaleSet={num(d.get('scale_set', (1.0,)))}",
+                      f"Phi={d.get('phi_base', 360.0):g}",
+                      "initSigma=0.5",
+                      f"Descriptors={','.join(d['descriptors'])}",
+                      f"FGINNThreshold={num(d['fginn_threshold'])}",
+                      f"DistanceThreshold={num(d['distance_threshold'])}",
+                      ""]
+        if plan:
+            lines += [f"[Matching{step}]"] + [
+                f"{key}={','.join(plan.get(field, ()))}"
+                for key, field in (("SeparateDetectors", "separate_detectors"),
+                                   ("SeparateDescriptors",
+                                    "separate_descriptors"),
+                                   ("GroupDetectors", "group_detectors"),
+                                   ("GroupDescriptors",
+                                    "group_descriptors"))] + [""]
+    return "\n".join(lines)
+
+
+# A config INI that gives the port's ``EngineConfig()`` for the fields the
+# CVIU-shaped ladder reads: the INI parsers' own defaults differ in
+# maxAngles (-1 there, 1 in EngineConfig), so it is set.  The parsers
+# turn doBothRANSACgroundTruth on by default (as the JAX package's do).
+CVIU_CONFIG_INI = """\
+[HessianAffine]
+mode=FixedTh
+[MSER]
+min_size=30
+max_area=0.05
+min_margin=8
+[DominantOrientation]
+maxAngles=1
+threshold=0.8
+[SIFTDescriptor]
+patchSize=41
+[RANSAC]
+ErrorType=SymmSum
+err_threshold=2.0
+LAFcoef=3.0
+HLAFcoef=10.0
+[Matching]
+contradDist=10.0
+kNN=50
+[DuplicateFiltering]
+duplicateDist=3.0
+whichCorrespondenceRemains=random
+"""
+
+
+def cviu_rungs(config_module) -> list:
+    """``CVIU_LADDER`` as ``Rung`` objects of ``config_module`` (the
+    port's ``mods_tpu_torch.config``, or the JAX package's for the
+    reference figures)."""
+    c = config_module
+    return [c.Rung(dets=tuple(c.IterationParams(**d) for d in dets),
+                   plan=c.MatchPlan(**plan) if plan else None)
+            for dets, plan in CVIU_LADDER]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 # outside the tensor cores.
@@ -430,9 +594,9 @@ def _load_pair(pair: str):
     return imgs[0], imgs[1], np.loadtxt(PAIRS / f"{pair}_H.txt")
 
 
-def _run_step(step, img1, img2) -> dict:
+def _run_step(step, img1, img2, seed: int = 0) -> dict:
     import torch
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     out = step(img1, img2, g)
     torch.cuda.synchronize()
     return out
@@ -496,8 +660,23 @@ def _drive_main_path(wrappers: dict) -> dict:
             raise RuntimeError(f"{pair}: {n_tent} tentatives, JAX {j_tent}")
         if n_inl < 0.8 * j_inl:
             raise RuntimeError(f"{pair}: {n_inl} inliers, JAX {j_inl}")
-        if err > 8.0:
-            raise RuntimeError(f"{pair}: corner error {err:.2f} px > 8")
+        if pair not in JAX_FLAGSHIP_CORNER_SHARE:
+            if err > 8.0:
+                raise RuntimeError(f"{pair}: corner error {err:.2f} px > 8")
+            continue
+        # the corner error is RANSAC's draw here: held over draws
+        errs = [_corner_error(_run_step(step, img1, img2, s)["H"].cpu()
+                              .numpy(), H_gt, img1.shape[1], img1.shape[0])
+                for s in range(FLAGSHIP_SEEDS)]
+        share = sum(e <= 8.0 for e in errs) / len(errs)
+        spread = dict(seeds=FLAGSHIP_SEEDS, share_within_8px=share,
+                      median_px=statistics.median(errs),
+                      jax_share=JAX_FLAGSHIP_CORNER_SHARE[pair])
+        print(f"[3] {pair}, RANSAC draws: {json.dumps(spread)}", flush=True)
+        if share < 0.8 * JAX_FLAGSHIP_CORNER_SHARE[pair]:
+            raise RuntimeError(f"{pair}: {share:.2f} of the draws within 8 "
+                               f"px at the corners, JAX "
+                               f"{JAX_FLAGSHIP_CORNER_SHARE[pair]}")
     return counts()                                    # read just after
 
 
@@ -648,10 +827,11 @@ def _planned_launches(matcher, shapes, rungs_run: int) -> dict:
     """Kernel launches of one ``match`` call that ran ``rungs_run`` rungs,
     reckoned from the plan: for every view group of every rung and image,
     one ``baumberg_smm`` launch an octave of its canvas where the
-    detector is HessianAffine, one ``window_sampler`` launch for the
-    orientation patches where a descriptor family needs them, and one
-    per patch set a family samples (its descriptor patches, one more per
-    extra DSP-SIFT scale; the BRIEF patches)."""
+    detector is HessianAffine (none for MSER's host-stage groups), one
+    ``window_sampler`` launch for the orientation patches where a
+    descriptor family needs them, and one per patch set a family samples
+    (its descriptor patches, one more per extra DSP-SIFT scale; the BRIEF
+    patches), for device and host-stage detectors alike."""
     from mods_tpu_torch.config import as_rungs
     from mods_tpu_torch.detectors.scale_space import num_octaves
     cfg = matcher.cfg
@@ -712,7 +892,7 @@ def _drive_ladder(wrappers: dict) -> dict:
             w.launches = 0
     for pair in ("zoom2x", "rot90", "tilt4", "tilt6_rot45"):
         img1, img2, H_gt = _load_pair_np(pair)
-        ref = JAX_LADDER_REFERENCE.get(pair)
+        ref = JAX_LADDER_REFERENCE[pair]
 
         def run():
             r = matcher.match(img1, img2)
@@ -751,43 +931,39 @@ def _drive_ladder(wrappers: dict) -> dict:
             kernel_launches_per_pair=launches[-1],
             time_log_s={k: round(v, 4) for k, v in r.log.times.items()})
         print(f"[6] {pair}: {json.dumps(res)}", flush=True)
-        if ref is None:
-            # no JAX figures for this pair: the ground truth alone
-            if r.n_matches < min_matches or err > 8.0:
-                raise RuntimeError(
-                    f"{pair}: {r.n_matches} matches, corner error "
-                    f"{err:.2f} px (no JAX figures to hold it against)")
-            continue
-        if ref["matches"] < min_matches:
-            continue          # the JAX matcher does not solve it either
-        if r.n_matches < min_matches:
-            raise RuntimeError(f"{pair}: {r.n_matches} verified matches, "
-                               f"JAX {ref['matches']}")
-        if r.steps_used not in (ref["steps"], ref["steps"] - 1):
-            raise RuntimeError(f"{pair}: stopped at rung {r.steps_used}, "
-                               f"JAX at {ref['steps']}")
-        if r.steps_used == ref["steps"] \
-                and r.n_matches < 0.8 * ref["matches"]:
-            raise RuntimeError(f"{pair}: {r.n_matches} verified matches "
-                               f"at rung {r.steps_used}, JAX "
-                               f"{ref['matches']}")
-        if ref["corner_error_px"] <= 8.0:
-            if err > 8.0:
-                raise RuntimeError(f"{pair}: corner error {err:.2f} px > 8")
-            continue
-        # The JAX matcher's own H is off by more than 8 px at the corners
-        # here (tilt4: its matches span a 150 px wide image), so the
-        # matches are held instead of the extrapolation: as many within
-        # 3 px of the ground truth as 0.8x JAX's at the same rung, or
-        # 0.8x the stop rule's count one rung earlier.
-        least = 0.8 * (ref["gt_consistent"] if r.steps_used == ref["steps"]
-                       else min_matches)
-        if true < least:
-            raise RuntimeError(
-                f"{pair}: {true} matches within 3 px of the ground truth, "
-                f"fewer than {least:.1f} (JAX: {ref['gt_consistent']} at "
-                f"rung {ref['steps']})")
+        _hold_to_jax(pair, r, true, err, ref, min_matches)
     return counts()                                    # read just after
+
+
+def _hold_to_jax(pair: str, r, true: int, err: float, ref: dict,
+                 min_matches: int) -> None:
+    """The rule of PERF.md section 2 against the JAX matcher's figures
+    (phases 6 and 7): stop at JAX's rung or one earlier; >= 10 verified
+    matches and as many within 3 px of the ground truth as 0.8x JAX's at
+    JAX's rung (0.8x the stop rule's count one rung earlier); a worst
+    corner error <= 8 px where the JAX matcher's own H meets that (on
+    tilt4 of ``LADDER`` its matches span a 150 px wide image and its H is
+    60 px off at the corners, so there the matches are held, not the
+    extrapolation)."""
+    if ref["matches"] < min_matches:
+        return                # the JAX matcher does not solve it either
+    if r.steps_used not in (ref["steps"], ref["steps"] - 1):
+        raise RuntimeError(f"{pair}: stopped at rung {r.steps_used}, JAX "
+                           f"at {ref['steps']}")
+    matches, gt = ((ref["matches"], ref["gt_consistent"])
+                   if r.steps_used == ref["steps"]
+                   else (min_matches, min_matches))
+    if r.n_matches < min_matches or r.n_matches < 0.8 * matches:
+        raise RuntimeError(f"{pair}: {r.n_matches} verified matches at "
+                           f"rung {r.steps_used}, JAX {ref['matches']} at "
+                           f"rung {ref['steps']}")
+    if true < 0.8 * gt:
+        raise RuntimeError(f"{pair}: {true} matches within 3 px of the "
+                           f"ground truth at rung {r.steps_used}, JAX "
+                           f"{ref['gt_consistent']} at rung {ref['steps']}")
+    if ref["corner_error_px"] <= 8.0 and err > 8.0:
+        raise RuntimeError(f"{pair}: corner error {err:.2f} px > 8, JAX "
+                           f"{ref['corner_error_px']:.2f}")
 
 
 def _profile_ladder() -> None:
@@ -801,6 +977,398 @@ def _profile_ladder() -> None:
         torch.cuda.synchronize()
 
     _profile("ladder, tilt4", run, 1, LADDER_PHASES)
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the CVIU-shaped ladder, with its MSER rungs, and the
+# ``match`` command
+
+def _build_native() -> None:
+    """Phase 1, host side: the port's own builds of ``native/mser.cpp``
+    and ``native/render.cpp`` (g++, into ``mods_tpu_torch/_build/native``);
+    raises when g++ or OpenMP is missing."""
+    import os
+    from mods_tpu_torch.detectors import mser
+    from mods_tpu_torch.ops import host_render
+    out = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"g++ --version failed: {out.stderr.strip()}")
+    t0 = time.perf_counter()
+    mser._lib()
+    host_render._lib()
+    print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp and "
+          f"native/render.cpp built into {mser.BUILD_DIR} in "
+          f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}, "
+          f"OpenMP threads {host_render.omp_max_threads()}", flush=True)
+
+
+def _cviu_matcher(stop_mode: str = "sync"):
+    from mods_tpu_torch import config
+    from mods_tpu_torch.pipeline import EngineConfig, TwoViewMatcher
+    return TwoViewMatcher(cviu_rungs(config), EngineConfig(), seed=0,
+                          stop_mode=stop_mode, device="cuda")
+
+
+def _check_host_render(pair: str) -> list:
+    """Every view group of the MSER rungs (2 and 3) of ``pair``'s first
+    image: ``native/render.cpp``'s views against the port's render on the
+    card, inside the valid extent; raises at a difference >= 0.05 grey
+    levels (the JAX package's bound, tests/test_host_render.py)."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.ops.host_render import render_group_np
+    m = _cviu_matcher()
+    img = _load_pair_np(pair)[0].astype(np.float32)
+    img_dev = torch.as_tensor(img, device="cuda")
+    h, w = img.shape
+    out, prev = [], []
+    for step in (2, 3):
+        it = m.ladder[step].dets[0]
+        prev, preps = m._prep_groups(it, h, w, prev)
+        for gp in preps:
+            p0, V = gp["group"][0], gp["V"]
+            valid = np.asarray([[p.h_new, p.w_new] for p in gp["group"]],
+                               np.int32)
+            host = render_group_np(
+                img, gp["rot_inv_np"][:V], gp["hr"], gp["wr"],
+                p0.view.do_blur, p0.sigma_x, p0.sigma_y, p0.tilt_scale[0],
+                p0.tilt_scale[1], valid, gp["hc"], gp["wc"], p0.identity)
+            dev = gp["render"](img_dev, gp["rot_inv"], gp["squash_inv"],
+                               gp["sig_x"], gp["sig_y"],
+                               gp["valid_hw"]).cpu().numpy()
+            d = max(float(np.abs(host[v, :a, :b] - dev[v, :a, :b]).max())
+                    for v, (a, b) in enumerate(valid))
+            geom = dict(rung=step, tilt=p0.view.tilt, zoom=p0.view.zoom,
+                        views=V, canvas=[gp["hc"], gp["wc"]],
+                        max_abs_diff=d)
+            out.append(geom)
+            if d >= 0.05:
+                raise RuntimeError(f"{pair}: host and card renders of the "
+                                   f"MSER group {geom} differ by {d}")
+    print(f"[7] host render vs card render, {pair} image 1: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def _drive_cviu(wrappers: dict) -> dict:
+    """Phase 7.  Returns each kernel's launches over the whole drive."""
+    import numpy as np
+    import torch
+
+    def counts():
+        return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+
+    matchers = {mode: _cviu_matcher(mode) for mode in ("sync", "pipelined")}
+    ladder = _ladder_matcher()
+    min_matches = matchers["sync"].cfg.min_matches
+    for ws in wrappers.values():  # every kernel's count, just before
+        for w in ws:
+            w.launches = 0
+    for pair in ("zoom2x", "rot90", "tilt4", "tilt6_rot45"):
+        img1, img2, H_gt = _load_pair_np(pair)
+        ref = JAX_CVIU_REFERENCE[pair]
+        runs = []
+        for i, mode in enumerate(["sync"] * (1 + CVIU_TIMED_PAIRS)
+                                 + ["pipelined"]):
+            m = matchers[mode]
+            before = counts()
+            t0 = time.perf_counter()
+            r = m.match(img1, img2)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launched = {k: n - before[k] for k, n in counts().items()}
+            rungs_run = m.rungs_run
+            planned = _planned_launches(m, (img1.shape, img2.shape),
+                                        rungs_run)
+            if launched != planned:
+                raise RuntimeError(
+                    f"{pair} ({mode}): a pair launched {launched}, the "
+                    f"plan of its {rungs_run} rungs gives {planned}")
+            if not np.isfinite(r.H).all():
+                raise RuntimeError(f"{pair}: H is not finite: {r.H}")
+            runs.append(dict(mode=mode, warmup=i == 0, s=dt, r=r,
+                             rungs_run=rungs_run, launches=launched,
+                             host_stage=dict(m.host_stage),
+                             peak=max(m.rung_peak_bytes, default=0)))
+        timed = [x for x in runs[1:] if x["mode"] == "sync"]
+        last = timed[-1]
+        r = last["r"]
+        err = _corner_error(r.H, H_gt, img1.shape[1], img1.shape[0])
+        true = _gt_consistent(H_gt, r.xy1, r.xy2)
+        hs = last["host_stage"]
+        pipe = runs[-1]
+        res = dict(
+            shapes=[list(img1.shape), list(img2.shape)],
+            steps_used=r.steps_used, tentatives=r.n_tentatives,
+            matches=r.n_matches, gt_consistent_3px=true,
+            corner_error_px=err, jax_cpu=ref,
+            median_pair_s=statistics.median(x["s"] for x in timed),
+            pair_s=[x["s"] for x in timed], warmup_s=runs[0]["s"],
+            time_log_s={k: round(v, 4) for k, v in r.log.times.items()},
+            mser_host_s=hs["job_s"] + hs["inline_s"],
+            mser_residual_wait_s=hs["wait_s"],
+            mser_prefetched_share=(
+                1.0 - hs["wait_s"] / hs["job_s"] if hs["job_s"] else None),
+            peak_mem_bytes=last["peak"],
+            kernel_launches_per_pair=last["launches"],
+            pipelined=dict(s=pipe["s"], steps_used=pipe["r"].steps_used,
+                           rungs_run=pipe["rungs_run"],
+                           matches=pipe["r"].n_matches,
+                           kernel_launches=pipe["launches"]))
+        if r.steps_used <= 2:
+            # a pair that stops in the ORB rungs runs the same rungs as
+            # LADDER's first two: both ladders alternating, pair by pair,
+            # show what the CVIU-shaped ladder's MSER rungs cost it
+            res["alternating_median_s"] = _alternate(
+                dict(cviu=matchers["sync"], ladder=ladder), img1, img2)
+        print(f"[7] {pair}: {json.dumps(res)}", flush=True)
+        if pipe["r"].steps_used != r.steps_used:
+            raise RuntimeError(f"{pair}: pipelined stopped at rung "
+                               f"{pipe['r'].steps_used}, sync at "
+                               f"{r.steps_used}")
+        if pair in JAX_CVIU_SPREAD:
+            _hold_spread(pair, r, img1, img2, H_gt, ref,
+                         JAX_CVIU_SPREAD[pair], min_matches)
+        else:
+            _hold_to_jax(pair, r, true, err, ref, min_matches)
+    for m in matchers.values():
+        m.close()
+    return counts()                                    # read just after
+
+
+def _alternate(matchers: dict, img1, img2, rounds: int = 3) -> dict:
+    """Median seconds a pair of each matcher, the matchers alternating
+    pair by pair."""
+    import torch
+    times = {k: [] for k in matchers}
+    for _ in range(rounds):
+        for k, m in matchers.items():
+            t0 = time.perf_counter()
+            m.match(img1, img2)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _hold_spread(pair: str, r, img1, img2, H_gt, ref: dict, spread: dict,
+                 min_matches: int) -> None:
+    """The rule of PERF.md section 2 held over RANSAC draws, for a pair
+    where the JAX matcher's own draws break it (``JAX_CVIU_SPREAD``): the
+    port's tentatives of every rung on the card (``ladder_banks``), the
+    rungs up to JAX's that hold ``min_matches`` tentatives within 3 px
+    verified with seeds 0..SPREAD_SEEDS-1 (``verify_spread``).  The
+    chance to stop at JAX's rung or one earlier, and at JAX's rung the
+    mean verified matches and the mean within 3 px, must each be at
+    least 0.8x the JAX matcher's; the seed-0 ladder run (``r``) must not
+    stop earlier than that."""
+    import numpy as np
+    steps = ref["steps"]
+    if r.steps_used < steps - 1:
+        raise RuntimeError(f"{pair}: stopped at rung {r.steps_used}, JAX "
+                           f"at {steps}")
+    m = _cviu_matcher("async")
+    banks = ladder_banks(m, img1, img2)
+    m.close()
+    share, at = {}, None
+    for rung in range(1, steps + 1):
+        mask = banks[f"{rung}_mask"]
+        if rung < steps and _gt_consistent(
+                H_gt, banks[f"{rung}_xy1"][mask],
+                banks[f"{rung}_xy2"][mask]) < min_matches:
+            share[rung] = 0.0                          # cannot stop
+            continue
+        c = np.asarray(verify_spread(m.cfg, banks, rung, range(SPREAD_SEEDS),
+                                     H_gt, "cuda"))
+        share[rung] = float((c[:, 0] >= min_matches).mean())
+        at = c.mean(0) if rung == steps else at
+
+    def p_stop(sh):              # first stop at rung steps - 1 or steps
+        before = np.prod([1.0 - sh.get(k, 0.0) for k in range(1, steps - 1)])
+        return before * (1.0 - (1.0 - sh.get(steps - 1, 0.0))
+                         * (1.0 - sh.get(steps, 0.0)))
+
+    res = dict(seeds=SPREAD_SEEDS, share_reaching_min_matches=share,
+               p_stop_by_jax_rung=p_stop(share),
+               mean_verified_at_jax_rung=float(at[0]),
+               mean_within_3px_at_jax_rung=float(at[1]),
+               jax=dict(spread, p_stop_by_jax_rung=p_stop(spread["share"])))
+    print(f"[7] {pair}, RANSAC draws: {json.dumps(res)}", flush=True)
+    for key, mine, jax in (
+            ("chance to stop by JAX's rung", res["p_stop_by_jax_rung"],
+             res["jax"]["p_stop_by_jax_rung"]),
+            ("mean verified at JAX's rung", at[0], spread["mean_verified"]),
+            ("mean within 3 px at JAX's rung", at[1],
+             spread["mean_within_3px"])):
+        if mine < 0.8 * jax:
+            raise RuntimeError(f"{pair}: {key} {mine:.3f}, JAX {jax:.3f}")
+
+
+def _profile_cviu() -> None:
+    """Phase 5: where the time of one CVIU-shaped ladder pair goes
+    (tilt6_rot45, every rung, ``sync`` mode), and the host reads of the
+    same pair in ``pipelined`` mode, counted as ``_profile`` counts them
+    but without the device trace (a second full profile would double the
+    phase: 270k launches a pair)."""
+    import torch
+    img1, img2, _ = _load_pair_np("tilt6_rot45")
+    for mode in ("sync", "pipelined"):
+        m = _cviu_matcher(mode)
+
+        def run():
+            m.match(img1, img2)
+            torch.cuda.synchronize()
+
+        label = f"CVIU ladder ({mode}), tilt6_rot45"
+        if mode == "sync":
+            _profile(label, run, 1, LADDER_PHASES)
+        else:
+            _count_host_reads(5, label, run)
+        m.close()
+
+
+def _count_host_reads(phase: int, label: str, fn) -> None:
+    """One call of ``fn`` under ``torch.profiler`` (after a warm-up
+    call): its wall time and its host reads of device values (each an
+    ``aten::_local_scalar_dense``, a synchronization)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    reads = sum(1 for e in prof.events()
+                if e.name == "aten::_local_scalar_dense")
+    print(f"[{phase}] {label}: {json.dumps(dict(s=dt, host_reads=reads))}",
+          flush=True)
+
+
+def _profile_f_estimators() -> None:
+    """Host reads of one ``ransac_f`` and one ``orsa_f`` call on the card
+    at the main path's capacity (2048 tentative slots, 1200 of them set:
+    400 correspondences of a non-planar scene, the rest uniform
+    outliers), with the default parameters (2048 hypotheses a round)."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.config import OrsaParams, RansacParams
+    from mods_tpu_torch.ransac.fundamental import ransac_f
+    from mods_tpu_torch.ransac.orsa import orsa_f
+    rng = np.random.default_rng(0)
+    n, n_in, n_set = 2048, 400, 1200
+    X = rng.uniform([-2, -2, 4], [2, 2, 8], (n_in, 3))
+    K = np.array([[800.0, 0, 500], [0, 800.0, 300], [0, 0, 1]])
+    a = 0.2
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+
+    def proj(Xc):
+        x = Xc @ K.T
+        return x[:, :2] / x[:, 2:]
+    xy1 = rng.uniform(0, 1000, (n, 2))
+    xy2 = rng.uniform(0, 1000, (n, 2))
+    xy1[:n_in] = proj(X)
+    xy2[:n_in] = proj(X @ R.T + [1.0, 0.1, 0.2]) + rng.normal(
+        0, 0.5, (n_in, 2))
+    t1, t2, mask = (torch.as_tensor(xy1, dtype=torch.float32, device="cuda"),
+                    torch.as_tensor(xy2, dtype=torch.float32, device="cuda"),
+                    torch.arange(n, device="cuda") < n_set)
+
+    def run_f():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        return ransac_f(t1, t2, mask, RansacParams(use_f=True), g)
+
+    def run_orsa():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        return orsa_f(t1, t2, mask, 1000, 1000, OrsaParams(), g)
+
+    for label, fn in (("ransac_f, one call", run_f),
+                      ("orsa_f, one call", run_orsa)):
+        _count_host_reads(8, label, fn)
+        inl = fn()[1]
+        found = int(inl[:n_in].sum())
+        if found < 0.8 * n_in or int(inl[n_in:].sum()) > 0.1 * n_in:
+            raise RuntimeError(f"{label}: {found} of {n_in} inliers found, "
+                               f"{int(inl[n_in:].sum())} outliers taken")
+
+
+def _drive_cli() -> None:
+    """Phase 8: ``python -m mods_tpu_torch.cli match`` on tilt4 with this
+    script's INI files for the CVIU-shaped ladder, once a ``ver_type``."""
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from mods_tpu_torch.cli import _build_engine
+    from mods_tpu_torch.io.regions_io import read_h, read_matches
+    from mods_tpu_torch.pipeline import TwoViewMatcher
+    from mods_tpu_torch.ransac.errors import f_error_sampson
+    pair = "tilt4"
+    line = re.compile(r"Matches: (\d+) \(tentatives (\d+), steps (\d+)\)")
+    results = {}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        (d / "config.ini").write_text(CVIU_CONFIG_INI)
+        (d / "iters.ini").write_text(cviu_iters_ini())
+        for ver in ("LORANSACH", "LORANSACF", "ORSA", "GR_TRUTH"):
+            m_path, log = d / f"m_{ver}.txt", d / f"log_{ver}.txt"
+            argv = [str(PAIRS / f"{pair}_1.png"), str(PAIRS / f"{pair}_2.png"),
+                    "0", "0", "k1", "k2", str(m_path), str(log), ver,
+                    str(d / "config.ini"), str(d / "iters.ini")]
+            if ver == "GR_TRUTH":
+                argv.append(str(PAIRS / f"{pair}_H.txt"))
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "mods_tpu_torch.cli", "match", *argv],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            dt = time.perf_counter() - t0
+            if out.returncode != 0:
+                raise RuntimeError(f"cli match {ver}: exit {out.returncode}"
+                                   f"\n{out.stderr[-3000:]}")
+            found = line.search(out.stdout)
+            if found is None:
+                raise RuntimeError(f"cli match {ver}: no Matches line in "
+                                   f"{out.stdout[-2000:]}")
+            n, tent, steps = map(int, found.groups())
+            for f in (m_path, Path(f"{m_path}.H"), log, Path(f"{log}.time")):
+                if not f.exists():
+                    raise RuntimeError(f"cli match {ver}: {f.name} missing")
+            if int(m_path.read_text().split()[0]) != n:
+                raise RuntimeError(f"cli match {ver}: the Matches line says "
+                                   f"{n}, the matchings file differs")
+            res = dict(matches=n, tentatives=tent, steps=steps, s=dt)
+            if ver in ("LORANSACF", "ORSA"):
+                cfg, ladder = _build_engine(str(d / "config.ini"),
+                                            str(d / "iters.ini"), ver)
+                xy1, xy2 = read_matches(str(m_path)) if n else (
+                    np.zeros((0, 2)), np.zeros((0, 2)))
+                e = f_error_sampson(*(torch.as_tensor(a) for a in (
+                    read_h(f"{m_path}.H"), xy1, xy2))).numpy()
+                res["max_sampson_px"] = float(np.sqrt(e.max())) if n else 0.0
+                # LORANSACF's inliers are within err_threshold (Sampson <=
+                # symmetric epipolar); ORSA's pass F_LAF_check's bound
+                bound = cfg.ransac.err_threshold * (
+                    1.0 if ver == "LORANSACF" else cfg.ransac.laf_coef)
+                if res["max_sampson_px"] > bound:
+                    raise RuntimeError(f"cli match {ver}: a verified match "
+                                       f"is {res['max_sampson_px']:.3f} px "
+                                       f"from its epipolar line (> {bound})")
+                # the same run in this process, for DEGENSAC's degen flag
+                # (and ORSA's log10 NFA), which the command does not print
+                m = TwoViewMatcher(ladder, cfg, device="cuda")
+                r = m.match(*_load_pair_np(pair)[:2])
+                m.close()
+                res.update(in_process_matches=r.n_matches, **r.extras)
+            results[ver] = res
+    print(f"[8] cli match, {pair}: {json.dumps(results)}", flush=True)
+    for ver in ("LORANSACF", "ORSA"):
+        if results["LORANSACH"]["matches"] >= 10 \
+                and results[ver]["matches"] < 10:
+            raise RuntimeError(f"cli match {ver}: {results[ver]['matches']} "
+                               f"verified where LORANSACH verifies "
+                               f"{results['LORANSACH']['matches']}")
 
 
 def main() -> int:
@@ -823,6 +1391,13 @@ def main() -> int:
             or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on: Hamming distances through a float "
                            "product and the blurs need full float32")
+    start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        dt = time.perf_counter() - start
+        print(f"[t] phases up to {phase} done {dt:.1f} s after the start",
+              flush=True)
+
     card = _card()
     print(f"[0] card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
@@ -832,6 +1407,8 @@ def main() -> int:
     for name, log in csrc.build_all().items():
         print(f"[1] nvcc {name}.cu:\n{log.strip()}", flush=True)
     print(f"[1] build {time.perf_counter() - t0:.1f} s", flush=True)
+    _build_native()
+    clock("1")
 
     # the sampler on level stacks, as the main path calls it for
     # orientation and descriptor patches (per_view 512 x max_angles 2,
@@ -855,6 +1432,15 @@ def main() -> int:
                        True, zero_planes=4),
         _check_sampler("ladder BRIEF", 768, 31, 48, 640, 1280, 20, True,
                        zero_planes=4)]
+    # the MSER rungs' shapes: orientation patches of an identity group
+    # (one view, host_cap = 512 rows: K = 512 over the 4 mip planes of a
+    # 1024 x 640 canvas), and a tilt-8 group (4 views: K = 768 over 16
+    # planes of 1280 x 256)
+    geoms += [
+        _check_sampler("MSER orientation, identity group", 512, 41, 4,
+                       1024, 640, 20, True),
+        _check_sampler("MSER describe, tilt-8 group", 768, 41, 16, 1280,
+                       256, 20, True)]
     for g in geoms:
         print(f"[2] window_sampler {json.dumps(g)}", flush=True)
     octaves = _zoom2x_octaves()
@@ -865,6 +1451,7 @@ def main() -> int:
     del octaves
     for g in smm:
         print(f"[2] baumberg_smm {json.dumps(g)}", flush=True)
+    clock("2")
 
     wrappers = {
         "baumberg_smm": [B.baumberg_adapt],
@@ -874,15 +1461,29 @@ def main() -> int:
           f"{json.dumps(launches)}", flush=True)
 
     _small_pair_card_vs_cpu()
+    clock("4")
     _profile_main_path()
     _profile_ladder()
+    _profile_cviu()
+    clock("5")
 
     ladder_launches = _drive_ladder(wrappers)
     print(f"[6] kernel launches on the ladder's path: "
           f"{json.dumps(ladder_launches)}", flush=True)
+    clock("6")
+    for pair in ("tilt4", "tilt6_rot45"):
+        _check_host_render(pair)
+    cviu_launches = _drive_cviu(wrappers)
+    print(f"[7] kernel launches on the CVIU-shaped ladder's path: "
+          f"{json.dumps(cviu_launches)}", flush=True)
     for name in wrappers:
-        if launches[name] <= 0 or ladder_launches[name] <= 0:
+        if min(launches[name], ladder_launches[name],
+               cviu_launches[name]) <= 0:
             raise RuntimeError(f"{name} was not launched on a main path")
+    clock("7")
+    _drive_cli()
+    _profile_f_estimators()
+    clock("8")
 
     kernels = []
     for name, replaces, checks in (
@@ -892,9 +1493,11 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda",
             source=f"mods_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            launches=launches[name] + ladder_launches[name],
+            launches=(launches[name] + ladder_launches[name]
+                      + cviu_launches[name]),
             launches_flagship=launches[name],
             launches_ladder=ladder_launches[name],
+            launches_cviu_ladder=cviu_launches[name],
             max_abs_err=max(g["max_abs_err"] for g in checks),
             ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],
             bound_ms=main_geom["bound_ms"], bound_by=main_geom["bound_by"],
@@ -907,5 +1510,176 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# ``--seed-spread``: the RANSAC draw's share in a pair's stop rung
+
+BANK_KEYS = ("xy1", "A1", "s1", "xy2", "A2", "s2", "prio", "mask")
+
+
+def ladder_banks(matcher, img1, img2) -> dict:
+    """The tentatives that each rung of ``matcher``'s ladder verifies on a
+    pair (one run of every rung: ``matcher`` in ``async`` mode),
+    compacted as ``_concat_compact_parts`` compacts them: numpy arrays
+    keyed ``"{rung}_{name}"`` (rungs from 1), and ``wh``."""
+    import numpy as np
+    from mods_tpu_torch.pipeline import _concat_compact_parts
+    banks, calls, verify = {}, [], matcher._verify_bank
+
+    def keep(log):
+        calls.append(None)                             # one call a rung
+        parts = [p for ps in matcher._bank.values() for p in ps]
+        if parts:
+            c = _concat_compact_parts(parts, matcher.cfg.caps.tentatives)
+            banks.update({f"{len(calls)}_{k}": v.cpu().numpy()
+                          for k, v in c.items()})
+        return verify(log)
+
+    matcher._verify_bank = keep
+    try:
+        matcher.match(img1, img2)
+    finally:
+        del matcher._verify_bank
+    banks["wh"] = np.asarray(matcher._wh)
+    return banks
+
+
+def bank_rungs(banks: dict) -> list:
+    return sorted({int(k.split("_")[0]) for k in banks if k != "wh"})
+
+
+def verify_spread(cfg, banks: dict, rung: int, seeds, H_gt,
+                  device: str) -> list:
+    """The port's verification (``_verify_core``) of one rung's bank on
+    ``device``, once for each ``torch.Generator`` seed: per seed the
+    verified matches and those within 3 px of the ground truth."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.pipeline import _verify_core
+    w, h = (int(v) for v in banks["wh"])
+    args = [torch.as_tensor(banks[f"{rung}_{k}"], device=device)
+            for k in BANK_KEYS]
+    out = []
+    for s in seeds:
+        g = torch.Generator(device=device).manual_seed(s)
+        inl = _verify_core(cfg, w, h, *args, g)["inlier_mask"].cpu().numpy()
+        xy1, xy2 = banks[f"{rung}_xy1"], banks[f"{rung}_xy2"]
+        out.append([int(inl.sum()), _gt_consistent(H_gt, xy1[inl],
+                                                   xy2[inl])])
+    return out
+
+
+def spread_summary(counts: list, min_matches: int) -> dict:
+    """Per-seed [verified, within 3 px] -> the shares and means that a
+    comparison of two verifiers reads."""
+    import numpy as np
+    c = np.asarray(counts, np.float64).reshape(-1, 2)
+    v, n = np.unique(c[:, 0].astype(int), return_counts=True)
+    return dict(seeds=len(c), verified_hist=dict(zip(map(str, v),
+                                                      map(int, n))),
+                share_stops=float((c[:, 0] >= min_matches).mean()),
+                share_zero=float((c[:, 0] == 0).mean()),
+                mean_verified=float(c[:, 0].mean()),
+                mean_within_3px=float(c[:, 1].mean()))
+
+
+def fit_accuracy(cfg, banks: dict, rung: int, device: str,
+                 n: int = 100000) -> dict:
+    """The minimal 4-point fits of ``ransac_h`` against the same fits in
+    float64 on the CPU, on ``n`` random samples of one rung's
+    deduplicated tentatives: as the port fits them on ``device`` and on
+    the CPU (``_fit_h``: float32 on the CPU, the normal equations in
+    float64 on the card), and with ``eigh`` in float32 on ``device``.
+    For each, the share of samples whose inlier count differs from
+    float64's, and the mean count over the samples whose float64 fit has
+    >= 8 inliers."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.pipeline import duplicate_filter
+    from mods_tpu_torch.ransac import homography as RH
+    from mods_tpu_torch.ransac.errors import inv_3x3
+
+    def fit_float32(q1, q2):
+        rows = RH._dlt_rows(q1, q2).reshape(q1.shape[:-2] + (-1, 9))
+        h = torch.linalg.eigh(rows.transpose(-1, -2) @ rows)[1][..., :, 0]
+        return h.reshape(h.shape[:-1] + (3, 3))
+
+    b = {k: torch.as_tensor(banks[f"{rung}_{k}"]) for k in BANK_KEYS}
+    keep = duplicate_filter(b["xy1"], b["xy2"], b["mask"],
+                            cfg.match.duplicate_dist, priority=b["prio"])
+    valid = np.nonzero((b["mask"] & keep).numpy())[0]
+    idx = torch.as_tensor(np.random.default_rng(0).choice(valid, (n, 4)))
+    th = cfg.ransac.err_threshold ** 2
+    err_fn = RH._error_fn(cfg.ransac)
+    counts = {}
+    for name, dev, dt, fit in (
+            (f"{device}_as_fit", device, torch.float32, RH._fit_h),
+            (f"{device}_eigh_float32", device, torch.float32, fit_float32),
+            ("cpu_as_fit", "cpu", torch.float32, RH._fit_h),
+            ("float64", "cpu", torch.float64, RH._fit_h)):
+        xy1, xy2 = (b[k].to(dev, dt) for k in ("xy1", "xy2"))
+        m = torch.zeros(len(xy1), dtype=torch.bool, device=dev)
+        m[torch.as_tensor(valid, device=dev)] = True
+        T1, T2 = RH._normalization(xy1, m), RH._normalization(xy2, m)
+        p1, p2 = RH._apply_T(T1, xy1), RH._apply_T(T2, xy2)
+        c = []
+        for i in idx.to(dev).split(2048):       # ransac_h's batch of fits
+            H = inv_3x3(T2) @ fit(p1[i], p2[i]) @ T1
+            c.append(((err_fn(H, xy1, xy2) < th) & m).sum(-1).cpu())
+        counts[name] = torch.cat(c).numpy()
+    ref = counts.pop("float64")
+    good = ref >= 8
+    return dict(rung=rung, samples=n, tentatives=len(valid),
+                good_samples=int(good.sum()),
+                mean_count_good_float64=float(ref[good].mean()),
+                **{k: dict(share_count_differs=float((c != ref).mean()),
+                           mean_count_good=float(c[good].mean()))
+                   for k, c in counts.items()})
+
+
+def seed_spread(pair: str, n_seeds: int) -> int:
+    """``python3 chip_smoke.py --seed-spread PAIR N``: the CVIU-shaped
+    ladder's tentatives of every rung on the card (saved to
+    ``chiprun_out/banks_<pair>_cuda.npz`` for the CPU side,
+    ``python tests/test_torch_ladder.py --seeds N --banks FILE PAIR``),
+    then, per rung with at least ``min_matches`` tentatives within 3 px
+    of the ground truth, the spread of the port's verification on the
+    card over seeds 0..N-1 and its minimal fits against float64.  Needs
+    the card."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    print(_card(), flush=True)
+    m = _cviu_matcher("async")
+    img1, img2, H_gt = _load_pair_np(pair)
+    banks = ladder_banks(m, img1, img2)
+    m.close()
+    out = ROOT / "chiprun_out" / f"banks_{pair}_cuda.npz"
+    out.parent.mkdir(exist_ok=True)
+    np.savez(out, **banks)
+    print(f"banks: {out.relative_to(ROOT)}", flush=True)
+    cfg = m.cfg
+    for rung in bank_rungs(banks):
+        mask = banks[f"{rung}_mask"]
+        row = dict(rung=rung, tentatives=int(mask.sum()),
+                   within_3px=_gt_consistent(H_gt, banks[f"{rung}_xy1"][mask],
+                                             banks[f"{rung}_xy2"][mask]))
+        if row["within_3px"] >= cfg.min_matches:       # a stop is possible
+            t0 = time.perf_counter()
+            row["cuda"] = spread_summary(verify_spread(
+                cfg, banks, rung, range(n_seeds), H_gt, "cuda"),
+                cfg.min_matches)
+            row["cuda"]["s_a_seed"] = (time.perf_counter() - t0) / n_seeds
+        print(json.dumps({pair: row}), flush=True)
+        if "cuda" in row:
+            print(json.dumps({pair: dict(rung=rung, fits=fit_accuracy(
+                cfg, banks, rung, "cuda"))}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--seed-spread"]:
+        sys.exit(seed_spread(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -124,6 +124,126 @@ class OrbParams:
 
 
 @dataclass(frozen=True)
+class FastParams:
+    """reference FASTParams (detectors_parameters.hpp:144-157)."""
+    threshold: float = 10.0
+    nonmax_suppression: bool = True
+    type: int = 0
+
+
+@dataclass(frozen=True)
+class StarParams:
+    """reference STARParams (detectors_parameters.hpp:158-175)."""
+    max_size: int = 45
+    response_threshold: int = 30
+    line_threshold_projected: int = 10
+    line_threshold_binarized: int = 8
+    suppress_nonmax_size: int = 5
+
+
+@dataclass(frozen=True)
+class SurfDetParams:
+    """reference SURFParams (detectors_parameters.hpp:120-142)."""
+    octaves: int = 4
+    intervals: int = 4
+    init_sample: int = 2
+    thresh: float = 0.0004
+
+
+@dataclass(frozen=True)
+class BriskDetParams:
+    """reference BRISKParams (detectors_parameters.hpp:176-196)."""
+    thresh: int = 30
+    octaves: int = 3
+    pattern_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class FreakParams:
+    """reference FREAKParams (descriptors/freakdescriptor.hpp)."""
+    orientation_normalized: bool = False
+    scale_normalized: bool = False
+    pattern_scale: float = 22.0
+    n_octaves: int = 4
+
+
+@dataclass(frozen=True)
+class CnnParams:
+    """reference CaffeDescriptorParams (descriptors_parameters.hpp:39-68)
+    as the JAX package re-cut it for its conv-stack descriptor."""
+    weights_file: str = ""
+    patch_size: int = 32
+    mr_size: float = 12.0
+    dim: int = 128
+    normalization: str = "L2"       # L2 | L1 | RootL2 | none
+    mean_gray: float = (104.0 + 117.0 + 123.0) / 3.0
+    do_sift_like_orientation: bool = True
+
+
+@dataclass(frozen=True)
+class DaisyParams:
+    """reference DAISYParams (descriptors/daisydescriptor.hpp)."""
+    rad: int = 15
+    radq: int = 3
+    thq: int = 8
+    histq: int = 8
+    nrm_type: str = "partial"
+
+    @property
+    def dim(self) -> int:
+        return (1 + self.radq * self.thq) * self.histq
+
+
+@dataclass(frozen=True)
+class LiopParams:
+    """reference LIOPDescriptorParams (matching/liopdesc.hpp:20-33)."""
+    neighbours: int = 4
+    bins: int = 6
+    radius: float = 6.0
+    threshold: float = 5.0
+
+    @property
+    def dim(self) -> int:
+        return self.bins * math.factorial(self.neighbours)
+
+
+@dataclass(frozen=True)
+class SsimParams:
+    """reference SSIMParams (descriptors/ssimdescriptor.hpp)."""
+    window_size: int = 5
+    desc_rad: int = 40
+    nrad: int = 4
+    nang: int = 10
+    cor_size: int = 20
+    var_noise: float = 300000.0
+    saliency_thresh: float = 0.7
+    homogeneity_thresh: float = 0.7
+    snn_thresh: float = 0.85
+
+    @property
+    def dim(self) -> int:
+        return self.nrad * self.nang
+
+
+@dataclass(frozen=True)
+class MroghParams:
+    """reference MROGHParams (descriptors/mroghdesc.hpp)."""
+    n_dir: int = 8
+    n_order: int = 6
+    n_multi_region: int = 3
+
+    @property
+    def dim(self) -> int:
+        return self.n_dir * self.n_order * self.n_multi_region
+
+
+@dataclass(frozen=True)
+class PixelsParams:
+    """reference PIXELSDescriptorParams (descriptors/pixelsdesc.hpp)."""
+    norm_type: str = "L2"
+
+
+@dataclass(frozen=True)
 class MatchParams:
     """reference matching.hpp:97-146."""
     ratio_threshold: float = 0.8
@@ -183,6 +303,19 @@ class RansacParams:
     lo_inner_samples: int = 10
     lo_sample_size: int = 14
     lo_iters: int = 4
+
+
+@dataclass(frozen=True)
+class OrsaParams:
+    """A-contrario verification (reference orsa.cpp; acceptance rule
+    matching.cpp:1035-1040).  ``rounds`` bounds the hypothesis rounds;
+    once log10-NFA has improved by less than ``min_improvement`` for
+    ``stall_rounds`` rounds in a row, the rest are skipped."""
+    max_log_nfa: float = -2.0
+    batch_hypotheses: int = 512
+    rounds: int = 8
+    stall_rounds: int = 2
+    min_improvement: float = 0.5
 
 
 @dataclass(frozen=True)

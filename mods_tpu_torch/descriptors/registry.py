@@ -52,7 +52,7 @@ NOT_PORTED = {
     **{n: ("patch", 20) for n in ("SURF", "LIOP", "DAISY", "SSIM", "KAZE",
                                   "MLDB", "FREAK", "BRISK", "MROGH")},
     "Pixels": ("pixels", 20), "CNN": ("cnn", 20),
-    "External": ("external", 16),
+    "External": ("external", 21),
 }
 
 

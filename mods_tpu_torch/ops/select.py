@@ -12,6 +12,9 @@ order:
   ``torch.nonzero`` has a data-dependent length (and syncs the host on
   CUDA).  ``nonzero_static`` keeps the JAX semantics with a prefix sum
   and a scatter, and also returns the validity mask of its slots.
+* **Picking by a device index.**  ``a[i]`` with a 0-dim index tensor
+  reads ``i`` back to the host (it becomes a Python int); ``pick`` keeps
+  the index on the device.
 """
 
 from __future__ import annotations
@@ -39,3 +42,8 @@ def nonzero_static(mask: torch.Tensor, size: int):
     count = torch.clamp(pos[-1] + 1, max=size) if n else pos.new_zeros(())
     valid = torch.arange(size, device=mask.device) < count
     return torch.where(valid, out[:size], 0), valid
+
+
+def pick(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 0-dim integer tensor ``i``, with no host read."""
+    return a.index_select(0, i.reshape(1))[0]

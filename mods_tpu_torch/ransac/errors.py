@@ -1,6 +1,7 @@
-"""Geometric residuals for H, batched over (hypotheses, points) (mirrors
-``mods_tpu/ransac/errors.py``; reference degensac/Htools.c).  H maps
-image1 -> image2 homogeneous coords (x2 ~ H x1).
+"""Geometric residuals for H and F, batched over (hypotheses, points)
+(mirrors ``mods_tpu/ransac/errors.py``; reference degensac/Htools.c and
+degensac/Ftools.c).  H maps image1 -> image2 homogeneous coords
+(x2 ~ H x1); F is the fundamental matrix with x2^T F x1 = 0.
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ def h_error_symm(H: torch.Tensor, xy1: torch.Tensor, xy2: torch.Tensor,
     return d1 + d2
 
 
+def h_error_forward(H: torch.Tensor, xy1: torch.Tensor,
+                    xy2: torch.Tensor) -> torch.Tensor:
+    """One-directional transfer |x2 - H x1|^2 (HDsi-style)."""
+    f = h_transfer(H, xy1) - xy2
+    return (f * f).sum(-1)
+
+
 def h_error_sampson(H: torch.Tensor, xy1: torch.Tensor,
                     xy2: torch.Tensor) -> torch.Tensor:
     """Sampson H error, the reference's ``HDs`` (Htools.c:158-200)."""
@@ -74,3 +82,42 @@ def h_error_sampson(H: torch.Tensor, xy1: torch.Tensor,
     c = j21 * j21 + j22 * j22 + w * w
     det = torch.clamp(a * c - b * b, min=1e-12)
     return (c * e1 * e1 - 2.0 * b * e1 * e2 + a * e2 * e2) / det
+
+
+def _homog(xy: torch.Tensor) -> torch.Tensor:
+    return torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
+
+
+def f_epipolar_lines(F: torch.Tensor, xy1: torch.Tensor) -> torch.Tensor:
+    """l2 = F x1 for (..., 3, 3) x (N, 2) -> (..., N, 3)."""
+    return torch.einsum("...ij,nj->...ni", F, _homog(xy1))
+
+
+def _f_terms(F, xy1, xy2):
+    """(x2^T F x1, F x1, F^T x2) over the (..., 3, 3) models."""
+    x1 = _homog(xy1)
+    x2 = _homog(xy2)
+    Fx1 = torch.einsum("...ij,nj->...ni", F, x1)
+    Ftx2 = torch.einsum("...ji,nj->...ni", F, x2)
+    num = torch.einsum("ni,...ni->...n", x2, Fx1)
+    return num, Fx1, Ftx2
+
+
+def f_error_sampson(F: torch.Tensor, xy1: torch.Tensor,
+                    xy2: torch.Tensor) -> torch.Tensor:
+    """Sampson distance^2 (FDs, degensac/Ftools.c)."""
+    num, Fx1, Ftx2 = _f_terms(F, xy1, xy2)
+    den = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2
+           + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2)
+    return num * num / torch.clamp(den, min=1e-20)
+
+
+def f_error_symepi(F: torch.Tensor, xy1: torch.Tensor,
+                   xy2: torch.Tensor) -> torch.Tensor:
+    """Symmetric squared epipolar distance (FDsSym, Ftools.c)."""
+    num, Fx1, Ftx2 = _f_terms(F, xy1, xy2)
+    d1 = num * num / torch.clamp(Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2,
+                                 min=1e-20)
+    d2 = num * num / torch.clamp(Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2,
+                                 min=1e-20)
+    return d1 + d2

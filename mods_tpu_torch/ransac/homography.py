@@ -58,13 +58,27 @@ def _dlt_rows(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.stack([r1, r2], -2)
 
 
+def normal_eigvecs(rows: torch.Tensor) -> torch.Tensor:
+    """Eigenvectors, by ascending eigenvalue, of the normal matrix
+    rows^T rows of (..., R, 9) constraint rows.  The CPU computes it in
+    float32, as the JAX package does.  On the card the product and
+    ``eigh`` run in float64: the normal matrix squares the rows'
+    condition, and cuSOLVER's batched float32 ``eigh`` loses far more of
+    a fit than LAPACK's (``python3 chip_smoke.py --seed-spread
+    tilt6_rot45 100`` on an NVIDIA H100 80GB HBM3, 700 W: 4-point fits of
+    rung 4 that keep 8.67 inliers in float64 keep 6.10 on the card in
+    float32 and 8.33 on the CPU)."""
+    if rows.is_cuda:
+        r = rows.to(torch.float64)
+        return torch.linalg.eigh(r.transpose(-1, -2) @ r)[1].to(rows.dtype)
+    return torch.linalg.eigh(rows.transpose(-1, -2) @ rows)[1]
+
+
 def _h_from_rows(rows: torch.Tensor) -> torch.Tensor:
     """Least-squares h from (..., R, 9) DLT rows: the eigenvector of the
     9x9 normal matrix with the smallest eigenvalue.  Its sign is
     arbitrary; compare H after dividing by H[2, 2]."""
-    ata = rows.transpose(-1, -2) @ rows
-    _, vecs = torch.linalg.eigh(ata)
-    h = vecs[..., :, 0]
+    h = normal_eigvecs(rows)[..., :, 0]
     return h.reshape(h.shape[:-1] + (3, 3))
 
 
@@ -95,12 +109,16 @@ def _uniform_index(shape, n: torch.Tensor, generator: torch.Generator,
     return torch.minimum((u * n).to(torch.int64), n - 1)
 
 
-def _needed_samples(bestc: int, nvalid: int, pars: RansacParams) -> float:
-    """The adaptive stop (exp_ranH.c:366), in float32 as the JAX cond."""
+def _needed_samples(bestc: int, nvalid: int, pars: RansacParams,
+                    m: int = 4) -> float:
+    """The adaptive stop for samples of ``m`` points (exp_ranH.c:366,
+    exp_ranF.c:1060), in float32 as the JAX cond."""
     f32 = np.float32
-    nf = max(f32(nvalid), f32(4.0))
+    nf = max(f32(nvalid), f32(m))
     ratio = np.clip(f32(bestc) / nf, f32(1e-6), f32(1 - 1e-6))
-    needed = np.log1p(f32(-pars.confidence)) / np.log1p(-(ratio ** 4))
+    with np.errstate(over="ignore", divide="ignore"):
+        # ratio ** 7 can round to 0: inf samples, capped below
+        needed = np.log1p(f32(-pars.confidence)) / np.log1p(-(ratio ** m))
     return float(min(needed, f32(pars.max_samples)))
 
 

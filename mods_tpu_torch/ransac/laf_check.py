@@ -3,8 +3,8 @@
 matching/matching.cpp:251-309): each match contributes 3 point pairs,
 the center plus the two affine-frame axis endpoints
 center + k_sigma*s*A[:, j], whose model error must stay below a
-coefficient times the RANSAC threshold.  ``f_laf_check`` belongs to the
-LORANSACF and ORSA modes (ROADMAP.md item 18).
+coefficient times the RANSAC threshold; ``f_laf_check`` is
+``F_LAF_check`` (matching.cpp:193-250) of the LORANSACF and ORSA modes.
 """
 
 from __future__ import annotations
@@ -35,4 +35,20 @@ def h_laf_check(H, xy1, A1, s1, xy2, A2, s2, mask, threshold):
     e = E.h_error_symm(H, p1.reshape(-1, 2), p2.reshape(-1, 2),
                        mode="max").reshape(n, 3)
     err = torch.sqrt(e.sum(-1))
+    return mask & (err <= threshold)
+
+
+def f_laf_check(F, xy1, A1, s1, xy2, A2, s2, mask, threshold,
+                sampson: bool = True):
+    """F_LAF_check: keep matches whose sum of square-rooted per-point
+    epipolar errors is <= threshold (the call site passes
+    LAFCoef * err_threshold)."""
+    if threshold <= 0:
+        return mask
+    p1 = _laf_points(xy1, A1, s1)
+    p2 = _laf_points(xy2, A2, s2)
+    n = xy1.shape[0]
+    fn = E.f_error_sampson if sampson else E.f_error_symepi
+    e = fn(F, p1.reshape(-1, 2), p2.reshape(-1, 2)).reshape(n, 3)
+    err = torch.sqrt(torch.clamp(e, min=0.0)).sum(-1)
     return mask & (err <= threshold)

@@ -1,5 +1,6 @@
-"""Phase-level wall-clock ledger (mirrors ``mods_tpu/timing.py::TimeLog``;
-reference ``TimeLog``, detectors/structures.hpp:51-74, phases
+"""Phase-level wall-clock ledger and per-run log (mirrors
+``mods_tpu/timing.py``; reference ``TimeLog``,
+detectors/structures.hpp:51-74, phases
 Synth/Detect/Orient/Desc/SCV/Match/RANSAC/Misc/Total).
 
 Kernels run asynchronously on the card: a phase's wall-clock is the
@@ -67,3 +68,34 @@ class TimeLog:
         with open(path, "w") as f:
             f.write(" ".join(p[:-4] for p in PHASES) + "\n")
             f.write(" ".join(f"{t[p]:.4f}" for p in PHASES) + "\n")
+
+
+@dataclass
+class RunLog:
+    """Per-run quality log: the reference ``logs`` struct
+    (configuration.hpp:137-203), one line a run as WriteLog writes it
+    (io_mods.cpp:10-68)."""
+    tentatives: int = 0
+    true_matches: int = 0
+    inlier_ratio: float = 0.0
+    regions1: int = 0
+    regions2: int = 0
+    steps: int = 0
+    total_time: float = 0.0
+    ver_type: str = "LORANSACH"
+    final_step: int = 0
+
+    HEADER = ("Tentatives TrueMatches InlierRatio Regions1 Regions2 "
+              "Steps TotalTime VerType")
+
+    def line(self) -> str:
+        return (f"{self.tentatives} {self.true_matches} "
+                f"{self.inlier_ratio:.4f} {self.regions1} {self.regions2} "
+                f"{self.steps} {self.total_time:.3f} {self.ver_type}")
+
+    def write(self, path: str, append: bool = False) -> None:
+        mode = "a" if append else "w"
+        with open(path, mode) as f:
+            if not append:
+                f.write(self.HEADER + "\n")
+            f.write(self.line() + "\n")

@@ -218,9 +218,42 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'mods_tpu')]\n"
         "assert not bad, bad\n"
+        "from mods_tpu_torch import csrc\n"
+        "from mods_tpu_torch.detectors import mser\n"
+        "from mods_tpu_torch.ops import host_render\n"
+        "assert not csrc._libs, 'a CUDA library was loaded on import'\n"
+        "assert mser._lib.cache_info().currsize == 0\n"
+        "assert host_render._lib.cache_info().currsize == 0\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('mods_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/test_torch_flagship.py --seeds N PAIR: the
+    # JAX package's
+    # flagship step at its default caps on a full-size .parity_work pair,
+    # once for each RANSAC key jax.random.PRNGKey(0..N-1): per seed the
+    # inliers and the worst corner error of H against the ground truth
+    # (chip_smoke.py's JAX_FLAGSHIP_CORNER_SHARE).
+    import json
+    from PIL import Image
+    from mods_tpu.models.flagship import make_two_view_step as jax_make
+    import chip_smoke
+    n, pair = int(sys.argv[sys.argv.index("--seeds") + 1]), sys.argv[-1]
+    imgs = [np.asarray(Image.open(os.path.join(
+        REPO, ".parity_work", f"{pair}_{i}.png")), np.float32) for i in (1, 2)]
+    H_gt = np.loadtxt(os.path.join(REPO, ".parity_work", f"{pair}_H.txt"))
+    step = jax_make()
+    h, w = imgs[0].shape
+    out = []
+    for s in range(n):
+        r = step(*imgs, jax.random.PRNGKey(s))
+        out.append([int(r["n_inliers"]), chip_smoke._corner_error(
+            np.asarray(r["H"]), H_gt, w, h)])
+    print(json.dumps({pair: dict(
+        per_seed=out, share_within_8px=float(np.mean(
+            [e <= 8.0 for _, e in out])))}))

@@ -4,7 +4,8 @@ Per stage: the HessianAffine detector over a view group (V > 1, one slot
 bucket-padded), the describe stage (``_make_desc_fn``) on the same views
 and regions, the store's append past its capacity.  End to end:
 ``TwoViewMatcher.match(device="cpu")`` against the JAX matcher on the
-textured pairs and ladders of ``tests/test_pipeline.py``.
+textured pairs and ladders of ``tests/test_pipeline.py`` (HessianAffine
+and ORB rungs; the MSER rungs are in ``test_torch_mser.py``).
 
 Tolerances.  Descriptors are integers 0..255 after ``floor(512 v + 0.5)``
 (BRIEF: bits): a float32 rounding of the histogram can move a component
@@ -14,11 +15,17 @@ rounding, which can flip a region or a match at a threshold, and RANSAC
 draws from another random stream: same ``steps_used``, verified matches
 within 20 %, H within 1 px at the image corners.
 
-Run as a script, ``python tests/test_torch_ladder.py PAIR``, this file
-prints what the JAX matcher finds on a ``.parity_work`` pair at full size
-with the ladder of ``chip_smoke.py`` (minutes a pair on a CPU): the
-figures in ``chip_smoke.py::JAX_LADDER_REFERENCE``.  One pair a process:
-XLA's CPU compiler ran out of memory maps on the second image shape.
+Run as a script, ``python tests/test_torch_ladder.py [--cviu] PAIR``,
+this file prints what the JAX matcher finds on a ``.parity_work`` pair at
+full size with ``chip_smoke.py::LADDER`` (or, with ``--cviu``, with
+``chip_smoke.py::CVIU_LADDER``), minutes a pair on a CPU: the figures in
+``chip_smoke.py::JAX_LADDER_REFERENCE`` and ``JAX_CVIU_REFERENCE``.  With
+``--seeds N [--banks FILE] PAIR`` it compares each rung's tentatives on
+the CVIU-shaped ladder in the JAX matcher, the port on the CPU and FILE
+(the card's, from ``python3 chip_smoke.py --seed-spread PAIR N``), and
+prints both packages' spread of verification over N RANSAC seeds on each
+(``_seed_study``).  One pair a process: XLA's CPU compiler ran out of
+memory maps on the second image shape.
 """
 
 import dataclasses
@@ -39,6 +46,7 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 from scipy import ndimage  # noqa: E402
 
+from mods_tpu import config as jax_config  # noqa: E402
 from mods_tpu import pipeline as jp  # noqa: E402
 from mods_tpu.config import CapacityParams as JaxCaps  # noqa: E402
 from mods_tpu.config import IterationParams as JaxIteration  # noqa: E402
@@ -222,19 +230,37 @@ ORB = dict(detector="ORB", descriptors=("ORB",), fginn_threshold=(0.0,),
 SHIFT = np.array([[1.0, 0.0, 18.0], [0.0, 1.0, -7.0], [0, 0, 1.0]])
 SQUASH = np.array([[1.0 / 3.0, 0.0, 30.0], [0.0, 1.0, 4.0], [0, 0, 1.0]])
 
-# name -> (image seed, (h, w), H, ladder as IterationParams keywords)
+# name -> (image seed, (h, w), H, ladder, EngineConfig keywords).  A rung
+# of the ladder is IterationParams keywords, or (a list of them, MatchPlan
+# keywords) for a rung of several detectors or with a plan.
 CASES = {
-    "identity": (0, (192, 256), SHIFT, [dict(tilt_set=(1.0,))]),
+    "identity": (0, (192, 256), SHIFT, [dict(tilt_set=(1.0,))], {}),
     "tilted": (7, (160, 224), SQUASH,
                [dict(tilt_set=(1.0,)),
-                dict(tilt_set=(1.0, 4.0), phi_base=360.0)]),
+                dict(tilt_set=(1.0, 4.0), phi_base=360.0)], {}),
     "orb_first": (11, (192, 240), SHIFT,
-                  [dict(tilt_set=(1.0,), **ORB), dict(tilt_set=(1.0,))]),
+                  [dict(tilt_set=(1.0,), **ORB), dict(tilt_set=(1.0,))], {}),
 }
 
 
-def _case(name):
-    seed, (h, w), H, ladder = CASES[name]
+def _ladder(config_module, ladder):
+    """A case's ladder as ``config_module``'s IterationParams and Rungs."""
+    c = config_module
+    out = []
+    for r in ladder:
+        if isinstance(r, dict):
+            out.append(c.IterationParams(**r))
+        else:
+            dets, plan = r
+            out.append(c.Rung(dets=tuple(c.IterationParams(**d)
+                                         for d in dets),
+                              plan=c.MatchPlan(**plan)))
+    return out
+
+
+def _case(name, cases=CASES):
+    """(img1, img2, H, ladder) of ``cases[name]``."""
+    seed, (h, w), H, ladder, _ = cases[name]
     if name == "orb_first":
         # a block texture: FAST needs corners, which the smooth blobs of
         # ``textured_image`` lack
@@ -259,8 +285,8 @@ def jax_results():
     out = {}
     for name in CASES:
         img1, img2, _, ladder = _case(name)
-        m = jp.TwoViewMatcher([JaxIteration(**kw) for kw in ladder],
-                              _jax_cfg())
+        m = jp.TwoViewMatcher(_ladder(jax_config, ladder),
+                              _jax_cfg(**CASES[name][4]))
         out[name] = m.match(img1, img2)
     return out
 
@@ -271,16 +297,17 @@ def _corners(H, w, h):
     return p[:, :2] / p[:, 2:]
 
 
-def _port_matcher(ladder, **kw):
-    return tp.TwoViewMatcher([tc.IterationParams(**k) for k in ladder],
-                             _port(_jax_cfg()), device="cpu", **kw)
+def _port_matcher(ladder, cfg_kw=None, **kw):
+    return tp.TwoViewMatcher(_ladder(tc, ladder),
+                             _port(_jax_cfg(**(cfg_kw or {}))),
+                             device="cpu", **kw)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_matcher_against_jax(name, jax_results):
     img1, img2, H, ladder = _case(name)
     ref = jax_results[name]
-    got = _port_matcher(ladder).match(img1, img2)
+    got = _port_matcher(ladder, CASES[name][4]).match(img1, img2)
     assert ref.n_matches >= 10, "the JAX matcher must solve the case"
     assert got.steps_used == ref.steps_used
     assert got.n_matches >= 10
@@ -318,7 +345,6 @@ def test_planned_launches_equal_the_calls_made(name, monkeypatch):
     """``chip_smoke.py`` holds the kernels' launch counts on the card
     against ``_planned_launches``.  Here, on the CPU, the same reckoning
     against the calls the matcher makes to the two wrappers."""
-    import chip_smoke
     img1, img2, _, ladder = _case(name)
     if name == "tilted":
         ladder = ladder + [dict(tilt_set=(1.0, 2.0, 4.0), phi_base=120.0,
@@ -326,6 +352,14 @@ def test_planned_launches_equal_the_calls_made(name, monkeypatch):
                                              "DSPSIFT", "ORB"),
                                 fginn_threshold=(0.8, 0.8, 0.8, 0.0),
                                 distance_threshold=(0.0, 0.0, 0.0, 60.0))]
+    calls = count_launches(img1, img2, ladder, {}, monkeypatch)
+    assert calls["baumberg_smm"] > 0
+
+
+def count_launches(img1, img2, ladder, cfg_kw, monkeypatch) -> dict:
+    """Runs every rung of ``ladder`` and counts the calls to the two
+    kernels' wrappers; they must equal ``chip_smoke._planned_launches``."""
+    import chip_smoke
     calls = {"window_sampler": 0, "baumberg_smm": 0}
 
     def counting(kernel, fn):
@@ -338,24 +372,72 @@ def test_planned_launches_equal_the_calls_made(name, monkeypatch):
                         counting("window_sampler", tp.sample_affine_patches))
     monkeypatch.setattr(th, "baumberg_adapt",
                         counting("baumberg_smm", th.baumberg_adapt))
-    m = _port_matcher(ladder)
+    m = _port_matcher(ladder, cfg_kw)
     m.cfg = dataclasses.replace(m.cfg, min_matches=10 ** 6)  # run every rung
     r = m.match(img1, img2)
     assert r.steps_used == len(ladder)
     assert calls == chip_smoke._planned_launches(
         m, (img1.shape, img2.shape), r.steps_used)
     assert calls["window_sampler"] >= 2 * len(ladder)
-    assert calls["baumberg_smm"] > 0
+    return calls
+
+
+_REF_FAR = dict(steps=5, matches=12, gt_consistent=12,
+                corner_error_px=44.8)     # JAX's own H off at the corners
+_REF_NEAR = dict(_REF_FAR, corner_error_px=4.0)
+
+
+@pytest.mark.parametrize("ref,steps,n,true,err,ok", [
+    (_REF_FAR, 5, 12, 12, 60.0, True),      # JAX's rung
+    (_REF_FAR, 4, 10, 8, 60.0, True),       # one earlier, at the stop count
+    (_REF_FAR, 6, 14, 12, 60.0, False),     # later than JAX
+    (_REF_FAR, 3, 12, 12, 60.0, False),     # two earlier
+    (_REF_FAR, 5, 9, 9, 60.0, False),       # under the stop count
+    (_REF_FAR, 5, 12, 9, 60.0, False),      # < 0.8x JAX's within 3 px
+    (_REF_NEAR, 5, 12, 12, 8.0, True),
+    (_REF_NEAR, 5, 12, 12, 8.5, False),     # corners off where JAX's are not
+    (dict(_REF_FAR, matches=9), 7, 0, 0, 600.0, True),   # JAX fails too
+])
+def test_chip_smoke_holds_the_port_to_jax(ref, steps, n, true, err, ok):
+    """The rule of PERF.md section 2 as ``chip_smoke.py`` phases 6 and 7
+    apply it to one result of the port."""
+    import chip_smoke
+    r = tp.MatchResult(H=np.eye(3), xy1=np.zeros((n, 2)),
+                       xy2=np.zeros((n, 2)), n_matches=n, n_tentatives=100,
+                       steps_used=steps, log=None)
+    if ok:
+        chip_smoke._hold_to_jax("pair", r, true, err, ref, 10)
+    else:
+        with pytest.raises(RuntimeError, match="pair"):
+            chip_smoke._hold_to_jax("pair", r, true, err, ref, 10)
+
+
+def test_seed_spread_reads_the_rungs_tentatives():
+    """``chip_smoke.ladder_banks`` keeps each rung's tentatives, and
+    ``verify_spread`` with the matcher's seed repeats the verification of
+    rung 1 (the first draws of that seed)."""
+    import chip_smoke
+    img1, img2, H, ladder = _case("identity")
+    ladder = ladder + [dict(tilt_set=(1.0, 4.0), phi_base=360.0)]
+    m = _port_matcher(ladder, dict(min_matches=10 ** 6), stop_mode="async")
+    banks = chip_smoke.ladder_banks(m, img1, img2)
+    assert chip_smoke.bank_rungs(banks) == [1, 2]
+    assert "_verify_bank" not in vars(m)          # the hook is gone
+    single = _port_matcher(ladder[:1], dict(min_matches=10 ** 6))
+    r = single.match(img1, img2)
+    (got,) = chip_smoke.verify_spread(single.cfg, banks, 1, [0], H, "cpu")
+    assert got[0] == r.n_matches >= 10
+    assert got[1] == chip_smoke._gt_consistent(H, r.xy1, r.xy2)
+    summary = chip_smoke.spread_summary([got, [0, 0]], 10)
+    assert summary["share_stops"] == summary["share_zero"] == 0.5
 
 
 def test_ground_truth_modes_against_jax():
     img1, img2, H, ladder = _case("identity")
     kw = dict(ver_type="GR_TRUTH", do_both_ransac_gt=True)
-    ref = jp.TwoViewMatcher([JaxIteration(**k) for k in ladder],
+    ref = jp.TwoViewMatcher(_ladder(jax_config, ladder),
                             _jax_cfg(**kw)).match(img1, img2, gt_h=H)
-    got = tp.TwoViewMatcher([tc.IterationParams(**k) for k in ladder],
-                            _port(_jax_cfg(**kw)),
-                            device="cpu").match(img1, img2, gt_h=H)
+    got = _port_matcher(ladder, kw).match(img1, img2, gt_h=H)
     assert got.steps_used == ref.steps_used == 1
     assert abs(got.n_matches - ref.n_matches) <= 0.1 * ref.n_matches
     assert abs(got.n_tentatives - ref.n_tentatives) <= 0.1 * ref.n_tentatives
@@ -366,26 +448,32 @@ def test_ground_truth_modes_against_jax():
         assert abs(got.extras[k] - ref.extras[k]) <= 0.2 * ref.extras[k]
 
 
+def _cli(*argv):
+    from mods_tpu_torch import cli
+    return cli.main(list(argv) + ["--device", "cpu"])
+
+
 @pytest.mark.parametrize("what,item,make", [
-    ("MSER", 16, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(detector="MSER")], device="cpu")),
-    ("ReadAffs", 16, lambda: tp.TwoViewMatcher(
+    ("MSER device backend", 19, lambda: tp.TwoViewMatcher(
+        [tc.IterationParams(detector="MSER")],
+        tp.EngineConfig(mser=tp.MserParams(backend="device")),
+        device="cpu")),
+    ("ReadAffs", 21, lambda: tp.TwoViewMatcher(
         [tc.IterationParams(detector="ReadAffs")], device="cpu")),
     ("DoG", 19, lambda: tp._make_detect_fn("DoG", tp.EngineConfig())),
     ("SURF", 19, lambda: tp._make_detect_fn("SURF", tp.EngineConfig())),
     ("monolith", 23, lambda: tp.TwoViewMatcher(monolith=True, device="cpu")),
-    ("pipelined", 17, lambda: tp.TwoViewMatcher(stop_mode="pipelined",
-                                                device="cpu")),
-    ("LORANSACF", 18, lambda: tp._verify_core(
-        tp.EngineConfig(ver_type="LORANSACF"), 1, 1, *[None] * 9)),
-    ("ORSA", 18, lambda: tp._verify_core(
-        tp.EngineConfig(ver_type="ORSA"), 1, 1, *[None] * 9)),
+    ("extract command", 21, lambda: _cli("extract", "a.png", "a.keys")),
+    ("drawn output", 21, lambda: _cli("match", "a.png", "b.png", "x.png",
+                                      "0", "k1", "k2", "m.txt", "0")),
+    ("export_descriptors command", 21, lambda: _cli(
+        "export_descriptors", "a.png", "a.desc")),
     ("Pixels", 20, lambda: tp.spec_for("Pixels")),
     ("CNN", 20, lambda: tp.spec_for("CNN")),
     ("DAISY", 20, lambda: tp.TwoViewMatcher(
         [tc.IterationParams(descriptors=("DAISY",))],
         device="cpu").match(np.zeros((64, 64)), np.zeros((64, 64)))),
-    ("External", 16, lambda: tp.spec_for("External")),
+    ("External", 21, lambda: tp.spec_for("External")),
 ])
 def test_unported_branches_name_their_roadmap_item(what, item, make):
     with pytest.raises(NotImplementedError,
@@ -406,10 +494,13 @@ def test_matcher_needs_a_card_unless_asked_for_the_cpu():
 # ---------------------------------------------------------------------------
 # the full-size reference run (script mode)
 
-def _reference_main(pairs):
+def _reference_main(pairs, cviu=False):
     from PIL import Image
     import chip_smoke
-    ladder = [JaxIteration(**kw) for kw in chip_smoke.LADDER]
+    if cviu:
+        ladder = chip_smoke.cviu_rungs(jax_config)
+    else:
+        ladder = [JaxIteration(**kw) for kw in chip_smoke.LADDER]
     m = jp.TwoViewMatcher(ladder, jp.EngineConfig(), seed=0)
     for pair in pairs:
         imgs = [np.asarray(Image.open(os.path.join(
@@ -429,6 +520,149 @@ def _reference_main(pairs):
             seconds=time.time() - t0)}), flush=True)
 
 
+def _dump_banks(pair, path):
+    """The tentatives that each of the first six rungs of the CVIU-shaped
+    ladder verifies on ``pair`` (one JAX matcher run, every rung,
+    ``async``), compacted to the tentative capacity as
+    ``_concat_compact_parts`` compacts them, saved to ``path``.  Six
+    rungs and numpy compaction: every XLA compile counts against the
+    process's memory maps, and a seventh rung ran out of them."""
+    from PIL import Image
+    import chip_smoke
+    imgs = [np.asarray(Image.open(os.path.join(
+        REPO, ".parity_work", f"{pair}_{i}.png")), np.float32)
+        for i in (1, 2)]
+    cfg = dataclasses.replace(jp.EngineConfig(), max_steps=6)
+    m = jp.TwoViewMatcher(chip_smoke.cviu_rungs(jax_config), cfg, seed=0,
+                          stop_mode="async")
+    banks, calls = {}, []
+    verify_bank = m._verify_bank
+    tcap = cfg.caps.tentatives
+
+    def keep_bank(log):
+        calls.append(None)                     # one call a rung
+        parts = [p for ps in m._bank.values() for p in ps]
+        if parts:
+            mask = np.concatenate([np.asarray(p["mask"]) for p in parts])
+            idx = np.nonzero(mask)[0][:tcap]
+            for k in ("xy1", "A1", "s1", "xy2", "A2", "s2", "prio"):
+                a = np.concatenate([np.asarray(p[k]) for p in parts])
+                out = np.zeros((tcap,) + a.shape[1:], a.dtype)
+                out[:len(idx)] = a[idx]
+                banks[f"{len(calls)}_{k}"] = out
+            banks[f"{len(calls)}_mask"] = np.arange(tcap) < len(idx)
+        return verify_bank(log)
+
+    m._verify_bank = keep_bank
+    m.match(*imgs)
+    np.savez(path, wh=np.asarray(m._wh), **banks)
+
+
+def _seed_study(pair, n_seeds, bank_files=()):
+    """The RANSAC draw's share in the stop rung of a pair of the
+    CVIU-shaped ladder.  Verification is the only random stage, so each
+    rung's tentatives are those of one run: the JAX matcher's
+    (``_dump_banks``, in a process of its own: XLA's CPU compiler runs out
+    of memory maps when one process compiles both), the port's on the CPU
+    (``chip_smoke.ladder_banks``) and those of ``bank_files`` (the card's,
+    from ``python3 chip_smoke.py --seed-spread PAIR N``).  Prints per rung
+    each bank's tentatives, those within 3 px of the ground truth and the
+    rows it shares with JAX's (both ends within 0.5 px); then, on each
+    rung with at least ``min_matches`` tentatives within 3 px (where a
+    stop is possible), JAX's ``_verify_core`` and the port's, on the CPU,
+    with seeds 0..N-1 on every bank that differs from JAX's, summarized by
+    ``chip_smoke.spread_summary``; and the rung each JAX seed stops at on
+    JAX's banks."""
+    import subprocess
+    import tempfile
+    import chip_smoke
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "banks.npz")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--dump-banks", path, pair], check=True)
+        jbanks = dict(np.load(path))
+    H_gt = np.loadtxt(os.path.join(REPO, ".parity_work", f"{pair}_H.txt"))
+    cfg = jp.EngineConfig()
+    tcfg = _port(cfg)
+    m = tp.TwoViewMatcher(chip_smoke.cviu_rungs(tc), tcfg, seed=0,
+                          stop_mode="async", device="cpu")
+    imgs = [chip_smoke._load_pair_np(pair)[i] for i in (0, 1)]
+    banks = {"jax": jbanks, "port_cpu": chip_smoke.ladder_banks(m, *imgs)}
+    m.close()
+    for f in bank_files:
+        banks[os.path.basename(f)] = dict(np.load(f))
+    w, h = (int(v) for v in jbanks["wh"])
+    keys = chip_smoke.BANK_KEYS
+    jverify = jax.jit(lambda *a: jp._verify_core(cfg, w, h, *a))
+
+    def rows(b, rung):
+        mask = b[f"{rung}_mask"]
+        return b[f"{rung}_xy1"][mask], b[f"{rung}_xy2"][mask]
+
+    def same(b, rung):
+        return all(np.allclose(b[f"{rung}_{k}"], jbanks[f"{rung}_{k}"],
+                               atol=1e-3) for k in keys)
+
+    spread_rungs, jax_counts = [], {}
+    for rung in chip_smoke.bank_rungs(jbanks):
+        ja, jb = rows(jbanks, rung)
+        row = {}
+        for name, b in banks.items():
+            a1, a2 = rows(b, rung)
+            d = (np.sqrt(((a1[:, None] - ja[None]) ** 2).sum(-1))
+                 + np.sqrt(((a2[:, None] - jb[None]) ** 2).sum(-1)))
+            row[name] = dict(
+                tentatives=len(a1),
+                within_3px=chip_smoke._gt_consistent(H_gt, a1, a2),
+                shared_with_jax=int((d.min(1) < 0.5).sum()) if len(ja)
+                else 0, identical_to_jax=same(b, rung))
+        print(json.dumps({pair: dict(rung=rung, banks=row)}), flush=True)
+        if row["jax"]["within_3px"] >= cfg.min_matches:
+            spread_rungs.append(rung)
+    for rung in spread_rungs:
+        out = {}
+        for name, b in banks.items():
+            if name != "jax" and same(b, rung):
+                continue
+            args = [b[f"{rung}_{k}"] for k in keys]
+            a1, a2 = args[0], args[3]
+            jx = []
+            for s in range(n_seeds):
+                inl = np.asarray(jverify(*args, jax.random.PRNGKey(s))[
+                    "inlier_mask"])
+                jx.append([int(inl.sum()),
+                           chip_smoke._gt_consistent(H_gt, a1[inl], a2[inl])])
+            if name == "jax":
+                jax_counts[rung] = [c[0] for c in jx]
+            out[name] = dict(
+                jax=chip_smoke.spread_summary(jx, cfg.min_matches),
+                port=chip_smoke.spread_summary(chip_smoke.verify_spread(
+                    tcfg, b, rung, range(n_seeds), H_gt, "cpu"),
+                    cfg.min_matches))
+        print(json.dumps({pair: dict(rung=rung, verified=out)}), flush=True)
+    stops = [next((r for r in spread_rungs
+                   if jax_counts[r][s] >= cfg.min_matches), None)
+             for s in range(n_seeds)]
+    print(json.dumps({pair: dict(jax_stop_rung_per_seed=stops)}),
+          flush=True)
+
+
 if __name__ == "__main__":
-    _reference_main(sys.argv[1:] or ["zoom2x", "rot90", "tilt4",
-                                     "tilt6_rot45"])
+    args = sys.argv[1:]
+    cviu = "--cviu" in args
+    opts = {}
+    for opt in ("--seeds", "--dump-banks", "--banks"):
+        if opt in args:
+            i = args.index(opt)
+            opts[opt] = args[i + 1]
+            del args[i:i + 2]
+    args = [a for a in args if a != "--cviu"]
+    pairs = args or ["zoom2x", "rot90", "tilt4", "tilt6_rot45"]
+    if "--dump-banks" in opts:
+        _dump_banks(pairs[0], opts["--dump-banks"])
+    elif "--seeds" in opts:
+        for pair in pairs:
+            _seed_study(pair, int(opts["--seeds"]),
+                        [opts["--banks"]] if "--banks" in opts else [])
+    else:
+        _reference_main(pairs, cviu=cviu)

@@ -28,6 +28,7 @@ from mods_tpu_torch import config as tc
 from mods_tpu_torch.matching import fginn as tf
 from mods_tpu_torch.ransac import errors as te
 from mods_tpu_torch.ransac import homography as thm
+from test_knobs import _fginn_setup as knobs_fginn_setup
 
 torch.set_num_threads(2)
 
@@ -319,8 +320,23 @@ def test_pool_match_parts_and_compaction(dup_mode, binary):
         for k in jc:
             np.testing.assert_allclose(tcm[k].numpy(), np.asarray(jc[k]),
                                        rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 17"):
-        tp._pool_match_parts([], [], 0.8, 0.0, (None, None), *args[3:])
+    if not binary:
+        # the FGINN+DB branch: a database holding list1's own rows is an
+        # impostor at distance 0 for each of them, so nothing matches
+        db = (p1[0][3], np.ones(cap, bool))
+        dargs = (0.8, 0.0, None, cap, 20, 10.0, dup_mode, True, False,
+                 False, False)
+        jd = jp._pool_match_parts(
+            [tuple(jnp.asarray(a) for a in p) for p in p1],
+            [tuple(jnp.asarray(a) for a in p) for p in p2], *dargs[:2],
+            tuple(jnp.asarray(a) for a in db), *dargs[3:])
+        td = tp._pool_match_parts(
+            [tuple(torch.as_tensor(a) for a in p) for p in p1],
+            [tuple(torch.as_tensor(a) for a in p) for p in p2], *dargs[:2],
+            tuple(torch.as_tensor(a) for a in db), *dargs[3:])
+        m = np.asarray(jd[0]["mask"])
+        np.testing.assert_array_equal(td[0]["mask"].numpy(), m)
+        assert not m[:cap].any()
 
 
 def test_h_laf_check_and_gt_inliers():
@@ -355,3 +371,61 @@ def test_h_laf_check_and_gt_inliers():
     h_file = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), ".parity_work", "tilt4_H.txt")
     assert load_h_file(h_file).shape == (3, 3)
+
+
+def _fginn_setup():
+    """list2 holds two near-identical descriptors at nearby positions plus
+    distant distractors (``tests/test_knobs.py::_fginn_setup``)."""
+    return [np.asarray(a) for a in knobs_fginn_setup()]
+
+
+@pytest.mark.parametrize("impostor", [True, False])
+def test_fginn_db_against_jax(impostor):
+    """FGINN+DB (``tests/test_knobs.py:60``): a database impostor as close
+    as the true match rejects it; an irrelevant database changes
+    nothing.  The decisions and ratios equal JAX's."""
+    desc1, m1, desc2, m2, xy2 = _fginn_setup()
+    if impostor:
+        db = desc1[:1]
+    else:
+        v = np.arange(1.0, 9.0, dtype=np.float32)
+        db = (v / np.linalg.norm(v))[None]
+    dbm = np.ones(1, bool)
+    t = tf.match_fginn(*[torch.from_numpy(a) for a in (desc1, m1, desc2,
+                                                       m2, xy2)],
+                       0.8, 10.0, knn=8,
+                       db=(torch.from_numpy(db), torch.from_numpy(dbm)))
+    j = jf.match_fginn(*[jnp.asarray(a) for a in (desc1, m1, desc2, m2,
+                                                  xy2)],
+                       0.8, 10.0, knn=8, db=(jnp.asarray(db),
+                                             jnp.asarray(dbm)))
+    assert bool(t.mask[0]) == bool(j.mask[0]) == (not impostor)
+    np.testing.assert_allclose(t.ratio.numpy(), np.asarray(j.ratio),
+                               rtol=1e-5)
+
+
+def test_matcher_loads_the_fginn_db(tmp_path):
+    """``TwoViewMatcher._fginn_db``: the [Matching] SIFTDBfile rows, padded
+    to a power-of-two row count as the JAX matcher pads them, for RootSIFT
+    only, cached until the file changes."""
+    from mods_tpu import pipeline as jp
+    from mods_tpu.config import MatchParams
+    from mods_tpu_torch import pipeline as tp
+    rows = np.random.default_rng(0).uniform(0, 1, (200, 128))
+    path = tmp_path / "db.txt"
+    np.savetxt(path, rows)
+    match = MatchParams(use_db_for_fginn=True, sift_db_file=str(path))
+    jm = jp.TwoViewMatcher(cfg=jp.EngineConfig(match=match))
+    tm = tp.TwoViewMatcher(cfg=tp.EngineConfig(
+        match=tc.from_dict(dataclasses.asdict(match), tc.MatchParams)),
+        device="cpu")
+    for name in ("RootSIFT", "SIFT"):
+        jdb = jm._fginn_db(jp.spec_for(name, jm.cfg))
+        tdb = tm._fginn_db(tp.spec_for(name))
+        if name == "SIFT":
+            assert jdb is None and tdb is None
+            continue
+        assert tdb[0].shape == (256, 128)
+        np.testing.assert_array_equal(tdb[0].numpy(), jdb[0])
+        np.testing.assert_array_equal(tdb[1].numpy(), jdb[1])
+        assert tm._fginn_db(tp.spec_for(name)) is tdb
