@@ -1,5 +1,6 @@
-"""Batched scale-space detector, Hessian response (mirrors
-``mods_tpu/detectors/scale_space.py``; the flagship uses HessianAffine).
+"""Batched scale-space detector: Hessian, DoG, Harris and TILDE
+responses, 3-D NMS, subpixel localization (mirrors
+``mods_tpu/detectors/scale_space.py``).
 
 Images are (V, H, W) float32; responses per octave are (V, L+2, H, W)
 with L = n_scales.  NMS is a 3x3x3 max/min pool, candidates are a
@@ -9,6 +10,7 @@ steps over precomputed dense fields.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -23,7 +25,10 @@ from mods_tpu_torch.ops.select import nonzero_static
 MAX_SUBPIXEL_SHIFT = 0.6   # pyramid.cpp:27
 POINT_SAFETY_BORDER = 3    # pyramid.cpp:30
 
+# point types (pyramid.cpp getPointType / pyramid.h enum)
 HESSIAN_DARK, HESSIAN_BRIGHT, HESSIAN_SADDLE = 0, 1, 2
+DOG_DARK, DOG_BRIGHT = 10, 11
+HARRIS_DARK, HARRIS_BRIGHT = 30, 31
 
 
 def hessian_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -40,10 +45,39 @@ def hessian_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
     return out
 
 
+def dog_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The reference's per-level DoG: img - blur(img, sigma^2)
+    (pyramid.cpp:176-181: it blurs by ``norm`` = sigma squared)."""
+    return img - gaussian_blur(img, sigma * sigma)
+
+
+def iidog_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Intensity-independent DoG (iidogResponse, pyramid.cpp:198-220):
+    DoG * 255/(I+B) where I+B < 255."""
+    blur = gaussian_blur(img, sigma * sigma)
+    dog = img - blur
+    s = img + blur
+    return torch.where(s < 255.0, dog * (255.0 / s.clamp(min=1e-6)), dog)
+
+
+def tilde_ss_response(img: torch.Tensor, sigma: float,
+                      filters_path: str = "") -> torch.Tensor:
+    """TILDE filter bank as a scale-space response (TILDEResponse,
+    pyramid.cpp:182-197; ``norm`` is ignored by the reference too)."""
+    from mods_tpu_torch.detectors.tilde import tilde_bank, tilde_response
+    return tilde_response(img, *tilde_bank(filters_path, str(img.device)))
+
+
+def wld_coef(intensity: torch.Tensor, a: float, b: float,
+             g: float) -> torch.Tensor:
+    """WLD intensity normalization coefficient (intensityNormCoef,
+    pyramid.cpp:35-38); responses are scaled by its square."""
+    return a / (intensity / g + b + 1e-10)
+
+
 def harris_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """Harris corner measure on (..., H, W) (reference
-    pyramid.cpp:283-305, norm = sigma^2).  The ORB detector ranks its
-    FAST corners by it; the Harris scale space itself is not ported."""
+    pyramid.cpp:283-305, norm = sigma^2); also ORB's corner ranking."""
     norm = sigma * sigma
     sigmasq = 0.6 * norm
     s = math.sqrt(sigmasq)
@@ -53,6 +87,13 @@ def harris_response(img: torch.Tensor, sigma: float) -> torch.Tensor:
     dxdy = sigmasq * gaussian_blur(lx * ly, s)
     tr = dx2 + dy2
     return dx2 * dy2 - dxdy * dxdy - 0.04 * tr * tr
+
+
+_RESPONSE_FNS = {
+    DetectorType.HESSIAN: hessian_response,
+    DetectorType.DOG: dog_response,
+    DetectorType.HARRIS: harris_response,
+}
 
 
 @dataclass
@@ -75,11 +116,15 @@ def num_octaves(h: int, w: int, border: int = 5) -> int:
 
 def build_pyramid(imgs: torch.Tensor, p: PyramidParams,
                   n_octaves: int | None = None) -> list[Octave]:
-    """Gaussian pyramid of L+2 blur levels + Hessian responses per octave
+    """Gaussian pyramid of L+2 blur levels + responses per octave
     (reference pyramid.cpp:455-573).  imgs (V, H, W) carry sigma=0.5."""
-    if p.detector_type != DetectorType.HESSIAN or p.do_on_wld:
-        raise NotImplementedError(
-            "the port's scale-space detector has the Hessian response only")
+    if p.detector_type == "TILDE":
+        resp_fn = functools.partial(tilde_ss_response,
+                                    filters_path=p.tilde_filters)
+    elif p.detector_type == DetectorType.DOG and p.ii_dog:
+        resp_fn = iidog_response
+    else:
+        resp_fn = _RESPONSE_FNS[p.detector_type]
     L = p.n_scales
     step = 2.0 ** (1.0 / L)
     cur_sigma = 0.5
@@ -97,7 +142,14 @@ def build_pyramid(imgs: torch.Tensor, p: PyramidParams,
         for i in range(1, L + 2):
             inc = sigmas[i - 1] * math.sqrt(step * step - 1.0)
             blurs.append(gaussian_blur(blurs[-1], inc))
-        resps = [hessian_response(b, s) for b, s in zip(blurs, sigmas)]
+        resps = [resp_fn(b, s) for b, s in zip(blurs, sigmas)]
+        if p.do_on_wld:
+            # WLD intensity normalization (pyramid.cpp:492-505): levels
+            # past the octave's first are scaled by coef(I)^2; level 0
+            # stays unnormalized, as in the reference
+            resps = [resps[0]] + [
+                rr * wld_coef(bb, p.wld_a, p.wld_b, p.wld_g) ** 2
+                for rr, bb in zip(resps[1:], blurs[1:])]
         octaves.append(Octave(blurs=torch.stack(blurs, 1),
                               resps=torch.stack(resps, 1),
                               sigmas=tuple(sigmas), pixel_distance=pd))
@@ -227,11 +279,15 @@ def localize_keypoints(resps: torch.Tensor, blurs: torch.Tensor,
     cc = c.clamp(1, W - 2)
     lxx = (blurs[lvl, rr, cc - 1] - 2 * blurs[lvl, rr, cc]
            + blurs[lvl, rr, cc + 1])
-    if detector_type != DetectorType.HESSIAN:
-        raise NotImplementedError(detector_type)
-    sub_type = torch.where(
-        val < 0, HESSIAN_SADDLE,
-        torch.where(lxx < 0, HESSIAN_DARK, HESSIAN_BRIGHT)).to(torch.int32)
+    if detector_type == DetectorType.HESSIAN:
+        sub_type = torch.where(
+            val < 0, HESSIAN_SADDLE,
+            torch.where(lxx < 0, HESSIAN_DARK, HESSIAN_BRIGHT))
+    elif detector_type == DetectorType.DOG:
+        sub_type = torch.where(val < 0, DOG_BRIGHT, DOG_DARK)
+    else:
+        sub_type = torch.where(val < 0, HARRIS_BRIGHT, HARRIS_DARK)
+    sub_type = sub_type.to(torch.int32)
 
     # octaveMap dedup: the first candidate (scan order) claiming a final
     # (r, c) wins (pyramid.cpp:416-421).  jnp.argsort(stable=True) becomes

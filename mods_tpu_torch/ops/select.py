@@ -30,18 +30,23 @@ def top_k(key: torch.Tensor, k: int):
 
 
 def nonzero_static(mask: torch.Tensor, size: int):
-    """First ``size`` flat indices where the 1-D ``mask`` is set, in scan
-    order, padded with 0 -> (idx (size,) int64, valid (size,) bool)."""
-    n = mask.shape[0]
-    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    """First ``size`` indices where ``mask`` is set along its last axis,
+    in scan order, padded with 0 -> (idx (..., size) int64, valid
+    (..., size) bool); leading axes are independent rows (the JAX
+    package's ``vmap`` of ``jnp.nonzero(size=...)``)."""
+    n = mask.shape[-1]
+    lead = mask.shape[:-1]
+    dev = mask.device
+    pos = torch.cumsum(mask.to(torch.int64), -1) - 1
     sel = mask & (pos < size)
     # slot ``size`` is a discard bin for the unselected entries
     slot = torch.where(sel, pos, torch.full_like(pos, size))
-    out = torch.zeros(size + 1, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, slot, torch.arange(n, device=mask.device))
-    count = torch.clamp(pos[-1] + 1, max=size) if n else pos.new_zeros(())
-    valid = torch.arange(size, device=mask.device) < count
-    return torch.where(valid, out[:size], 0), valid
+    out = torch.zeros(lead + (size + 1,), dtype=torch.int64, device=dev)
+    out.scatter_(-1, slot, torch.arange(n, device=dev).expand_as(slot))
+    count = (torch.clamp(pos[..., -1:] + 1, max=size) if n
+             else pos.new_zeros(lead + (1,)))
+    valid = torch.arange(size, device=dev) < count
+    return torch.where(valid, out[..., :size], 0), valid
 
 
 def pick(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:

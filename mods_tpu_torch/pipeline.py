@@ -9,8 +9,10 @@ verification; stop when verified matches >= minMatches.
 
 Per (tilt, zoom) view group three stages run one after the other, all
 batched over the group's rotations: render (shear rotation, anti-alias
-blur, squash), detect (HessianAffine or ORB on the device; MSER on the
-host, over views that ``native/render.cpp`` renders there) and describe
+blur, squash), detect (HessianAffine, DoG, HarrisAffine, ORB, SURF,
+KAZE, TILDE, FAST, STAR, BRISK and device-backend MSER on the device;
+host-backend MSER on the host, over views that ``native/render.cpp``
+renders there) and describe
 (orientation families + shared patch extraction + the SIFT-variant
 normalizations or rBRIEF).  Matching and verification run over fixed-capacity
 per-descriptor feature stores on the device, with tentative lists
@@ -23,7 +25,7 @@ Every patch the ladder samples goes through
 hand-written kernels ``csrc/window_sampler.cu`` and
 ``csrc/baumberg_smm.cu``.
 
-Ported here: the device detectors HessianAffine and ORB, the host-stage
+Ported here: every device detector of the JAX package, the host-stage
 MSER (prefetched for the whole ladder by a pool of two threads that run
 native code and never touch the card), the ``sift`` and ``binary``
 descriptor kinds, FGINN with a descriptor database, the verification
@@ -97,11 +99,8 @@ BORDER_CLAMP_FRAC = 0.2
 # ReadAffs, External) need a host stage
 DEVICE_DETECTORS = ("HessianAffine", "DoG", "HarrisAffine", "ORB", "SURF",
                     "KAZE", "TILDE", "FAST", "STAR", "BRISK")
-# the ROADMAP.md item that ports each detector this slice leaves out
-# (MSER: its device backend)
-_DETECTOR_ITEM = {"DoG": 19, "HarrisAffine": 19, "SURF": 19, "KAZE": 19,
-                  "TILDE": 19, "FAST": 19, "STAR": 19, "BRISK": 19,
-                  "MSER": 19, "ReadAffs": 21, "External": 21}
+# the ROADMAP.md item that ports each detector still left out
+_DETECTOR_ITEM = {"ReadAffs": 21, "External": 21}
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -122,7 +121,8 @@ class MserParams:
     """reference [MSER] config section (io_mods.cpp).  ``backend``:
     "host" (the default) is the native component tree over host-rendered
     views; "device" is the JAX package's opt-in level sweep
-    (``detectors/mser_tpu.py``), not ported yet."""
+    (``detectors/mser_tpu.py``), which quantizes grey levels and is not
+    at parity with the host backend."""
     min_size: int = 30
     max_area: float = 0.05
     min_margin: int = 8
@@ -558,13 +558,14 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
 
 def _make_detect_fn(det: str, cfg: EngineConfig):
     """Detection dispatch (the reference's 20-way if-else,
-    imagerepresentation.cpp:717-1224) for the device detectors:
+    imagerepresentation.cpp:717-1224) for the device detectors, branch
+    for branch as ``mods_tpu/pipeline.py::_make_detect_fn``:
     ``detect(views, valid_hw, valid_hw_host, reg_number)`` -> Regions
     (V, K).  ``valid_hw_host`` is the same (V, 2) extents as a CPU
     tensor, which the scale-space detector reads without a device
     sync."""
     caps = cfg.caps
-    if det == "HessianAffine":
+    if det in ("HessianAffine", "DoG", "HarrisAffine"):
         pyr = cfg.pyramid_for(det)
         aff = cfg.affine
         return lambda v, hw, hw_host, rn: detect_affine_keypoints(
@@ -577,12 +578,45 @@ def _make_detect_fn(det: str, cfg: EngineConfig):
             scale_factor=o.scale_factor, n_levels=o.nlevels,
             edge_threshold=o.edge_threshold,
             fast_threshold=o.fast_threshold)
+    if det == "BRISK":
+        # BRISK's AGAST pyramid as multi-scale FAST (cv::BRISK octaves)
+        from mods_tpu_torch.detectors.orb import detect_orb
+        b = cfg.brisk
+        return lambda v, hw, hw_host, rn: detect_orb(
+            v, hw, caps, n_levels=max(b.octaves, 1) * 2,
+            scale_factor=1.4142135, fast_threshold=float(b.thresh))
+    if det == "SURF":
+        from mods_tpu_torch.detectors.surf import detect_surf
+        thr = cfg.surf_threshold
+        oc = cfg.surf_det.octaves
+        return lambda v, hw, hw_host, rn: detect_surf(v, hw, caps, thr,
+                                                      n_octaves=oc)
+    if det == "KAZE":
+        from mods_tpu_torch.detectors.kaze import detect_kaze
+        thr = cfg.kaze_threshold
+        return lambda v, hw, hw_host, rn: detect_kaze(v, hw, caps, thr)
+    if det == "TILDE":
+        from mods_tpu_torch.detectors.tilde import detect_tilde, tilde_bank
+        return lambda v, hw, hw_host, rn: detect_tilde(
+            v, hw, caps, tilde_bank(cfg.tilde_filters, str(v.device)))
+    if det == "STAR":
+        from mods_tpu_torch.detectors.corners import detect_star
+        # OpenCV's responseThreshold (default 30) is on a ~7x-scaled
+        # kernel sum; mean-difference units are ~responseThreshold/7.5
+        thr = cfg.star.response_threshold / 7.5
+        return lambda v, hw, hw_host, rn: detect_star(v, hw, caps, thr)
+    if det == "FAST":
+        from mods_tpu_torch.detectors.corners import detect_fast
+        thr = cfg.fast.threshold
+        return lambda v, hw, hw_host, rn: detect_fast(v, hw, caps, thr)
     if det == "MSER":
-        # the host backend has no device detect stage (host_stage_regions)
-        raise _not_ported("the device MSER backend (mser.backend "
-                          "'device')", _DETECTOR_ITEM[det])
-    if det in _DETECTOR_ITEM:
-        raise _not_ported(f"detector {det!r}", _DETECTOR_ITEM[det])
+        # the device backend; the host backend has no device detect stage
+        # (``_host_stage_regions``)
+        from mods_tpu_torch.detectors.mser_tpu import detect_mser_tpu
+        mp = cfg.mser
+        return lambda v, hw, hw_host, rn: detect_mser_tpu(
+            v, hw, caps, min_size=mp.min_size, max_area=mp.max_area,
+            min_margin=mp.min_margin, levels=mp.levels, passes=mp.passes)
     raise KeyError(det)
 
 
@@ -748,11 +782,9 @@ class TwoViewMatcher:
         self.ladder = ladder if ladder is not None else [IterationParams()]
         for rung in as_rungs(self.ladder):
             for it in rung.dets:
-                if it.detector == "MSER" and self._device_det("MSER"):
-                    _make_detect_fn("MSER", self.cfg)        # raises
-                if it.detector in ("ReadAffs", "External"):
-                    raise _not_ported(
-                        f"host-stage detector {it.detector!r}", 21)
+                if it.detector in _DETECTOR_ITEM:
+                    raise _not_ported(f"host-stage detector {it.detector!r}",
+                                      _DETECTOR_ITEM[it.detector])
         self._seed = seed
         # per-(rung, image-size) geometry cache (see _prep_groups)
         self._prep_cache: dict = {}
@@ -918,7 +950,8 @@ class TwoViewMatcher:
         coordinates.  Runs on the prefetch pool's threads: numpy and
         native code only, nothing of torch."""
         if det != "MSER":
-            raise _not_ported(f"host-stage detector {det!r}", 21)
+            raise _not_ported(f"host-stage detector {det!r}",
+                              _DETECTOR_ITEM[det])
         cfg = self.cfg
         V = len(group)
         p0 = group[0]

@@ -58,6 +58,17 @@ class Regions:
         return self.replace(mask=self.mask & keep)
 
 
+def upright(xy, s, response, mask, sub_type=None) -> Regions:
+    """Regions with the identity shape (the detectors that find no affine
+    shape: FAST, STAR, SURF, KAZE, TILDE); ``sub_type`` defaults to 0."""
+    shape = mask.shape
+    A = torch.eye(2, device=mask.device).expand(shape + (2, 2)).contiguous()
+    if sub_type is None:
+        sub_type = torch.zeros(shape, dtype=torch.int32, device=mask.device)
+    return Regions(xy=xy, A=A, s=s, response=response, sub_type=sub_type,
+                   mask=mask)
+
+
 def concat_regions(rs: list[Regions]) -> Regions:
     """Concatenate region sets along the capacity (last mask) axis."""
     axis = rs[0].mask.ndim - 1

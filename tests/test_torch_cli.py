@@ -315,3 +315,29 @@ def test_read_png_gray_against_pil(tmp_path, mode):
     np.testing.assert_array_equal(
         to_gray_np(read_png_gray(path)),
         to_gray_np(np.asarray(Image.open(path))))
+
+
+@pytest.mark.parametrize("det", chip_smoke.OTHER_DETECTORS)
+def test_cli_match_runs_every_detector(png_pair, det, tmp_path, capsys):
+    """``cli match`` takes a rung of each device detector from the iters
+    INI (MSER with ``backend=device`` in the config INI), on the card's
+    path but on the CPU; the matchers are held against the JAX package in
+    ``test_torch_detectors.py`` and ``test_torch_kaze_tilde_mser.py``."""
+    d = png_pair
+    binary = det in ("FAST", "BRISK")
+    (tmp_path / "iters.ini").write_text(
+        f"[Iterations]\nSteps=1\nminMatches=10\n\n[{det}0]\nTiltSet=1\n"
+        f"Descriptors={'ORB' if binary else 'RootSIFT'}\n"
+        f"FGINNThreshold={0 if binary else 0.8}\n"
+        f"DistanceThreshold={60 if binary else 0}\n")
+    (tmp_path / "config.ini").write_text(
+        chip_smoke.CVIU_CONFIG_INI.replace(
+            "[MSER]\n", "[MSER]\nbackend=device\n"))
+    out = tmp_path / "m.txt"
+    assert tcli.main(["match", str(d / "a.png"), str(d / "b.png"), "0",
+                      "none", "k1", "k2", str(out), "0", "LORANSACH",
+                      str(tmp_path / "config.ini"),
+                      str(tmp_path / "iters.ini"), "--device", "cpu"]) == 0
+    n, _, steps = map(int, _LINE.search(capsys.readouterr().out).groups())
+    assert steps == 1
+    assert n == int(out.read_text().split()[0])

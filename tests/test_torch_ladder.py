@@ -24,8 +24,14 @@ full size with ``chip_smoke.py::LADDER`` (or, with ``--cviu``, with
 the CVIU-shaped ladder in the JAX matcher, the port on the CPU and FILE
 (the card's, from ``python3 chip_smoke.py --seed-spread PAIR N``), and
 prints both packages' spread of verification over N RANSAC seeds on each
-(``_seed_study``).  One pair a process: XLA's CPU compiler ran out of
-memory maps on the second image shape.
+(``_seed_study``).  With ``--detectors DET[,DET...] PAIR`` it prints the
+JAX matcher's figures on ``chip_smoke.py::DETECTOR_LADDERS[DET]``
+(``JAX_DETECTOR_REFERENCE``), and with ``--seeds N`` beside it each
+seed's outcome (``JAX_DETECTOR_SPREAD``).  With ``--detectors DET
+--tentatives [--seeds N] [--banks FILE] PAIR`` it compares each rung's
+tentatives as ``--seeds`` does, on DET's ladder (FILE from ``python3
+chip_smoke.py --seed-spread PAIR N DET``).  One pair a process: XLA's
+CPU compiler ran out of memory maps on the second image shape.
 """
 
 import dataclasses
@@ -454,14 +460,14 @@ def _cli(*argv):
 
 
 @pytest.mark.parametrize("what,item,make", [
-    ("MSER device backend", 19, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(detector="MSER")],
-        tp.EngineConfig(mser=tp.MserParams(backend="device")),
-        device="cpu")),
+    ("External detector", 21, lambda: tp.TwoViewMatcher(
+        [tc.IterationParams(detector="External")], device="cpu")),
     ("ReadAffs", 21, lambda: tp.TwoViewMatcher(
         [tc.IterationParams(detector="ReadAffs")], device="cpu")),
-    ("DoG", 19, lambda: tp._make_detect_fn("DoG", tp.EngineConfig())),
-    ("SURF", 19, lambda: tp._make_detect_fn("SURF", tp.EngineConfig())),
+    ("SURF descriptor", 20, lambda: tp.spec_for("SURF")),
+    ("KAZE descriptor", 20, lambda: tp.TwoViewMatcher(
+        [tc.IterationParams(detector="KAZE", descriptors=("KAZE",))],
+        device="cpu").match(np.zeros((64, 64)), np.zeros((64, 64)))),
     ("monolith", 23, lambda: tp.TwoViewMatcher(monolith=True, device="cpu")),
     ("extract command", 21, lambda: _cli("extract", "a.png", "a.keys")),
     ("drawn output", 21, lambda: _cli("match", "a.png", "b.png", "x.png",
@@ -520,21 +526,76 @@ def _reference_main(pairs, cviu=False):
             seconds=time.time() - t0)}), flush=True)
 
 
-def _dump_banks(pair, path):
-    """The tentatives that each of the first six rungs of the CVIU-shaped
-    ladder verifies on ``pair`` (one JAX matcher run, every rung,
-    ``async``), compacted to the tentative capacity as
-    ``_concat_compact_parts`` compacts them, saved to ``path``.  Six
-    rungs and numpy compaction: every XLA compile counts against the
-    process's memory maps, and a seventh rung ran out of them."""
+def _full_pair(pair):
     from PIL import Image
-    import chip_smoke
     imgs = [np.asarray(Image.open(os.path.join(
         REPO, ".parity_work", f"{pair}_{i}.png")), np.float32)
         for i in (1, 2)]
-    cfg = dataclasses.replace(jp.EngineConfig(), max_steps=6)
-    m = jp.TwoViewMatcher(chip_smoke.cviu_rungs(jax_config), cfg, seed=0,
-                          stop_mode="async")
+    return imgs[0], imgs[1], np.loadtxt(os.path.join(
+        REPO, ".parity_work", f"{pair}_H.txt"))
+
+
+def _detector_main(dets, pairs, n_seeds=0):
+    """The JAX matcher with ``chip_smoke.py::DETECTOR_LADDERS[det]`` on
+    full-size pairs: the figures of ``JAX_DETECTOR_REFERENCE``.  With
+    ``n_seeds``, instead each pair's result over RANSAC seeds 0..n-1
+    (``JAX_DETECTOR_SPREAD``)."""
+    import chip_smoke
+    for det in dets:
+        ladder, cfg = chip_smoke.detector_matcher_args(jp, jax_config, det)
+        m = jp.TwoViewMatcher(ladder, cfg, seed=0)
+        rows = chip_smoke.store_rows_per_rung(m, lambda st: st.count)
+        tents = chip_smoke.tentatives_per_rung(m)
+        for pair in pairs:
+            img1, img2, H_gt = _full_pair(pair)
+            if n_seeds:
+                per_seed = []
+                for seed in range(n_seeds):
+                    m._seed = seed
+                    r = m.match(img1, img2)
+                    per_seed.append(chip_smoke.pair_outcome(r, H_gt,
+                                                            img1.shape))
+                print(json.dumps({f"{det} {pair}": per_seed}), flush=True)
+                continue
+            del rows[:], tents[:]
+            t0 = time.time()
+            r = m.match(img1, img2)
+            steps, n, true, err = chip_smoke.pair_outcome(r, H_gt,
+                                                          img1.shape)
+            print(json.dumps({f"{det} {pair}": dict(
+                steps=steps, tentatives=r.n_tentatives, matches=n,
+                gt_consistent=true, corner_error_px=err,
+                regions=list(rows),
+                tentatives_per_rung=[int(t) for t in tents],
+                seconds=round(time.time() - t0, 1))}), flush=True)
+
+
+def _study_ladder(pipeline_module, config_module, det=None):
+    """(ladder, EngineConfig) that ``_dump_banks`` and ``_seed_study``
+    run: the CVIU-shaped ladder, or ``DETECTOR_LADDERS[det]``."""
+    import chip_smoke
+    if det:
+        return chip_smoke.detector_matcher_args(pipeline_module,
+                                                config_module, det)
+    return (chip_smoke.cviu_rungs(config_module),
+            pipeline_module.EngineConfig())
+
+
+def _dump_banks(pair, path, det=None):
+    """The tentatives that each of the first six rungs of the CVIU-shaped
+    ladder (or of ``DETECTOR_LADDERS[det]``) verifies on ``pair`` (one
+    JAX matcher run, every rung, ``async``), compacted to the tentative
+    capacity as ``_concat_compact_parts`` compacts them, saved to
+    ``path``.  Six rungs and numpy compaction: every XLA compile counts
+    against the process's memory maps, and a seventh rung ran out of
+    them."""
+    from PIL import Image
+    imgs = [np.asarray(Image.open(os.path.join(
+        REPO, ".parity_work", f"{pair}_{i}.png")), np.float32)
+        for i in (1, 2)]
+    ladder, cfg = _study_ladder(jp, jax_config, det)
+    cfg = dataclasses.replace(cfg, max_steps=6)
+    m = jp.TwoViewMatcher(ladder, cfg, seed=0, stop_mode="async")
     banks, calls = {}, []
     verify_bank = m._verify_bank
     tcap = cfg.caps.tentatives
@@ -558,10 +619,11 @@ def _dump_banks(pair, path):
     np.savez(path, wh=np.asarray(m._wh), **banks)
 
 
-def _seed_study(pair, n_seeds, bank_files=()):
+def _seed_study(pair, n_seeds, bank_files=(), det=None):
     """The RANSAC draw's share in the stop rung of a pair of the
-    CVIU-shaped ladder.  Verification is the only random stage, so each
-    rung's tentatives are those of one run: the JAX matcher's
+    CVIU-shaped ladder (or of ``DETECTOR_LADDERS[det]``).  Verification
+    is the only random stage, so each rung's tentatives are those of one
+    run: the JAX matcher's
     (``_dump_banks``, in a process of its own: XLA's CPU compiler runs out
     of memory maps when one process compiles both), the port's on the CPU
     (``chip_smoke.ladder_banks``) and those of ``bank_files`` (the card's,
@@ -579,13 +641,14 @@ def _seed_study(pair, n_seeds, bank_files=()):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "banks.npz")
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--dump-banks", path, pair], check=True)
+                        "--dump-banks", path, pair]
+                       + (["--detectors", det] if det else []), check=True)
         jbanks = dict(np.load(path))
     H_gt = np.loadtxt(os.path.join(REPO, ".parity_work", f"{pair}_H.txt"))
-    cfg = jp.EngineConfig()
-    tcfg = _port(cfg)
-    m = tp.TwoViewMatcher(chip_smoke.cviu_rungs(tc), tcfg, seed=0,
-                          stop_mode="async", device="cpu")
+    _, cfg = _study_ladder(jp, jax_config, det)
+    ladder, tcfg = _study_ladder(tp, tc, det)
+    m = tp.TwoViewMatcher(ladder, tcfg, seed=0, stop_mode="async",
+                          device="cpu")
     imgs = [chip_smoke._load_pair_np(pair)[i] for i in (0, 1)]
     banks = {"jax": jbanks, "port_cpu": chip_smoke.ladder_banks(m, *imgs)}
     m.close()
@@ -619,6 +682,8 @@ def _seed_study(pair, n_seeds, bank_files=()):
         print(json.dumps({pair: dict(rung=rung, banks=row)}), flush=True)
         if row["jax"]["within_3px"] >= cfg.min_matches:
             spread_rungs.append(rung)
+    if not n_seeds:
+        return
     for rung in spread_rungs:
         out = {}
         for name, b in banks.items():
@@ -649,20 +714,26 @@ def _seed_study(pair, n_seeds, bank_files=()):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    cviu = "--cviu" in args
+    flags = {f for f in ("--cviu", "--tentatives") if f in args}
     opts = {}
-    for opt in ("--seeds", "--dump-banks", "--banks"):
+    for opt in ("--seeds", "--dump-banks", "--banks", "--detectors"):
         if opt in args:
             i = args.index(opt)
             opts[opt] = args[i + 1]
             del args[i:i + 2]
-    args = [a for a in args if a != "--cviu"]
+    args = [a for a in args if a not in flags]
     pairs = args or ["zoom2x", "rot90", "tilt4", "tilt6_rot45"]
+    det = opts.get("--detectors")
+    banks = [opts["--banks"]] if "--banks" in opts else []
     if "--dump-banks" in opts:
-        _dump_banks(pairs[0], opts["--dump-banks"])
+        _dump_banks(pairs[0], opts["--dump-banks"], det)
+    elif det and "--tentatives" in flags:
+        for pair in pairs:
+            _seed_study(pair, int(opts.get("--seeds", 0)), banks, det)
+    elif det:
+        _detector_main(det.split(","), pairs, int(opts.get("--seeds", 0)))
     elif "--seeds" in opts:
         for pair in pairs:
-            _seed_study(pair, int(opts["--seeds"]),
-                        [opts["--banks"]] if "--banks" in opts else [])
+            _seed_study(pair, int(opts["--seeds"]), banks)
     else:
-        _reference_main(pairs, cviu=cviu)
+        _reference_main(pairs, cviu="--cviu" in flags)
