@@ -80,9 +80,29 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    the constant fill of a rotated view the score is the rounding of a
    zero-mean bank).  Phase 2 also holds the
    sampler at these rungs' identity groups and Baumberg over DoG's and
-   Harris's keypoints.
+   Harris's keypoints;
+10. drive pair-batched matching (``mods_tpu_torch.parallel.multi``):
+   (a) zoom2x, rot90 and tilt4 as one ``PairBatchMatcher`` batch on the
+   CVIU-shaped ladder, padded onto one canvas a side: launches held to
+   the batch's plan (one pair's at its canvases, not P times it), each
+   pair's rungs, tentatives at each rung, verified matches and matches
+   within 3 px to the JAX package's batch (``JAX_BATCH_REFERENCE``; over
+   20 seeds where its own seeds break the rule, ``JAX_BATCH_SPREAD``),
+   each rung's peak memory; (b) bench.py's protocol on tilt4 and zoom2x:
+   batches of 8 noisy copies, one warm-up and two timed, against the
+   serial matcher on the same 16 pairs (each batched pair stops at or
+   before the serial rung with >= 0.8x its verified matches), one
+   profiled batch and one profiled serial pair; (c)
+   ``batched_pair_step`` on 4 noisy zoom2x copies, held to phase 3's
+   rule and to one step's launches; (d) one-vs-many: the pairs' shared
+   image 1 against the image 2s of (a) as one gallery
+   (``MultiMatcher.match``), launches held to the plan, rungs,
+   tentatives at each rung and verified matches to the JAX package's
+   ``MultiMatcher`` (``JAX_MULTI_REFERENCE``).  The kernels line's
+   ``launches_pair_batched`` counts the held batched calls only.
 
-The last lines are the card (nvidia-smi), one JSON line of kernel
+The last lines are one JSON line of phase 10's batched figures under
+bench.py's names, the card (nvidia-smi), one JSON line of kernel
 figures and one JSON line ``{"ok": true, "device": {...}}``.  The script
 needs no network and imports nothing of JAX or of ``mods_tpu``.
 
@@ -214,6 +234,69 @@ JAX_CVIU_SPREAD = {
 }
 SPREAD_SEEDS = 200
 CVIU_TIMED_PAIRS = 3
+
+
+# Phase 10: pair-batched matching (``PairBatchMatcher``) on the
+# CVIU-shaped ladder.  10a runs zoom2x, rot90 and tilt4 as one batch: the
+# serial ladder stops them at rungs 1, 2 and 4, so the batch runs 4 and
+# each pair must stop on its own.  The JAX package's PairBatchMatcher
+# (cviu_rungs(mods_tpu.config), EngineConfig(), seed=0) on the same batch
+# on a CPU (``JAX_PLATFORMS=cpu python tests/test_torch_batch.py
+# --jax-batch zoom2x rot90 tilt4``), per pair as JAX_CVIU_REFERENCE, and
+# its tentatives at each of the batch's rungs.  The images are padded
+# onto one canvas a side (image 2's is 1000 x 1000), which moves zoom2x
+# and rot90 off their serial figures.
+BATCH_PAIRS = ("zoom2x", "rot90", "tilt4")
+JAX_BATCH_REFERENCE = {
+    "zoom2x": dict(steps=1, tentatives_per_rung=[129, 409, 36, 96],
+                   tentatives=129, matches=39, gt_consistent=39,
+                   corner_error_px=7.834),
+    "rot90": dict(steps=2, tentatives_per_rung=[141, 558, 123, 209],
+                  tentatives=558, matches=66, gt_consistent=66,
+                  corner_error_px=0.473),
+    "tilt4": dict(steps=4, tentatives_per_rung=[41, 155, 37, 129],
+                  tentatives=129, matches=19, gt_consistent=19,
+                  corner_error_px=48.224),
+}
+# The same command with ``--seeds 20``: zoom2x and rot90 are the same for
+# every seed; tilt4's seed 11 verifies 12 (10 within 3 px), which breaks
+# the rule against seed 0's 19, so a tilt4 that breaks it on the card is
+# held over 20 seeds, as phase 9 holds its cells.
+JAX_BATCH_SPREAD = {
+    "tilt4": dict(seeds=20, share_rule=0.95, mean_verified=19.5,
+                  mean_within_3px=19.2),
+}
+# 10d, one-vs-many: the pairs share their image 1, the query; the image 2s
+# of BATCH_PAIRS are the gallery, matched until each is (stop_at_first
+# False).  The JAX package's MultiMatcher(cviu_rungs(mods_tpu.config),
+# EngineConfig(), seed=0, mesh=None) on a CPU (``JAX_PLATFORMS=cpu python
+# tests/test_torch_batch.py --jax-multi zoom2x rot90 tilt4``), per gallery
+# image as JAX_BATCH_REFERENCE; a MultiResult reports the last rung.
+JAX_MULTI_REFERENCE = {
+    "zoom2x": dict(steps=4, tentatives_per_rung=[129, 409, 36, 96],
+                   tentatives=96, matches=50, gt_consistent=50,
+                   corner_error_px=13.279),
+    "rot90": dict(steps=4, tentatives_per_rung=[141, 558, 123, 209],
+                  tentatives=209, matches=124, gt_consistent=124,
+                  corner_error_px=0.388),
+    "tilt4": dict(steps=4, tentatives_per_rung=[41, 155, 37, 129],
+                  tentatives=129, matches=19, gt_consistent=19,
+                  corner_error_px=48.224),
+}
+# With ``--seeds 20``: tilt4's seeds verify 12-23 (mean 19.5), its seed 11
+# breaks the rule against seed 0, as in the JAX batch; zoom2x and rot90
+# meet it for every seed.
+JAX_MULTI_SPREAD = {
+    "tilt4": dict(seeds=20, share_rule=0.95, mean_verified=19.5,
+                  mean_within_3px=19.2),
+}
+# 10b, bench.py's protocol (bench.py:123-170): P noisy copies of one
+# pair a batch, one warm-up and BATCH_TIMED timed batches, against the
+# serial matcher on the same pairs; 10c: the flagship step on a batch
+BATCH_SIZE = 8
+BATCH_TIMED = 2
+THROUGHPUT_PAIRS = ("tilt4", "zoom2x")
+FLAGSHIP_BATCH = 4
 
 # Phase 9: every other device detector on a two-rung ladder of its own
 # (tilt 1; tilts 1, 2, 4, 6, 8 at phi 360), described with RootSIFT, or
@@ -1075,9 +1158,9 @@ def readings_differ(a: dict, b: dict, rel: float = 1e-6) -> list:
 
 
 def _profile(label: str, run, n: int, stages,
-             check_events: bool = False) -> None:
+             check_events: bool = False, phase: int = 5) -> dict:
     """One ``torch.profiler`` window over ``n`` calls of ``run()`` (after
-    a warm-up call), read by ``profile_readings``.  With
+    a warm-up call), read by ``profile_readings`` and returned.  With
     ``check_events``, also read from ``prof.events()`` and held equal."""
     from torch.profiler import ProfilerActivity, profile
     run()                                              # warm-up
@@ -1102,7 +1185,8 @@ def _profile(label: str, run, n: int, stages,
         if differ:
             raise RuntimeError(f"{label}: the raw records and "
                                f"prof.events() read {differ} apart")
-    print(f"[5] {label}: {json.dumps(res)}", flush=True)
+    print(f"[{phase}] {label}: {json.dumps(res)}", flush=True)
+    return res
 
 
 def _profile_main_path() -> None:
@@ -1134,7 +1218,8 @@ def _load_pair_np(pair: str):
             np.loadtxt(PAIRS / f"{pair}_H.txt"))
 
 
-def _planned_launches(matcher, shapes, rungs_run: int) -> dict:
+def _planned_launches(matcher, shapes, rungs_run: int,
+                      sizes=(None, None)) -> dict:
     """Kernel launches of one ``match`` call that ran ``rungs_run`` rungs,
     reckoned from the plan: for every view group of every rung and image,
     one ``baumberg_smm`` launch an octave of its canvas where the
@@ -1142,7 +1227,10 @@ def _planned_launches(matcher, shapes, rungs_run: int) -> dict:
     ``window_sampler`` launch for the orientation patches where a
     descriptor family needs them, and one per patch set a family samples
     (its descriptor patches, one more per extra DSP-SIFT scale; the BRIEF
-    patches), for device and host-stage detectors alike."""
+    patches), for device and host-stage detectors alike.  A pair batch
+    (phase 10) gives each side's padded canvas in ``shapes`` and its
+    images' sizes in ``sizes``: its groups fold every pair into the view
+    axis, so it launches as often as one pair at those canvases."""
     from mods_tpu_torch.config import as_rungs
     from mods_tpu_torch.detectors.scale_space import num_octaves
     cfg = matcher.cfg
@@ -1153,12 +1241,12 @@ def _planned_launches(matcher, shapes, rungs_run: int) -> dict:
         return "half" if sp.half_sift_like else "sift"
 
     n = {"baumberg_smm": 0, "window_sampler": 0}
-    for h, w in shapes:
+    for (h, w), side_sizes in zip(shapes, sizes):
         prev: dict = {}
         for rung in as_rungs(matcher.ladder)[:rungs_run]:
             for it in rung.dets:
                 prev[it.detector], preps = matcher._prep_groups(
-                    it, h, w, prev.get(it.detector, []))
+                    it, h, w, prev.get(it.detector, []), side_sizes)
                 specs = matcher._specs(it)
                 fams = {family(sp) for sp in specs}
                 per_group = 1 if fams - {"none"} else 0     # orientation
@@ -1974,6 +2062,377 @@ def _drive_detectors(wrappers: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: pair-batched matching
+
+def _batch_matcher(seed: int = 0):
+    from mods_tpu_torch import config
+    from mods_tpu_torch.parallel.multi import PairBatchMatcher
+    from mods_tpu_torch.pipeline import EngineConfig
+    return PairBatchMatcher(cviu_rungs(config), EngineConfig(), seed=seed,
+                            device="cuda")
+
+
+def batch_planned_launches(bm, pairs: list) -> dict:
+    """``_planned_launches`` of one ``match_batch`` call on ``pairs``:
+    each side's images padded onto one canvas (``_pad_gallery``)."""
+    from mods_tpu_torch.parallel.multi import _pad_gallery
+    sides = [_pad_gallery([p[i] for p in pairs]) for i in (0, 1)]
+    return _planned_launches(bm.mm.qmatcher,
+                             [imgs.shape[1:] for imgs, _ in sides],
+                             bm.mm.rungs_run,
+                             [tuple(sizes) for _, sizes in sides])
+
+
+def batch_tentatives_per_rung(mm) -> list:
+    """Record each rung's (P,) tentatives of a ``MultiMatcher`` (that of
+    a ``PairBatchMatcher`` too): wraps its ``_verify_bank``
+    (``tentatives_per_rung`` of a batch)."""
+    seen = []
+    inner = mm._verify_bank
+
+    def verify_bank(*a, **kw):
+        out = inner(*a, **kw)
+        seen.append(None if out is None else out["n_tent"])
+        return out
+
+    mm._verify_bank = verify_bank
+    return seen
+
+
+def _batch_outcomes(r, data: list) -> list:
+    """``pair_outcome`` of each pair of a ``BatchResult`` (each gallery
+    image of a ``MultiResult``)."""
+    import numpy as np
+    steps = np.broadcast_to(r.steps_used, r.counts.shape)
+    out = []
+    for i, (img1, _, H_gt) in enumerate(data):
+        err = (_corner_error(r.H[i], H_gt, img1.shape[1], img1.shape[0])
+               if np.isfinite(r.H[i]).all() else float("nan"))
+        out.append([int(steps[i]), int(r.counts[i]),
+                    _gt_consistent(H_gt, r.xy1[i], r.xy2[i]),
+                    round(err, 3)])
+    return out
+
+
+def _hold_batch(label: str, r, data: list, tents: list, refs: dict,
+                spreads: dict, min_matches: int, rerun) -> None:
+    """Holds each pair of a batched result (10a, 10d): its tentatives at
+    each rung (``tents``, the rungs' (P,) tentatives) to the JAX figures
+    of ``refs`` (``hold_tentatives``), its rungs, verified matches and
+    matches within 3 px by ``_rule_failure``, and where the card's seed 0
+    and the JAX matcher's own seeds break that rule (``spreads``), over
+    as many seeds (``rerun(seed)`` runs the batch again)."""
+    rung_tents = [[int(n) for n in t.tolist()] for t in tents
+                  if t is not None]
+    for i, (pair, outcome) in enumerate(zip(BATCH_PAIRS,
+                                            _batch_outcomes(r, data))):
+        ref = refs[pair]
+        per_rung = [t[i] for t in rung_tents]
+        res = dict(steps_used=outcome[0], tentatives_per_rung=per_rung,
+                   tentatives=int(r.n_tentatives[i]), matches=outcome[1],
+                   gt_consistent_3px=outcome[2],
+                   corner_error_px=outcome[3], jax_cpu=ref)
+        hold_tentatives(f"{label} {pair}", per_rung,
+                        ref["tentatives_per_rung"], min_matches)
+        failure = _rule_failure(pair, *outcome, ref, min_matches)
+        spread = spreads.get(pair)
+        if failure and spread:
+            outcomes = [_batch_outcomes(rerun(seed), data)[i]
+                        for seed in range(spread["seeds"])]
+            res["spread"] = got = spread_figures(outcomes, ref, min_matches)
+            res["spread_jax"] = spread
+            failure = next((
+                f"{pair}: over {spread['seeds']} seeds {key} "
+                f"{got[key]}, JAX {spread[key]}"
+                for key in ("share_rule", "mean_verified", "mean_within_3px")
+                if got[key] < 0.8 * spread[key]), None)
+        print(f"[10] {label} {pair}: {json.dumps(res)}", flush=True)
+        if failure:
+            raise RuntimeError(f"{label} {failure}")
+
+
+def _drive_batch_mixed(counts, tally) -> None:
+    """Phase 10a: zoom2x, rot90 and tilt4 as one batch on the CVIU-shaped
+    ladder (one warm-up batch, one held), its launches held to the batch
+    plan, each pair's rungs, tentatives at each rung, verified matches
+    and those within 3 px to ``JAX_BATCH_REFERENCE`` (where the card's
+    seed 0 and the JAX matcher's own seeds break the rule, over the
+    seeds of ``JAX_BATCH_SPREAD``); prints each rung's peak memory."""
+    import torch
+    data = [_load_pair_np(p) for p in BATCH_PAIRS]
+    pairs = [(a, b) for a, b, _ in data]
+    bm = _batch_matcher()
+    tents = batch_tentatives_per_rung(bm.mm)
+    bm.match_batch(pairs)                              # warm-up
+    torch.cuda.synchronize()
+    del tents[:]
+    before = counts()
+    t0 = time.perf_counter()
+    r = bm.match_batch(pairs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in counts().items()}
+    tally(launched)
+    planned = batch_planned_launches(bm, pairs)
+    print(f"[10] mixed batch {list(BATCH_PAIRS)}: " + json.dumps(dict(
+        s=dt, rungs_run=bm.mm.rungs_run, kernel_launches=launched,
+        planned_launches=planned,
+        rung_peak_mem_bytes=bm.mm.rung_peak_bytes,
+        time_log_s={k: round(v, 4) for k, v in r.log.times.items()})),
+        flush=True)
+    if launched != planned:
+        raise RuntimeError(f"mixed batch: launched {launched}, the plan of "
+                           f"its {bm.mm.rungs_run} rungs gives {planned}")
+
+    def rerun(seed):
+        bm.mm._seed = seed
+        return bm.match_batch(pairs)
+
+    _hold_batch("batch", r, data, tents, JAX_BATCH_REFERENCE,
+                JAX_BATCH_SPREAD, bm.cfg.min_matches, rerun)
+    bm.mm._seed = 0
+    bm.close()
+
+
+def _noisy_copies(img1, img2, n: int, rng) -> list:
+    """bench.py's batch: ``n`` copies of a pair, each image with its own
+    uniform [0, 0.5) noise."""
+    import numpy as np
+    return [(img1 + rng.uniform(0, 0.5, img1.shape).astype(np.float32),
+             img2 + rng.uniform(0, 0.5, img2.shape).astype(np.float32))
+            for _ in range(n)]
+
+
+def _drive_batch_throughput(pair: str, counts, tally) -> dict:
+    """Phase 10b, bench.py's protocol (bench.py:123-170): batches of
+    ``BATCH_SIZE`` noisy copies of ``pair`` on the CVIU-shaped ladder, one
+    warm-up and ``BATCH_TIMED`` timed, each batch's launches held to its
+    plan; the serial matcher on the same pairs, timed; every pair of the
+    batch must stop at or before the serial matcher's rung on the same
+    pair with >= 0.8x its verified matches.  Then one profiled batch and
+    one profiled serial pair (device busy time, idle share, launches,
+    host reads).  Returns bench.py's figures."""
+    import numpy as np
+    import torch
+    img1, img2, H_gt = _load_pair_np(pair)
+    rng = np.random.default_rng(7)
+    bm = _batch_matcher()
+    serial = _cviu_matcher()
+    warm = _noisy_copies(img1, img2, BATCH_SIZE, rng)
+    bm.match_batch(warm)
+    serial.match(*warm[0])
+    torch.cuda.synchronize()
+    batches = [_noisy_copies(img1, img2, BATCH_SIZE, rng)
+               for _ in range(BATCH_TIMED)]
+    results, batch_s, launches = [], [], []
+    for pairs in batches:
+        before = counts()
+        t0 = time.perf_counter()
+        results.append(bm.match_batch(pairs))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        launches.append({k: n - before[k] for k, n in counts().items()})
+        tally(launches[-1])
+        planned = batch_planned_launches(bm, pairs)
+        if launches[-1] != planned:
+            raise RuntimeError(f"batch of {pair}: launched {launches[-1]}, "
+                               f"the plan gives {planned}")
+    serial_s, serial_r = [], []
+    for pairs in batches:
+        for a, b in pairs:
+            t0 = time.perf_counter()
+            serial_r.append(serial.match(a, b))
+            torch.cuda.synchronize()
+            serial_s.append(time.perf_counter() - t0)
+    bp = BATCH_SIZE * BATCH_TIMED / sum(batch_s)
+    sp = len(serial_s) / sum(serial_s)
+    for j, (r, pairs) in enumerate(zip(results, batches)):
+        for i in range(BATCH_SIZE):
+            s = serial_r[j * BATCH_SIZE + i]
+            if r.steps_used[i] > s.steps_used \
+                    or r.counts[i] < 0.8 * s.n_matches:
+                raise RuntimeError(
+                    f"batch of {pair}, pair {j * BATCH_SIZE + i}: rung "
+                    f"{r.steps_used[i]}, {r.counts[i]} verified; serial "
+                    f"rung {s.steps_used}, {s.n_matches}")
+
+    def run_batch():
+        bm.match_batch(batches[0])
+        torch.cuda.synchronize()
+
+    def run_serial():
+        serial.match(*batches[0][0])
+        torch.cuda.synchronize()
+
+    prof_b = _profile(f"batch of {BATCH_SIZE} {pair}", run_batch, 1,
+                      LADDER_PHASES, phase=10)
+    prof_s = _profile(f"serial {pair} pair", run_serial, 1, LADDER_PHASES,
+                      phase=10)
+    last = results[-1]
+    res = dict(
+        pair=pair, batched_pairs_per_sec=bp,
+        batched_speedup_vs_serial=bp / sp, batch_size=BATCH_SIZE,
+        batched_verified=[int(c) for c in last.counts],
+        batched_gt_checked=[_gt_consistent(H_gt, a, b)
+                            for a, b in zip(last.xy1, last.xy2)],
+        batched_steps=[int(c) for c in last.steps_used],
+        serial_pairs_per_sec=sp, batch_s=batch_s, serial_pair_s=serial_s,
+        kernel_launches_per_batch=launches[-1],
+        launches_per_batch=prof_b["kernel_launches"],
+        launches_per_serial_pair=prof_s["kernel_launches"],
+        device_busy_ms_per_batch=prof_b["device_busy_ms"],
+        device_idle_share_batch=prof_b["device_idle_share"],
+        host_reads_per_batch=prof_b["host_reads"],
+        device_busy_ms_per_serial_pair=prof_s["device_busy_ms"],
+        device_idle_share_serial=prof_s["device_idle_share"],
+        host_reads_per_serial_pair=prof_s["host_reads"],
+        rung_peak_mem_bytes=bm.mm.rung_peak_bytes,
+        serial_peak_mem_bytes=max(serial.rung_peak_bytes, default=None),
+        mser_host_s=bm.mm.qmatcher.host_stage)
+    print(f"[10] batched {pair}: {json.dumps(res)}", flush=True)
+    bm.close()
+    serial.close()
+    return res
+
+
+def _drive_flagship_batch(counts, tally) -> None:
+    """Phase 10c: ``batched_pair_step`` on FLAGSHIP_BATCH noisy copies of
+    zoom2x, each pair held to phase 3's rule, and the batch's launches to
+    one step's (12 ``baumberg_smm``, 4 ``window_sampler``)."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.models.flagship import (batched_pair_step,
+                                                default_config,
+                                                make_two_view_step)
+    img1, img2, H_gt = _load_pair_np("zoom2x")
+    pairs = _noisy_copies(img1, img2, FLAGSHIP_BATCH,
+                          np.random.default_rng(7))
+    a, b = (torch.as_tensor(np.stack([p[i] for p in pairs]), device="cuda")
+            for i in (0, 1))
+    cfg = default_config()
+
+    def run():
+        gens = [torch.Generator(device="cuda").manual_seed(s)
+                for s in range(FLAGSHIP_BATCH)]
+        out = batched_pair_step(a, b, gens, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    run()                                              # warm-up
+    before = counts()
+    t0 = time.perf_counter()
+    out = run()
+    dt = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in counts().items()}
+    tally(launched)
+    step = make_two_view_step(cfg)
+    t0 = time.perf_counter()
+    for s, (x, y) in enumerate(pairs):
+        _run_step(step, torch.as_tensor(x, device="cuda"),
+                  torch.as_tensor(y, device="cuda"), s)
+    serial_dt = time.perf_counter() - t0
+    j_tent, j_inl = JAX_REFERENCE["zoom2x"]
+    rows = []
+    for p in range(FLAGSHIP_BATCH):
+        H = out["H"][p].cpu().numpy()
+        rows.append(dict(tentatives=int(out["n_tentatives"][p]),
+                         inliers=int(out["n_inliers"][p]),
+                         corner_error_px=_corner_error(
+                             H, H_gt, img1.shape[1], img1.shape[0])
+                         if np.isfinite(H).all() else float("nan")))
+    print("[10] flagship batch, zoom2x: " + json.dumps(dict(
+        pairs=rows, kernel_launches=launched, batch_s=dt,
+        pairs_per_s=FLAGSHIP_BATCH / dt,
+        serial_pairs_per_s=FLAGSHIP_BATCH / serial_dt,
+        jax_cpu=dict(tentatives=j_tent, inliers=j_inl))), flush=True)
+    if launched != EXPECTED_LAUNCHES:
+        raise RuntimeError(f"flagship batch: launched {launched}, one step "
+                           f"launches {EXPECTED_LAUNCHES}")
+    for p, row in enumerate(rows):
+        if abs(row["tentatives"] - j_tent) > 0.2 * j_tent \
+                or row["inliers"] < 0.8 * j_inl \
+                or not row["corner_error_px"] <= 8.0:
+            raise RuntimeError(f"flagship batch, pair {p}: {row}, JAX "
+                               f"{j_tent} / {j_inl}")
+
+
+def _drive_multi(counts, tally) -> None:
+    """Phase 10d, one-vs-many: the pairs' shared image 1 as one query
+    against the image 2s of ``BATCH_PAIRS`` as a padded gallery
+    (``MultiMatcher.match``, until every gallery image is matched; the
+    query's unbatched stores broadcast against the gallery's), one
+    warm-up and one held run: its launches held to the plan, its rungs to
+    the JAX package's ``MultiMatcher(mesh=None)`` and each gallery image's
+    tentatives at each rung and its verified matches to
+    ``JAX_MULTI_REFERENCE`` by the rules of 10a."""
+    import torch
+    from mods_tpu_torch import config
+    from mods_tpu_torch.parallel.multi import MultiMatcher, _pad_gallery
+    from mods_tpu_torch.pipeline import EngineConfig
+    data = [_load_pair_np(p) for p in BATCH_PAIRS]
+    query, gallery = data[0][0], [b for _, b, _ in data]
+    mm = MultiMatcher(cviu_rungs(config), EngineConfig(), device="cuda")
+    tents = batch_tentatives_per_rung(mm)
+    mm.match(query, gallery, stop_at_first=False)             # warm-up
+    torch.cuda.synchronize()
+    del tents[:]
+    before = counts()
+    t0 = time.perf_counter()
+    r = mm.match(query, gallery, stop_at_first=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in counts().items()}
+    tally(launched)
+    canvas, sizes = _pad_gallery(gallery)
+    planned = _planned_launches(mm.qmatcher, (query.shape, canvas.shape[1:]),
+                                mm.rungs_run, (None, tuple(sizes)))
+    print(f"[10] one-vs-many, query {BATCH_PAIRS[0]}'s image 1: "
+          + json.dumps(dict(
+              s=dt, steps_used=r.steps_used, kernel_launches=launched,
+              planned_launches=planned,
+              rung_peak_mem_bytes=mm.rung_peak_bytes,
+              time_log_s={k: round(v, 4) for k, v in r.log.times.items()})),
+          flush=True)
+    if launched != planned:
+        raise RuntimeError(f"one-vs-many: launched {launched}, the plan of "
+                           f"its {mm.rungs_run} rungs gives {planned}")
+
+    def rerun(seed):
+        mm._seed = seed
+        return mm.match(query, gallery, stop_at_first=False)
+
+    _hold_batch("one-vs-many", r, data, tents, JAX_MULTI_REFERENCE,
+                JAX_MULTI_SPREAD, mm.cfg.min_matches, rerun)
+    mm.close()
+
+
+def _drive_batches(wrappers: dict) -> tuple[dict, list]:
+    """Phase 10.  Returns each kernel's launches over the held batched
+    calls (``match_batch``, ``MultiMatcher.match``, ``batched_pair_step``;
+    the counts read just before and just after each, so the warm-ups and
+    the serial runs they are compared with do not count) and 10b's
+    figures."""
+    def counts():
+        return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+
+    batched = dict.fromkeys(wrappers, 0)
+
+    def tally(launched: dict) -> None:
+        for k, n in launched.items():
+            batched[k] += n
+
+    for ws in wrappers.values():
+        for w in ws:
+            w.launches = 0
+    _drive_batch_mixed(counts, tally)
+    figures = [_drive_batch_throughput(pair, counts, tally)
+               for pair in THROUGHPUT_PAIRS]
+    _drive_flagship_batch(counts, tally)
+    _drive_multi(counts, tally)
+    return batched, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2109,6 +2568,14 @@ def main() -> int:
         if detector_launches[name] <= 0:
             raise RuntimeError(f"{name} was not launched on phase 9's paths")
     clock("9")
+    batch_launches, batched = _drive_batches(wrappers)
+    print(f"[10] kernel launches on the pair-batched paths: "
+          f"{json.dumps(batch_launches)}", flush=True)
+    for name in wrappers:
+        if batch_launches[name] <= 0:
+            raise RuntimeError(f"{name} was not launched on phase 10's "
+                               "paths")
+    clock("10")
 
     kernels = []
     for name, replaces, checks in (
@@ -2119,15 +2586,23 @@ def main() -> int:
             name=name, route="cuda",
             source=f"mods_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=(launches[name] + ladder_launches[name]
-                      + cviu_launches[name] + detector_launches[name]),
+                      + cviu_launches[name] + detector_launches[name]
+                      + batch_launches[name]),
             launches_flagship=launches[name],
             launches_ladder=ladder_launches[name],
             launches_cviu_ladder=cviu_launches[name],
             launches_other_detectors=detector_launches[name],
+            launches_pair_batched=batch_launches[name],
             max_abs_err=max(g["max_abs_err"] for g in checks),
             ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],
             bound_ms=main_geom["bound_ms"], bound_by=main_geom["bound_by"],
             library_ms=main_geom["library_ms"], geometries=checks))
+    print(json.dumps({"batched": [{k: f[k] for k in (
+        "pair", "batched_pairs_per_sec", "batched_speedup_vs_serial",
+        "batch_size", "batched_verified", "batched_gt_checked",
+        "launches_per_batch", "device_busy_ms_per_batch",
+        "device_idle_share_batch", "host_reads_per_batch")}
+        for f in batched]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

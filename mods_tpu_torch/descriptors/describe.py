@@ -15,7 +15,7 @@ import torch
 
 from mods_tpu_torch.ops.gaussian import blur_band_matrix
 from mods_tpu_torch.ops.image import circular_gauss_mask, const
-from mods_tpu_torch.ops.sampler import sample_affine_patches, select_level
+from mods_tpu_torch.ops.sampler import sample_mip_patches, select_level
 
 DESC_MIP_LEVELS = 4
 
@@ -32,15 +32,16 @@ def extract_descriptor_patches_mip(mips: torch.Tensor,
                                    mr_size: float, patch_size: int,
                                    photo_norm: bool = False) -> torch.Tensor:
     """(K,) regions -> (K, P, P) patches from ``sampler.mip_stack(img,
-    DESC_MIP_LEVELS)``."""
+    DESC_MIP_LEVELS)``; (..., K) regions of a batch's (..., L, Hc, Wc)
+    stacks -> (rows, P, P), in one launch."""
     P = patch_size
     t = image_to_patch_scale(s, mr_size, P)
-    As = A * t[:, None, None]
-    lvl, scale = select_level(As, P, mips.shape[0])
-    raw = sample_affine_patches(
-        mips, lvl, xy / scale[:, None], As / scale[:, None, None],
-        P, valid_hw)
-    return aa_filter_patches(raw, lvl, t, photo_norm=photo_norm)
+    As = A * t[..., None, None]
+    lvl, scale = select_level(As, P, mips.shape[-3])
+    raw = sample_mip_patches(mips, valid_hw, lvl, xy / scale[..., None],
+                             As / scale[..., None, None], P)
+    return aa_filter_patches(raw, lvl.reshape(-1), t.reshape(-1),
+                             photo_norm=photo_norm)
 
 
 def aa_filter_patches(raw: torch.Tensor, lvl: torch.Tensor, t: torch.Tensor,

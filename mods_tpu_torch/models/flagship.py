@@ -1,6 +1,7 @@
 """The flagship two-view matching step (mirrors
 ``mods_tpu/models/flagship.py``): detect -> orient -> describe -> FGINN
-match -> LO-RANSAC H, for one identity view per image.
+match -> LO-RANSAC H, for one identity view per image, on one pair or on
+a batch of pairs that goes through each stage at once.
 
 Every patch the step reads is sampled by a hand-written kernel: the
 Baumberg iteration inside ``csrc/baumberg_smm.cu``
@@ -27,71 +28,81 @@ from mods_tpu_torch.detectors.hessaff import detect_affine_keypoints
 from mods_tpu_torch.device import resolve_device
 from mods_tpu_torch.matching.fginn import duplicate_filter, match_fginn
 from mods_tpu_torch.ops.sampler import mip_stack
+from mods_tpu_torch.ops.select import take_rows
 from mods_tpu_torch.pipeline import MIN_POINTS, EngineConfig
 from mods_tpu_torch.ransac.homography import ransac_h
 
 
-def _features_one(img: torch.Tensor, cfg: EngineConfig):
-    """(H, W) identity-view features -> (xy, A, s, desc, mask), one row
-    per (region, orientation slot)."""
-    h, w = img.shape
+def _features(imgs: torch.Tensor, cfg: EngineConfig):
+    """(P, H, W) identity views -> (xy, A, s, desc, mask), each (P, K*M,
+    ...): one row per (region, orientation slot) of each image.  The P
+    images go through each stage together: one detector call (Baumberg
+    once an octave for all of them), one orientation and one descriptor
+    sampler launch."""
+    P, h, w = imgs.shape
     caps = cfg.caps
-    valid_hw = torch.tensor([[h, w]], dtype=torch.int32)
+    valid_hw = torch.tensor([[h, w]], dtype=torch.int32).repeat(P, 1)
     with record_function("mods.detect"):
-        regs = detect_affine_keypoints(
-            img[None], valid_hw, cfg.pyramid, cfg.affine, caps)
+        regs = detect_affine_keypoints(imgs, valid_hw, cfg.pyramid,
+                                       cfg.affine, caps)
     do = cfg.dom_ori
     M = caps.max_angles
     with record_function("mods.orient"):
-        mips, mip_hw = mip_stack(img, DESC_MIP_LEVELS)
+        mips, mip_hw = mip_stack(imgs, DESC_MIP_LEVELS)
         angles, amask = detect_orientations(
-            img, regs.xy[0], regs.A[0], regs.s[0], regs.mask[0],
+            imgs, regs.xy, regs.A, regs.s, regs.mask,
             do.patch_extraction.mr_size, do.patch_extraction.patch_size,
             M, do.threshold, mip_src=(mips, mip_hw))
     with record_function("mods.describe"):
-        Arot = rotate_shapes(regs.A[0], angles)         # (K, M, 2, 2)
+        Arot = rotate_shapes(regs.A, angles)            # (P, K, M, 2, 2)
         K = regs.capacity
-        xy = regs.xy[0][:, None].expand(K, M, 2).reshape(K * M, 2)
-        A = Arot.reshape(K * M, 2, 2)
-        s = regs.s[0][:, None].expand(K, M).reshape(K * M)
-        m = amask.reshape(K * M)
+        xy = regs.xy[:, :, None].expand(P, K, M, 2).reshape(P, K * M, 2)
+        A = Arot.reshape(P, K * M, 2, 2)
+        s = regs.s[:, :, None].expand(P, K, M).reshape(P, K * M)
+        m = amask.reshape(P, K * M)
         pe = cfg.sift.patch_extraction
         patches = extract_descriptor_patches_mip(
             mips, mip_hw, xy, A, s, pe.mr_size, pe.patch_size,
             photo_norm=pe.photo_norm)
-        desc = compute_sift(patches, cfg.sift)
+        desc = compute_sift(patches, cfg.sift).reshape(P, K * M, -1)
     return xy, A, s, desc, m
 
 
 def two_view_step(img1: torch.Tensor, img2: torch.Tensor,
                   generator: torch.Generator, cfg: EngineConfig) -> dict:
     """Single-rung (identity view) two-view match of two (H, W) float32
-    images on one device -> dict(H, n_tentatives, n_inliers)."""
-    xy1, _, _, d1, m1 = _features_one(img1, cfg)
-    xy2, _, _, d2, m2 = _features_one(img2, cfg)
-    with record_function("mods.match"):
-        t = match_fginn(d1, m1, d2, m2, xy2, cfg.match.ratio_threshold,
-                        cfg.match.contrad_dist, cfg.match.knn)
-        txy2 = xy2[t.idx2]
-        keep = duplicate_filter(xy1, txy2, t.mask, cfg.match.duplicate_dist)
-        tmask = t.mask & keep
-    with record_function("mods.ransac"):
-        H, inl, n_inl = ransac_h(xy1, txy2, tmask, cfg.ransac, generator)
-    n_tent = tmask.to(torch.int32).sum()
-    n_inl = torch.where(n_tent >= MIN_POINTS, n_inl, 0)
-    return dict(H=H, n_tentatives=n_tent, n_inliers=n_inl)
+    images on one device -> dict(H, n_tentatives, n_inliers): the pair
+    batch of one."""
+    out = batched_pair_step(img1[None], img2[None], [generator], cfg)
+    return {k: v[0] for k, v in out.items()}
 
 
 def batched_pair_step(imgs1: torch.Tensor, imgs2: torch.Tensor,
                       generators: list, cfg: EngineConfig) -> dict:
     """(P, H, W) x2 pair batch -> ``two_view_step``'s outputs stacked
     along the pair axis (``mods_tpu/models/flagship.py::batched_pair_step``,
-    a ``jax.vmap`` there).  Here it is a loop over the pairs with one
-    ``torch.Generator`` a pair; the truly batched form belongs with the
-    pair-batched serving path (ROADMAP.md item 22)."""
-    outs = [two_view_step(a, b, g, cfg)
-            for a, b, g in zip(imgs1, imgs2, generators, strict=True)]
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    a ``jax.vmap`` there), with one ``torch.Generator`` a pair.  The P
+    pairs go through each stage at once: each side's detection,
+    orientation and description (``_features``), FGINN matching and the
+    duplicate filter as batched products, and LO-RANSAC H with one host
+    read of the P best counts a round; so a batch launches the kernels as
+    often as one pair does (12 ``baumberg_smm``, 4 ``window_sampler``)."""
+    if len(generators) != imgs1.shape[0]:
+        raise ValueError(f"{len(generators)} generators for "
+                         f"{imgs1.shape[0]} pairs")
+    xy1, _, _, d1, m1 = _features(imgs1, cfg)
+    xy2, _, _, d2, m2 = _features(imgs2, cfg)
+    with record_function("mods.match"):
+        t = match_fginn(d1, m1, d2, m2, xy2, cfg.match.ratio_threshold,
+                        cfg.match.contrad_dist, cfg.match.knn)
+        txy2 = take_rows(xy2, t.idx2, 1)
+        keep = duplicate_filter(xy1, txy2, t.mask, cfg.match.duplicate_dist)
+        tmask = t.mask & keep
+    with record_function("mods.ransac"):
+        H, inl, n_inl = ransac_h(xy1, txy2, tmask, cfg.ransac, generators)
+    n_tent = tmask.to(torch.int32).sum(-1)
+    n_inl = torch.where(n_tent >= MIN_POINTS, n_inl, 0)
+    return dict(H=H, n_tentatives=n_tent, n_inliers=n_inl)
 
 
 def default_config() -> EngineConfig:

@@ -278,6 +278,22 @@ def sample_affine_patches(src: torch.Tensor, lvl: torch.Tensor,
 sample_affine_patches.launches = 0  # kernel launches, for chip_smoke.py
 
 
+def sample_mip_patches(mips: torch.Tensor, valid_hw: torch.Tensor,
+                       lvl: torch.Tensor, xy: torch.Tensor, A: torch.Tensor,
+                       patch_size: int) -> torch.Tensor:
+    """``sample_affine_patches`` from the levels of ``mip_stack``: one
+    image's (L, Hc, Wc) stack with (K,) rows, or a batch's (..., L, Hc,
+    Wc) stacks with (..., K) rows, each row read from its own image's
+    levels -> (rows, P, P), all in one launch."""
+    L, Hc, Wc = mips.shape[-3:]
+    n = mips[..., 0, 0, 0].numel()                     # images
+    plane = lvl + L * torch.arange(n, device=lvl.device).reshape(
+        lvl.shape[:-1] + (1,))
+    return sample_affine_patches(
+        mips.reshape(n * L, Hc, Wc), plane.reshape(-1), xy.reshape(-1, 2),
+        A.reshape(-1, 2, 2), patch_size, valid_hw.repeat(n, 1))
+
+
 # ---------------------------------------------------------------------------
 # Mip stack: bounded-step sampling for arbitrarily large regions
 # ---------------------------------------------------------------------------

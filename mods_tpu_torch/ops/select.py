@@ -15,6 +15,8 @@ order:
 * **Picking by a device index.**  ``a[i]`` with a 0-dim index tensor
   reads ``i`` back to the host (it becomes a Python int); ``pick`` keeps
   the index on the device.
+* **Rows of a pair batch.**  ``take_rows`` gathers rows inside each
+  pair of a leading pair axis, as the JAX package's ``vmap`` does.
 """
 
 from __future__ import annotations
@@ -52,3 +54,14 @@ def nonzero_static(mask: torch.Tensor, size: int):
 def pick(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``a[i]`` for a 0-dim integer tensor ``i``, with no host read."""
     return a.index_select(0, i.reshape(1))[0]
+
+
+def take_rows(a: torch.Tensor, idx: torch.Tensor, lead: int) -> torch.Tensor:
+    """``a[idx]`` along the row axis after ``lead`` (0 or 1) batch axes:
+    a (N, ...) and idx (...) -> a[idx]; a (P, N, ...) and idx (P, ...)
+    -> row p of the result indexes a[p] (the JAX package's ``vmap`` of
+    ``a[idx]``)."""
+    if lead == 0:
+        return a[idx]
+    p = torch.arange(a.shape[0], device=a.device)
+    return a[p.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]

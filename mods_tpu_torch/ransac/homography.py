@@ -12,7 +12,7 @@ samples: the fit, error and scoring functions agree exactly, and
 ``ransac_h`` agrees on outcomes (the H and the inlier set on data with
 clear inliers).  The adaptive round count depends on device values, so
 each round reads the best count back to the host (at most
-``max_rounds`` reads per call).
+``max_rounds`` reads per call, one a round for a whole pair batch).
 """
 
 from __future__ import annotations
@@ -23,28 +23,29 @@ import numpy as np
 import torch
 
 from mods_tpu_torch.config import RansacErrorType, RansacParams
-from mods_tpu_torch.ops.select import nonzero_static
+from mods_tpu_torch.ops.select import nonzero_static, take_rows
 from mods_tpu_torch.ransac import errors as E
 
 
 def _normalization(xy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Hartley normalization T (3x3): zero centroid, mean distance
-    sqrt(2) over the masked points (reference normu, degensac/utools.c)."""
+    """Hartley normalization T (..., 3, 3): zero centroid, mean distance
+    sqrt(2) over the masked points (reference normu, degensac/utools.c)
+    of (..., N, 2) points."""
     w = mask.to(torch.float32)
-    n = torch.clamp(w.sum(), min=1.0)
-    mean = (xy * w[:, None]).sum(0) / n
-    d = torch.sqrt(((xy - mean) ** 2).sum(-1))
-    scale = (d * w).sum() / n
+    n = torch.clamp(w.sum(-1), min=1.0)
+    mean = (xy * w[..., None]).sum(-2) / n[..., None]
+    d = torch.sqrt(((xy - mean[..., None, :]) ** 2).sum(-1))
+    scale = (d * w).sum(-1) / n
     s = math.sqrt(2.0) / torch.clamp(scale, min=1e-8)
     z = torch.zeros_like(s)
     o = torch.ones_like(s)
-    return torch.stack([torch.stack([s, z, -s * mean[0]]),
-                        torch.stack([z, s, -s * mean[1]]),
-                        torch.stack([z, z, o])])
+    return torch.stack([torch.stack([s, z, -s * mean[..., 0]], -1),
+                        torch.stack([z, s, -s * mean[..., 1]], -1),
+                        torch.stack([z, z, o], -1)], -2)
 
 
 def _apply_T(T: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    return xy * T[0, 0] + T[:2, 2][None, :]
+    return xy * T[..., 0, 0][..., None, None] + T[..., None, :2, 2]
 
 
 def _dlt_rows(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -105,7 +106,16 @@ def _error_fn(pars: RansacParams):
 def _uniform_index(shape, n: torch.Tensor, generator: torch.Generator,
                    device) -> torch.Tensor:
     """Uniform integers in [0, n) for a device-side count ``n``."""
-    u = torch.rand(shape, generator=generator, device=device)
+    return _uniform_indices(shape, n[None], [generator], device)[0]
+
+
+def _uniform_indices(shape, n: torch.Tensor, generators,
+                     device) -> torch.Tensor:
+    """(P,) + shape uniform integers, row p in [0, n[p]) drawn from
+    ``generators[p]``."""
+    u = torch.stack([torch.rand(shape, generator=g, device=device)
+                     for g in generators])
+    n = n.reshape((-1,) + (1,) * len(shape))
     return torch.minimum((u * n).to(torch.int64), n - 1)
 
 
@@ -123,85 +133,114 @@ def _needed_samples(bestc: int, nvalid: int, pars: RansacParams,
 
 
 def ransac_h(xy1: torch.Tensor, xy2: torch.Tensor, mask: torch.Tensor,
-             pars: RansacParams, generator: torch.Generator):
+             pars: RansacParams, generator):
     """Robust H (image1 -> image2) from fixed-capacity correspondences
     -> (H (3, 3), inliers (N,) bool, n_inl).  Hypotheses are fit in
     normalized coordinates and scored in pixels, so ``err_threshold``
-    keeps its meaning."""
-    n = xy1.shape[0]
+    keeps its meaning.
+
+    A pair batch, (P, N, 2) points and a (P, N) mask, takes a sequence of
+    P generators and returns (P, 3, 3), (P, N) and (P,).  Pair p draws
+    from its own generator only while its round count is short of its
+    ``_needed_samples``, so it draws exactly what the serial call draws
+    with that generator; the rounds go on until every pair is done, with
+    one host read of the P best counts a round."""
+    if xy1.dim() == 2:
+        H, inl, n_inl = ransac_h(xy1[None], xy2[None], mask[None], pars,
+                                 [generator])
+        return H[0], inl[0], n_inl[0]
+    P, n = mask.shape
     dev = xy1.device
     err_fn = _error_fn(pars)
     th = pars.err_threshold ** 2
     B = pars.batch_hypotheses
+    if len(generator) != P:
+        raise ValueError(f"{len(generator)} generators for {P} pairs")
 
     T1 = _normalization(xy1, mask)
     T2 = _normalization(xy2, mask)
     T2inv = E.inv_3x3(T2)
     p1 = _apply_T(T1, xy1)
     p2 = _apply_T(T2, xy2)
-    nvalid = torch.clamp(mask.sum(), min=1)
+    nvalid = torch.clamp(mask.sum(-1), min=1)
     valid_idx, _ = nonzero_static(mask, n)
 
-    def count(e):
-        return ((e < th) & mask).sum(-1)
-
-    def hyp_round():
-        idx = valid_idx[_uniform_index((B, 4), nvalid, generator, dev)]
+    def hyp_round(a, gens):
+        """One round of B hypotheses for each pair of the index tensor
+        ``a`` -> each one's best H and count."""
+        idx = take_rows(valid_idx[a], _uniform_indices(
+            (B, 4), nvalid[a], gens, dev), 1)                # (A, B, 4)
         # a sample with a repeated point is degenerate
-        same = idx[:, :, None] == idx[:, None, :]
+        same = idx[..., :, None] == idx[..., None, :]
         distinct = ~(same & ~torch.eye(4, dtype=torch.bool,
-                                       device=dev)).any((1, 2))
-        Hn = _fit_h(p1[idx], p2[idx])
-        H = T2inv @ Hn @ T1
-        h22 = H[:, 2:3, 2:3]
+                                       device=dev)).any((-2, -1))
+        Hn = _fit_h(take_rows(p1[a], idx, 1), take_rows(p2[a], idx, 1))
+        H = T2inv[a, None] @ Hn @ T1[a, None]
+        h22 = H[..., 2:3, 2:3]
         H = H / torch.where(h22.abs() > 1e-12, h22, 1.0)
-        cnt = torch.where(distinct, count(err_fn(H, xy1, xy2)), -1)
-        best = torch.argmax(cnt)
-        return H[best], cnt[best]
+        cnt = torch.where(distinct, ((err_fn(H, xy1[a, None], xy2[a, None])
+                                      < th) & mask[a, None]).sum(-1), -1)
+        best = torch.argmax(cnt, -1)
+        rows = torch.arange(len(gens), device=dev)
+        return H[rows, best], cnt[rows, best]
 
-    # adaptive round loop: one host read of the best count per round
-    nvalid_host = int(nvalid)
-    bestH = torch.eye(3, dtype=torch.float32, device=dev)
-    bestc = torch.tensor(-1, dtype=torch.int64, device=dev)
-    done = 0
+    # adaptive round loop over the pairs still short of their samples:
+    # one host read of the P best counts per round
+    nvalid_host = nvalid.tolist()
+    bestH = torch.eye(3, dtype=torch.float32, device=dev).repeat(P, 1, 1)
+    bestc = torch.full((P,), -1, dtype=torch.int64, device=dev)
+    bestc_host = [-1] * P
+    done = [0] * P
     for _ in range(pars.max_rounds):
-        if done >= _needed_samples(int(bestc), nvalid_host, pars):
+        act = [p for p in range(P) if done[p] < _needed_samples(
+            bestc_host[p], nvalid_host[p], pars)]
+        if not act:
             break
-        H, c = hyp_round()
-        bestH = torch.where(c > bestc, H, bestH)
-        bestc = torch.maximum(bestc, c)
-        done += B
+        a = torch.tensor(act, device=dev)
+        H, c = hyp_round(a, [generator[p] for p in act])
+        up = c > bestc[a]
+        bestH[a] = torch.where(up[:, None, None], H, bestH[a])
+        bestc[a] = torch.maximum(bestc[a], c)
+        for p in act:
+            done[p] += B
+        bestc_host = bestc.tolist()
 
     if pars.local_optimization:
         bestH = _lo_refine(bestH, xy1, xy2, p1, p2, T1, T2inv, mask, th,
                            err_fn, pars, generator)
 
     inl = (err_fn(bestH, xy1, xy2) < th) & mask
-    return bestH, inl, inl.to(torch.int32).sum()
+    return bestH, inl, inl.to(torch.int32).sum(-1)
 
 
 def _lo_refine(H, xy1, xy2, p1, p2, T1, T2inv, mask, th, err_fn,
-               pars: RansacParams, generator):
-    """Local optimization: ``lo_inner_samples`` resamples of the inlier
-    set, batched, each refined by ``lo_iters`` rounds of ILSQ with the
-    threshold annealed from 4x down to 1x (exp_ranH.c:40-180)."""
-    n = xy1.shape[0]
+               pars: RansacParams, generators):
+    """Local optimization of each pair's (P, 3, 3) H:
+    ``lo_inner_samples`` resamples of its inlier set, batched, each
+    refined by ``lo_iters`` rounds of ILSQ with the threshold annealed
+    from 4x down to 1x (exp_ranH.c:40-180)."""
+    P, n = mask.shape
     dev = xy1.device
+    a1, a2, m1 = xy1[:, None], xy2[:, None], mask[:, None]
     inl0 = (err_fn(H, xy1, xy2) < th) & mask
-    n_inl = torch.clamp(inl0.sum(), min=1)
+    n_inl = torch.clamp(inl0.sum(-1), min=1)
     iidx, _ = nonzero_static(inl0, n)
     R, S = pars.lo_inner_samples, pars.lo_sample_size
-    ridx = iidx[_uniform_index((R, S), n_inl, generator, dev)]
-    Hs = T2inv @ _fit_h(p1[ridx], p2[ridx]) @ T1            # (R, 3, 3)
+    ridx = take_rows(iidx, _uniform_indices((R, S), n_inl, generators, dev),
+                     1)
+    Hs = (T2inv[:, None] @ _fit_h(take_rows(p1, ridx, 1),
+                                  take_rows(p2, ridx, 1))
+          @ T1[:, None])                                    # (P, R, 3, 3)
     for i in range(pars.lo_iters):
         mth = max(4.0 * 0.5 ** i, 1.0) * th
-        w = ((err_fn(Hs, xy1, xy2) < mth) & mask).to(torch.float32)
-        Hn2 = T2inv @ _weighted_fit_h(p1, p2, w) @ T1
+        w = ((err_fn(Hs, a1, a2) < mth) & m1).to(torch.float32)
+        Hn2 = (T2inv[:, None] @ _weighted_fit_h(p1[:, None], p2[:, None], w)
+               @ T1[:, None])
         ok = torch.isfinite(Hn2).all(-1).all(-1)
-        Hs = torch.where(ok[:, None, None], Hn2, Hs)
-    cs = ((err_fn(Hs, xy1, xy2) < th) & mask).sum(-1)
-    c0 = ((err_fn(H, xy1, xy2) < th) & mask).sum()
-    Hall = torch.cat([Hs, H[None]])
-    call = torch.cat([cs, c0[None]])
+        Hs = torch.where(ok[..., None, None], Hn2, Hs)
+    cs = ((err_fn(Hs, a1, a2) < th) & m1).sum(-1)
+    c0 = ((err_fn(H, xy1, xy2) < th) & mask).sum(-1)
+    Hall = torch.cat([Hs, H[:, None]], 1)
+    call = torch.cat([cs, c0[:, None]], 1)
     # torch.argmax returns the first maximal index, as jnp.argmax does
-    return Hall[torch.argmax(call)]
+    return Hall[torch.arange(P, device=dev), torch.argmax(call, -1)]

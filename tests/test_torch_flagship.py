@@ -139,18 +139,24 @@ def test_cpu_step_accepts_tensors_and_arrays():
 
 
 def test_batched_pair_step_equals_the_step_pair_by_pair():
+    """The batched step's pair p equals the step on pair p alone.  The
+    convolutions run on PyTorch's own CPU kernels, not oneDNN's: oneDNN
+    picks its algorithm, and so its rounding, by the batch size (one or
+    two float32 ulps of a blurred level, ``test_torch_batch.py``), which
+    is not the port's code."""
     i1, i2 = _pair()
     cfg = tc.from_dict(dataclasses.asdict(_tiny_cfg()))
     a = torch.from_numpy(np.stack([i1, i2]))
     b = torch.from_numpy(np.stack([i2, i1]))
-    out = batched_pair_step(
-        a, b, [torch.Generator().manual_seed(s) for s in (3, 4)], cfg)
-    assert out["H"].shape == (2, 3, 3) and out["n_inliers"].shape == (2,)
-    for p, seed in enumerate((3, 4)):
-        one = two_view_step(a[p], b[p], torch.Generator().manual_seed(seed),
-                            cfg)
-        for k in one:
-            assert torch.equal(out[k][p], one[k]), (p, k)
+    with torch.backends.mkldnn.flags(enabled=False):
+        out = batched_pair_step(
+            a, b, [torch.Generator().manual_seed(s) for s in (3, 4)], cfg)
+        assert out["H"].shape == (2, 3, 3) and out["n_inliers"].shape == (2,)
+        for p, seed in enumerate((3, 4)):
+            one = two_view_step(a[p], b[p],
+                                torch.Generator().manual_seed(seed), cfg)
+            for k in one:
+                assert torch.equal(out[k][p], one[k]), (p, k)
     with pytest.raises(ValueError):
         batched_pair_step(a, b, [torch.Generator()], cfg)
 
@@ -256,6 +262,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for n in ('surf', 'kaze', 'tilde', 'corners', 'mser_tpu'):\n"
         "    assert 'mods_tpu_torch.detectors.' + n in sys.modules, n\n"
+        "for n in ('multi', 'manifest'):\n"
+        "    assert 'mods_tpu_torch.parallel.' + n in sys.modules, n\n"
         "from mods_tpu_torch import csrc\n"
         "from mods_tpu_torch.detectors import mser\n"
         "from mods_tpu_torch.ops import host_render\n"

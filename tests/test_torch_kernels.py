@@ -354,3 +354,110 @@ def test_ladder_on_card_matches_cpu(cuda):
     assert abs(card.n_matches - cpu.n_matches) <= 0.2 * cpu.n_matches
     Hc, Hp = card.H / card.H[2, 2], cpu.H / cpu.H[2, 2]
     np.testing.assert_allclose(Hc, Hp, atol=0.1)
+
+
+# -- pair batches ---------------------------------------------------------
+
+def _batched_group(device, P=2):
+    """The tilt-3 view group of ``_ladder_matcher``'s second rung for a
+    batch of P copies of ``_ladder_pair``'s first image (the copies
+    shifted), rendered and detected on the CPU: (group prep on
+    ``device``, views, regions), both on ``device``."""
+    i1, _ = _ladder_pair()
+    imgs = np.stack([np.roll(i1, 9 * p, 1) for p in range(P)])
+    sizes = ((i1.shape[0], i1.shape[1]),) * P
+    m = _ladder_matcher("cpu")
+    it = m.ladder[1]
+    _, (_, gp) = m._prep_groups(it, *i1.shape, [], sizes)
+    views = gp["render"](torch.from_numpy(imgs), gp["rot_inv"],
+                         gp["squash_inv"], gp["sig_x"], gp["sig_y"],
+                         gp["valid_hw"])
+    r = gp["detect"](views, gp["valid_hw"], gp["valid_hw_host"], gp["regn"])
+    md = _ladder_matcher(device)
+    _, (_, gpd) = md._prep_groups(it, *i1.shape, [], sizes)
+    regs = [t.to(device) for t in (r.xy, r.A, r.s, r.response, r.mask)]
+    return gpd, views.to(device), regs
+
+
+@pytest.mark.gpu
+def test_batched_describe_on_card_matches_cpu(cuda):
+    """The describe stage of a pair batch (each pair compacted to its own
+    rows, both pairs' patches in one launch a patch set) on the card
+    against the same stage on the CPU, from the same views and regions:
+    each pair's rows, sorted by (response, x, y), the same positions,
+    scales and responses within 2e-3, shapes within 1e-2 and descriptors
+    within 1 (a quantization step) on >= 99 % of them.  The mip stack's
+    blur rounds otherwise on the card, which moves the interpolated
+    orientation peak, and with it the rotated shape A, by about 1e-3 rad
+    (0.0024 on an entry of a card run)."""
+    from mods_tpu_torch.pipeline import BatchedDeviceStore
+    P = 2
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp, views, regs = _batched_group(dev, P)
+        st = BatchedDeviceStore(P, 1024, 128, dev)
+        before = TS.sample_affine_patches.launches
+        gp["describe"](views, gp["valid_hw"], *regs, gp["hinv"], [st])
+        launched = TS.sample_affine_patches.launches - before
+        # orientation and descriptor patches of both pairs: 2 launches
+        assert launched == (2 if dev == "cuda" else 0)
+        out[dev] = st
+    for p in range(P):
+        rows = []
+        for st in (out["cpu"], out["cuda"]):
+            n = int(st._n[p])
+            r = torch.cat([st._xy[p, :n], st._A[p, :n].reshape(n, 4),
+                           st._s[p, :n, None], st._r[p, :n, None],
+                           st._d[p, :n]], 1).cpu().numpy()
+            rows.append(r[np.lexsort((r[:, 1], r[:, 0], r[:, 7]))])
+        cpu, card = rows
+        assert len(cpu) >= 50 and len(card) == len(cpu)
+        np.testing.assert_allclose(card[:, [0, 1, 6, 7]],
+                                   cpu[:, [0, 1, 6, 7]], atol=2e-3)
+        np.testing.assert_allclose(card[:, 2:6], cpu[:, 2:6], atol=1e-2)
+        close = np.abs(card[:, 8:] - cpu[:, 8:]).max(1) <= 1.0
+        assert close.mean() >= 0.99
+
+
+def _ransac_batch(device):
+    """Three pairs of 160 correspondences under three homographies, 20,
+    40 and 70 % outliers: (xy1, xy2, mask) on ``device``."""
+    rng = np.random.default_rng(5)
+    P, N = 3, 160
+    xy1 = rng.uniform(0, 300, (P, N, 2))
+    xy2 = np.empty_like(xy1)
+    for p in range(P):
+        H = np.array([[1.0, 0.02, 5.0], [-0.01, 0.97, -3.0],
+                      [1e-4, 0.0, 1.0]]) * (1 + 0.1 * p)
+        q = np.c_[xy1[p], np.ones(N)] @ H.T
+        xy2[p] = q[:, :2] / q[:, 2:] + rng.normal(0, 0.3, (N, 2))
+        out = rng.uniform(0, 1, N) < (0.2, 0.4, 0.7)[p]
+        xy2[p, out] = rng.uniform(0, 300, (out.sum(), 2))
+    mask = rng.uniform(0, 1, (P, N)) < 0.9
+    return (torch.from_numpy(xy1.astype(np.float32)).to(device),
+            torch.from_numpy(xy2.astype(np.float32)).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.gpu
+def test_batched_ransac_h_on_card_matches_cpu(cuda):
+    """LO-RANSAC H over a pair batch on the card against the CPU: the
+    generators' streams differ by device, so the outcome is held: each
+    pair's H within 0.5 px at the corners of its 300 px square and its
+    inlier set the same bar 2 % of the points."""
+    from mods_tpu_torch.ransac.homography import ransac_h
+    pars = RansacParams(err_threshold=2.0, batch_hypotheses=64, max_rounds=6)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        res[dev] = ransac_h(*_ransac_batch(dev), pars, [
+            torch.Generator(device=dev).manual_seed(s) for s in range(3)])
+    c = np.array([[0, 0, 1], [300, 0, 1], [0, 300, 1], [300, 300, 1.0]])
+    for p in range(3):
+        corners = []
+        for dev in ("cpu", "cuda"):
+            q = c @ res[dev][0][p].cpu().numpy().astype(np.float64).T
+            corners.append(q[:, :2] / q[:, 2:])
+        assert np.abs(corners[0] - corners[1]).max() <= 0.5
+        differ = (res["cpu"][1][p] != res["cuda"][1][p].cpu()).sum()
+        assert int(differ) <= 0.02 * 160
+        assert int(res["cuda"][2][p]) >= 0.5 * 160 * (0.8, 0.6, 0.3)[p]
