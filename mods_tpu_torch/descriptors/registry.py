@@ -2,15 +2,19 @@
 ``mods_tpu/descriptors/registry.py``; the reference's descriptor
 dispatch, imagerepresentation.cpp:1274-1985).
 
-Ported kinds: ``sift`` (the SIFT family shares patch extraction and
-histograms and differs in folding and normalization) and ``binary``
-(ORB's rBRIEF, ``detectors/orb.py``).  The other names of the JAX
-registry are known here, so a ladder that lists one fails with the
-ROADMAP.md item that ports it instead of producing nothing.
+Kinds: ``sift`` (the SIFT family shares patch extraction and histograms
+and differs in folding and normalization), ``pixels`` (the normalized
+raw patch, descriptors/pixelsdesc.hpp), ``binary`` (ORB's rBRIEF,
+``detectors/orb.py``), ``patch`` (the patch functors of
+``descriptors/patch_descs.py``) and ``cnn`` (``descriptors/cnn.py``).
+``External`` (a host command's rows) is known here, so a ladder that
+lists it fails with the ROADMAP.md item that ports it instead of
+producing nothing.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 from mods_tpu_torch.config import SIFTDescriptorParams
@@ -19,11 +23,14 @@ from mods_tpu_torch.config import SIFTDescriptorParams
 @dataclass(frozen=True)
 class DescriptorSpec:
     name: str
-    kind: str                  # "sift" | "binary"
+    kind: str                  # "sift" | "pixels" | "binary" | "patch" | "cnn"
     sift: SIFTDescriptorParams | None = None
     half_sift_like: bool = False   # uses half-SIFT orientation folding
     dim: int = 128
     dsp_levels: int = 0        # >0 = domain-size pooling (DSP-SIFT)
+    # keyword arguments of the patch functors and the CNN as a hashable
+    # (key, value) tuple, from the engine config's per-descriptor INI
+    # sections (``spec_for``)
     params: tuple = ()
 
 
@@ -43,17 +50,27 @@ REGISTRY: dict[str, DescriptorSpec] = {
     "DSPSIFT": DescriptorSpec(
         name="DSPSIFT", kind="sift",
         sift=SIFTDescriptorParams(root_sift=True), dim=128, dsp_levels=3),
+    "Pixels": DescriptorSpec(
+        name="Pixels", kind="pixels",
+        sift=SIFTDescriptorParams(), dim=41 * 41),
     "ORB": DescriptorSpec(name="ORB", kind="binary", dim=256),
+    # patch functors; dims from patch_descs.PATCH_DIMS
+    "SURF": DescriptorSpec(name="SURF", kind="patch", dim=64),
+    "LIOP": DescriptorSpec(name="LIOP", kind="patch", dim=144),
+    "DAISY": DescriptorSpec(name="DAISY", kind="patch", dim=200),
+    "SSIM": DescriptorSpec(name="SSIM", kind="patch", dim=40),
+    "KAZE": DescriptorSpec(name="KAZE", kind="patch", dim=64),
+    "MLDB": DescriptorSpec(name="MLDB", kind="patch", dim=486),
+    "FREAK": DescriptorSpec(name="FREAK", kind="patch", dim=512),
+    "BRISK": DescriptorSpec(name="BRISK", kind="patch", dim=512),
+    "MROGH": DescriptorSpec(name="MROGH", kind="patch", dim=144),
+    # the Caffe CNN slot (imagerepresentation.cpp:1343-1534)
+    "CNN": DescriptorSpec(name="CNN", kind="cnn", dim=128),
 }
 
 # descriptor names of the JAX registry that wait for a later slice, with
 # the ROADMAP.md item that ports each
-NOT_PORTED = {
-    **{n: ("patch", 20) for n in ("SURF", "LIOP", "DAISY", "SSIM", "KAZE",
-                                  "MLDB", "FREAK", "BRISK", "MROGH")},
-    "Pixels": ("pixels", 20), "CNN": ("cnn", 20),
-    "External": ("external", 21),
-}
+NOT_PORTED = {"External": ("external", 21)}
 
 
 def get_spec(name) -> DescriptorSpec:
@@ -71,7 +88,49 @@ def get_spec(name) -> DescriptorSpec:
 
 
 def spec_for(name: str, cfg=None) -> DescriptorSpec:
-    """Engine-config-aware spec.  The ``sift`` and ``binary`` kinds take
-    nothing from the engine config (the per-descriptor INI sections
-    belong to the kinds that are not ported yet)."""
-    return get_spec(name)
+    """Engine-config-aware spec: the per-descriptor INI sections
+    (GetDAISYPars/GetLIOPPars/GetSSIMPars/GetMROGHPars/GetFREAKPars/
+    GetBRISKPars/GetPixelPars, io_mods.cpp:104-652) applied to the
+    descriptor's keyword arguments and output dimension."""
+    base = get_spec(name)
+    if cfg is None:
+        return base
+    rep = dataclasses.replace
+    if name == "DAISY":
+        d = cfg.daisy
+        return rep(base, dim=d.dim,
+                   params=(("n_rings", d.radq), ("n_segs", d.thq),
+                           ("n_ori", d.histq)))
+    if name == "LIOP":
+        p = cfg.liop
+        return rep(base, dim=p.dim,
+                   params=(("radius", p.radius), ("n_neigh", p.neighbours),
+                           ("n_bins", p.bins)))
+    if name == "SSIM":
+        s = cfg.ssim
+        return rep(base, dim=s.dim,
+                   params=(("inner", s.window_size), ("n_rad", s.nrad),
+                           ("n_ang", s.nang)))
+    if name == "MROGH":
+        m = cfg.mrogh
+        supports = tuple(max(41 - 10 * i, 11)
+                         for i in range(m.n_multi_region))
+        return rep(base, dim=m.dim,
+                   params=(("n_groups", m.n_order), ("n_ori", m.n_dir),
+                           ("supports", supports)))
+    if name == "FREAK":
+        return rep(base, params=(("pattern_scale",
+                                  cfg.freak.pattern_scale),))
+    if name == "BRISK":
+        return rep(base, params=(("pattern_scale",
+                                  cfg.brisk.pattern_scale),))
+    if name == "Pixels":
+        return rep(base, params=(("norm_type", cfg.pixels.norm_type),))
+    if name == "CNN":
+        c = cfg.cnn
+        return rep(base, dim=c.dim,
+                   params=(("weights_file", c.weights_file),
+                           ("patch_size", c.patch_size),
+                           ("mr_size", c.mr_size),
+                           ("normalization", c.normalization)))
+    return base

@@ -12,10 +12,11 @@ batched over the group's rotations: render (shear rotation, anti-alias
 blur, squash), detect (HessianAffine, DoG, HarrisAffine, ORB, SURF,
 KAZE, TILDE, FAST, STAR, BRISK and device-backend MSER on the device;
 host-backend MSER on the host, over views that ``native/render.cpp``
-renders there) and describe
-(orientation families + shared patch extraction + the SIFT-variant
-normalizations or rBRIEF).  Matching and verification run over fixed-capacity
-per-descriptor feature stores on the device, with tentative lists
+renders there) and describe (orientation families + shared patch
+extraction + the SIFT-variant normalizations, rBRIEF, the patch
+functors, Pixels or the CNN).  Matching and verification run over
+fixed-capacity per-descriptor feature stores on the device, with
+tentative lists
 concatenated across descriptors like the reference's
 CorrespondenceBank.
 
@@ -27,8 +28,8 @@ hand-written kernels ``csrc/window_sampler.cu`` and
 
 Ported here: every device detector of the JAX package, the host-stage
 MSER (prefetched for the whole ladder by a pool of two threads that run
-native code and never touch the card), the ``sift`` and ``binary``
-descriptor kinds, FGINN with a descriptor database, the verification
+native code and never touch the card), every descriptor kind but
+``external``, FGINN with a descriptor database, the verification
 modes LORANSACH, LORANSACF (DEGENSAC), ORSA and GR_TRUTH (with its dual
 mode), the ``sync``, ``async`` and ``pipelined`` stop modes and CLAHE.
 What is not ported yet raises ``NotImplementedError`` naming its
@@ -57,6 +58,7 @@ from mods_tpu_torch.config import (AffineShapeParams, BriskDetParams,
                                    SIFTDescriptorParams, SsimParams,
                                    StarParams, SurfDetParams, as_rungs,
                                    replace)
+from mods_tpu_torch.descriptors.cnn import net_for
 from mods_tpu_torch.descriptors.describe import (DESC_MIP_LEVELS,
                                                  aa_filter_patches,
                                                  image_to_patch_scale)
@@ -64,6 +66,8 @@ from mods_tpu_torch.descriptors.orientation import (find_peaks,
                                                     orientation_histograms,
                                                     rotate_shapes,
                                                     smooth_circular)
+from mods_tpu_torch.descriptors.patch_descs import (PATCH_FNS,
+                                                    pixels_descriptor)
 from mods_tpu_torch.descriptors.registry import get_spec, spec_for
 from mods_tpu_torch.descriptors.sift import sift_histograms, sift_norm
 from mods_tpu_torch.detectors.hessaff import detect_affine_keypoints
@@ -417,11 +421,10 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
     (SIFT-like vs HalfSIFT-like, imagerepresentation.cpp:1253-1269) share
     one gradient histogram and differ only in peak folding; SIFT variants
     share patches and histograms and differ only in folding and
-    normalization (siftdesc.cpp operator())."""
+    normalization (siftdesc.cpp operator()); the patch functors and
+    Pixels read the same patches, and each CNN spec samples its own
+    (CaffeDescParam.patchSize, P = 32 by default)."""
     specs = tuple(get_spec(s) for s in specs)
-    for sp in specs:
-        if sp.kind not in ("sift", "binary"):
-            raise _not_ported(f"descriptor kind {sp.kind!r} ({sp.name})", 20)
     M = caps.max_angles
     P = pairs or 1
     C1 = min(caps.per_group, V * K)          # detection-stage rows
@@ -544,29 +547,51 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
             fam_specs = [sp for sp in specs if fam_key(sp) == fam]
             xyv, Av, sv, rv, vi, xy_r, A_r, n2 = stage2(fam)
 
+            def sample(t, size):
+                """(patches, mip level) of the family's rows at scale t."""
+                As = Av * t[:, None, None]
+                lvl, sc = select_level(As, size, L)
+                return sample_affine_patches(
+                    src, vi * L + lvl, xyv / sc[:, None],
+                    As / sc[:, None, None], size, hw_flat), lvl
+
             def desc_patches(scale_coef=1.0):
                 t = image_to_patch_scale(sv * scale_coef, pe_mr, pe_patch)
-                As = Av * t[:, None, None]
-                lvl, sc = select_level(As, pe_patch, L)
-                raw = sample_affine_patches(
-                    src, vi * L + lvl, xyv / sc[:, None],
-                    As / sc[:, None, None], pe_patch, hw_flat)
+                raw, lvl = sample(t, pe_patch)
                 return aa_filter_patches(raw, lvl, t, photo_norm=pe_photo)
 
             res = {}
             if any(sp.kind == "binary" for sp in fam_specs):
                 from mods_tpu_torch.detectors.orb import brief_from_patches
-                As_b = Av * (sv * 5.1962 / 31.0)[:, None, None]
-                lvl_b, sc_b = select_level(As_b, 31, L)
-                p31 = sample_affine_patches(
-                    src, vi * L + lvl_b, xyv / sc_b[:, None],
-                    As_b / sc_b[:, None, None], 31, hw_flat)
-                bits = brief_from_patches(p31)
+                bits = brief_from_patches(sample(sv * 5.1962 / 31.0, 31)[0])
                 for sp in fam_specs:
                     if sp.kind == "binary":
                         res[sp.name] = bits
-            if any(sp.kind == "sift" for sp in fam_specs):
-                hist = sift_histograms(desc_patches(), base)
+            for sp in fam_specs:
+                if sp.kind != "cnn":
+                    continue
+                # the CNN slot's own patch geometry (CaffeDescParam.mrSize,
+                # patchSize) and a batched conv forward
+                pp = dict(sp.params) or dict(
+                    weights_file="", patch_size=32, mr_size=12.0,
+                    normalization="L2")
+                Pc = int(pp["patch_size"])
+                pc, _ = sample(image_to_patch_scale(sv, float(pp["mr_size"]),
+                                                    Pc), Pc)
+                res[sp.name] = net_for(pp["weights_file"], Pc, sp.dim,
+                                       pp["normalization"], str(dev))(pc)
+            kinds = {sp.kind for sp in fam_specs}
+            if kinds & {"sift", "pixels", "patch"}:
+                patches = desc_patches()
+            for sp in fam_specs:
+                if sp.kind == "patch":
+                    res[sp.name] = PATCH_FNS[sp.name](patches,
+                                                      **dict(sp.params))
+                elif sp.kind == "pixels":
+                    res[sp.name] = pixels_descriptor(patches,
+                                                     **dict(sp.params))
+            if "sift" in kinds:
+                hist = sift_histograms(patches, base)
                 for sp in fam_specs:
                     if sp.kind != "sift":
                         continue

@@ -264,6 +264,9 @@ def test_port_imports_no_jax():
         "    assert 'mods_tpu_torch.detectors.' + n in sys.modules, n\n"
         "for n in ('multi', 'manifest'):\n"
         "    assert 'mods_tpu_torch.parallel.' + n in sys.modules, n\n"
+        "for n in ('descriptors.patch_descs', 'descriptors.cnn', "
+        "'io.oxford'):\n"
+        "    assert 'mods_tpu_torch.' + n in sys.modules, n\n"
         "from mods_tpu_torch import csrc\n"
         "from mods_tpu_torch.detectors import mser\n"
         "from mods_tpu_torch.ops import host_render\n"

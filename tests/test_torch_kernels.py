@@ -461,3 +461,39 @@ def test_batched_ransac_h_on_card_matches_cpu(cuda):
         differ = (res["cpu"][1][p] != res["cuda"][1][p].cpu()).sum()
         assert int(differ) <= 0.02 * 160
         assert int(res["cuda"][2][p]) >= 0.5 * 160 * (0.8, 0.6, 0.3)[p]
+
+
+@pytest.mark.gpu
+def test_descriptor_families_on_card_match_cpu(cuda):
+    """Every patch descriptor family, Pixels and the CNN on the card
+    against the CPU on the same patches (``chip_smoke.py`` phase 11's
+    bounds): float families within 1e-5 (the CNN 1e-4); LIOP and MROGH,
+    whose pixels can move bins where the devices round across an edge,
+    on 99 % of the entries and within 5e-3; the bits of M-LDB, FREAK and
+    BRISK only where the compared values are within 1e-5 of the patch's
+    largest value; SSIM on these textured patches within 1e-3."""
+    from mods_tpu_torch.descriptors import patch_descs as pd
+    from mods_tpu_torch.descriptors.cnn import net_for
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:41, 0:41]
+    p = rng.uniform(0, 255, (96, 41, 41)) * 0.5 + 60 * np.sin(
+        xx / 3.0)[None] * np.cos(yy / 4.0)[None] + 64
+    cpu = torch.from_numpy(np.clip(p, 0, 255).astype(np.float32))
+    card = cpu.cuda()
+    for name, fn in pd.PATCH_FNS.items():
+        a, b = fn(card).cpu(), fn(cpu)
+        d = (a - b).abs()
+        if name in ("MLDB", "FREAK", "BRISK"):
+            near = (pd.bit_margins(name, cpu)
+                    <= 1e-5 * cpu.amax((1, 2))[:, None])
+            assert not ((d > 0) & ~near).any(), name
+        elif name in ("LIOP", "MROGH"):
+            assert d.max() <= 5e-3 and (d <= 1e-5).float().mean() >= 0.99
+        else:
+            assert d.max() <= (1e-3 if name == "SSIM" else 1e-5), name
+    d = (pd.pixels_descriptor(card).cpu() - pd.pixels_descriptor(cpu)).abs()
+    assert d.max() <= 1e-6
+    p32 = cpu[:, 4:36, 4:36].contiguous()
+    a, b = (net_for("", 32, 128, "L2", dev)(p32.to(dev)).cpu()
+            for dev in ("cuda", "cpu"))
+    assert (a - b).abs().max() <= 1e-4

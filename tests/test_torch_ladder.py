@@ -61,6 +61,7 @@ from mods_tpu.detectors import hessaff as jh  # noqa: E402
 from mods_tpu_torch import config as tc  # noqa: E402
 from mods_tpu_torch import pipeline as tp  # noqa: E402
 from mods_tpu_torch.detectors import hessaff as th  # noqa: E402
+from mods_tpu_torch.parallel import multi as tm  # noqa: E402
 from mods_tpu_torch.regions import regions_from_numpy  # noqa: E402
 from test_pipeline import textured_image, warp_np  # noqa: E402
 
@@ -464,21 +465,24 @@ def _cli(*argv):
         [tc.IterationParams(detector="External")], device="cpu")),
     ("ReadAffs", 21, lambda: tp.TwoViewMatcher(
         [tc.IterationParams(detector="ReadAffs")], device="cpu")),
-    ("SURF descriptor", 20, lambda: tp.spec_for("SURF")),
-    ("KAZE descriptor", 20, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(detector="KAZE", descriptors=("KAZE",))],
+    ("match_multi command", 21, lambda: _cli("match_multi", "q.png",
+                                             "list.txt")),
+    ("extract command, michal format", 21, lambda: _cli(
+        "extract", "a.png", "a.keys", "0", "0", "michal")),
+    ("External descriptor in a ladder", 21, lambda: tp.TwoViewMatcher(
+        [tc.IterationParams(descriptors=("External",))],
         device="cpu").match(np.zeros((64, 64)), np.zeros((64, 64)))),
+    ("MultiMatcher over a mesh", 22, lambda: tm.MultiMatcher(
+        mesh="pair", device="cpu")),
     ("monolith", 23, lambda: tp.TwoViewMatcher(monolith=True, device="cpu")),
     ("extract command", 21, lambda: _cli("extract", "a.png", "a.keys")),
     ("drawn output", 21, lambda: _cli("match", "a.png", "b.png", "x.png",
                                       "0", "k1", "k2", "m.txt", "0")),
-    ("export_descriptors command", 21, lambda: _cli(
-        "export_descriptors", "a.png", "a.desc")),
-    ("Pixels", 20, lambda: tp.spec_for("Pixels")),
-    ("CNN", 20, lambda: tp.spec_for("CNN")),
-    ("DAISY", 20, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(descriptors=("DAISY",))],
-        device="cpu").match(np.zeros((64, 64)), np.zeros((64, 64)))),
+    ("drawn output of image 2", 21, lambda: _cli(
+        "match", "a.png", "b.png", "0", "y.png", "k1", "k2", "m.txt", "0")),
+    ("External descriptor in a pair batch", 21, lambda: tm.PairBatchMatcher(
+        [tc.IterationParams(descriptors=("External",))],
+        device="cpu").match_batch([(np.zeros((64, 64)),) * 2])),
     ("External", 21, lambda: tp.spec_for("External")),
 ])
 def test_unported_branches_name_their_roadmap_item(what, item, make):
