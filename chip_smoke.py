@@ -115,7 +115,23 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    ``python -m mods_tpu_torch.cli export_descriptors`` and
    ``extract_benchmark`` on zoom2x image 1 with INI files that list
    several families.  Phase 2 also holds the sampler at the CNN's
-   (768, 32).
+   (768, 32);
+12. ROADMAP item 21, each part's launches held to the plan: (a) ``cli
+   match`` on tilt4 with both drawn outputs under LORANSACH and
+   LORANSACF, each PNG equal to the port's ``viz`` drawing of the written
+   matches and H or F; (b) ``cli extract`` on zoom2x's and tilt4's image
+   1 in the mods, michal and michal-text formats, the files read back as
+   the stores' rows; (c) a ReadAffs rung on the Oxford files that ``cli
+   extract_benchmark`` writes for both zoom2x images, against the
+   HessianAffine rung they came from, card vs CPU on the same file; (d)
+   the External detector and descriptor (``plugin_commands``) on tilt4's
+   image 1 and its translation by the grid step, card vs CPU, and a
+   ``PairBatchMatcher`` batch of two such pairs; (e) ``cli match_multi``
+   with a manifest, each gallery image held to
+   ``JAX_MATCH_MULTI_REFERENCE``, then a rerun that finds nothing
+   pending; (f) the device ``clahe`` and ``densify_by_homography`` on
+   zoom2x, card vs CPU.  The commands run in this process, so their
+   launches are counted.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -133,6 +149,7 @@ from __future__ import annotations
 
 import bisect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1508,17 +1525,18 @@ def _planned_launches(matcher, shapes, rungs_run: int,
     descriptor family needs them, and one per patch set a family samples
     (its descriptor patches, which its SIFT, Pixels and patch-functor
     kinds share, one more per extra DSP-SIFT scale; the BRIEF patches;
-    each CNN spec's own), for device and host-stage detectors alike.  A
-    pair batch (phase 10) gives each side's padded canvas in ``shapes``
-    and its images' sizes in ``sizes``: its groups fold every pair into
-    the view axis, so it launches as often as one pair at those
-    canvases."""
+    each CNN spec's own; none for the External rows), for device and
+    host-stage detectors alike.  ``shapes`` holds one shape per image
+    described (one for the exporter commands).  A pair batch (phase 10)
+    gives each side's padded canvas in ``shapes`` and its images' sizes in
+    ``sizes``: its groups fold every pair into the view axis, so it
+    launches as often as one pair at those canvases."""
     from mods_tpu_torch.config import as_rungs
     from mods_tpu_torch.detectors.scale_space import num_octaves
     cfg = matcher.cfg
 
     def family(sp):
-        if sp.kind == "binary":
+        if sp.kind in ("binary", "external"):
             return "none"
         return "half" if sp.half_sift_like else "sift"
 
@@ -3095,6 +3113,628 @@ def _drive_descriptors(wrappers: dict) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: region files, the ReadAffs and External plugins, drawn outputs,
+# the ``extract`` and ``match_multi`` commands, device CLAHE and
+# densification
+
+# 12e: ``cli match_multi`` with this script's CVIU INI files, the query
+# BATCH_PAIRS' shared image 1 and the gallery their image 2s; the command
+# stops at the first rung where a gallery image verifies ``min_matches``
+# (GetAtLeastOneImageMatch).  The JAX package's ``cmd_match_multi`` on the
+# same files on a CPU (``JAX_PLATFORMS=cpu python
+# tests/test_torch_commands.py --jax-match-multi``), per gallery image as
+# JAX_MULTI_REFERENCE: its MultiMatcher's result, read in the process.
+JAX_MATCH_MULTI_REFERENCE = {
+    "zoom2x": dict(steps=1, tentatives=129, matches=39, gt_consistent=39,
+                   corner_error_px=7.834),
+    "rot90": dict(steps=1, tentatives=141, matches=0, gt_consistent=0,
+                  corner_error_px=1022.267),
+    "tilt4": dict(steps=1, tentatives=41, matches=0, gt_consistent=0,
+                  corner_error_px=886.785),
+}
+
+
+# 12d: the External plugin's two commands, ``tests/test_aux.py:139-235``'s
+# grid detector (Oxford ellipses every 12 px, 24 px from the border) and
+# ring descriptor (8 samples around the point, L2-normalized).  The card
+# machine has no PIL: they read the view PNGs with the port's
+# ``io/png.py``, loaded from its file on its own (zlib and numpy, no
+# torch to import in every process).
+_LOAD_PNG = """\
+import importlib.util
+spec = importlib.util.spec_from_file_location('png', {png!r})
+png = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(png)
+"""
+GRID_DETECTOR_SCRIPT = _LOAD_PNG + """\
+import sys
+w, h = png.png_size(sys.argv[1])
+pts = [(x, y) for y in range(24, h - 24, 12)
+       for x in range(24, w - 24, 12)]
+with open(sys.argv[2], 'w') as f:
+    f.write('0.0\\n%d\\n' % len(pts))
+    inv = 1.0 / (3.0 * 3.0)
+    for x, y in pts:
+        f.write('%f %f %f 0 %f\\n' % (x, y, inv, inv))
+"""
+RING_DESCRIPTOR_SCRIPT = _LOAD_PNG + """\
+import sys
+import numpy as np
+im = png.read_png(sys.argv[1]).astype(np.float32)
+pts = np.loadtxt(sys.argv[2], ndmin=2)
+with open(sys.argv[3], 'w') as f:
+    for x, y, s in pts:
+        xi, yi = int(x), int(y)
+        v = [im[yi + dy, xi + dx]
+             for dy in (-6, 0, 6) for dx in (-6, 0, 6)]
+        v = np.asarray(v[:8]) / (np.linalg.norm(v[:8]) + 1e-6)
+        f.write(' '.join([str(x), str(y)]
+                + ['%.6f' % q for q in v]) + '\\n')
+"""
+
+
+def plugin_commands(work: Path) -> tuple:
+    """(detector command, descriptor command) of the External plugin, as
+    ``ExternalCmdParams`` templates, with their scripts written into
+    ``work``."""
+    work.mkdir(parents=True, exist_ok=True)
+    det, desc = work / "grid_det.py", work / "ring_desc.py"
+    png = str(ROOT / "mods_tpu_torch" / "io" / "png.py")
+    det.write_text(GRID_DETECTOR_SCRIPT.format(png=png))
+    desc.write_text(RING_DESCRIPTOR_SCRIPT.format(png=png))
+    return (f"{sys.executable} {det} {{img}} {{out}}",
+            f"{sys.executable} {desc} {{img}} {{pts}} {{out}}")
+
+
+def keep_multi_results(multi_cls):
+    """Record every ``multi_cls.match`` call (either package's
+    ``MultiMatcher``) while a command runs in this process, as (matcher,
+    result): wraps the method.  Returns (the calls, a function that puts
+    the method back)."""
+    seen = []
+    inner = multi_cls.match
+
+    def match(self, *a, **kw):
+        r = inner(self, *a, **kw)
+        seen.append((self, r))
+        return r
+
+    multi_cls.match = match
+
+    def release():
+        multi_cls.match = inner
+
+    return seen, release
+
+
+def multi_figures(r, data: list) -> dict:
+    """Per gallery image of a ``MultiResult`` (``BATCH_PAIRS`` order): the
+    figures that JAX_MATCH_MULTI_REFERENCE holds."""
+    return {pair: dict(steps=o[0], tentatives=int(r.n_tentatives[i]),
+                       matches=o[1], gt_consistent=o[2],
+                       corner_error_px=o[3])
+            for i, (pair, o) in enumerate(zip(BATCH_PAIRS,
+                                              _batch_outcomes(r, data)))}
+
+
+def match_multi_files(work: Path) -> list:
+    """The query, the gallery list and the INI files of 12e, written into
+    ``work``: the argument list of ``cmd_match_multi`` up to the INI
+    files."""
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "config.ini").write_text(CVIU_CONFIG_INI)
+    (work / "iters.ini").write_text(cviu_iters_ini())
+    (work / "gallery.txt").write_text("".join(
+        f"{PAIRS / f'{p}_2.png'}\n" for p in BATCH_PAIRS))
+    return [str(PAIRS / f"{BATCH_PAIRS[0]}_1.png"), str(work / "gallery.txt"),
+            str(work / "config.ini"), str(work / "iters.ini")]
+
+
+def _run_cli(argv: list) -> tuple:
+    """``python -m mods_tpu_torch.cli`` in this process (the kernels built
+    in phase 1, the launches counted): (exit code, standard output)."""
+    import contextlib
+    import io
+    from mods_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        raise RuntimeError(f"cli {argv[0]}: exit {rc}\n{out.getvalue()}")
+    return rc, out.getvalue()
+
+
+def _cli_matcher(config: str, iters: str, ver: str):
+    """A ``TwoViewMatcher`` configured as the ``match`` command configures
+    its own: the plan of the command's launches."""
+    from mods_tpu_torch.cli import _build_engine
+    from mods_tpu_torch.pipeline import TwoViewMatcher
+    cfg, ladder = _build_engine(config, iters, ver)
+    return TwoViewMatcher(ladder, cfg, device="cuda")
+
+
+def _sorted_rows(st) -> tuple:
+    """A store's (geometry ``x y a11 a12 a21 a22 s``, descriptor) rows,
+    sorted by position and frame."""
+    import numpy as np
+    geo = np.c_[st.xy, st.A.reshape(-1, 4), st.s]
+    order = np.lexsort(geo.T[::-1])
+    return geo[order], st.desc[order]
+
+
+def _stores_card_vs_cpu(label: str, card: dict, cpu: dict, exact=(),
+                        quantized=()) -> dict:
+    """Two runs' stores of one image on the same regions (ReadAffs's file,
+    the External command's keypoints): the same rows, frames and
+    descriptors within FLOAT_TOL, the ``exact`` descriptors bit for bit.
+    The ``quantized`` ones (SIFT-family entries, floor(512 v + 0.5)) may
+    flip by one quantum at a rounding edge on at most 0.1 % of entries,
+    as tests/test_torch_describe.py holds them: a float32 difference of
+    1e-7 between the card's and the CPU's sums crosses such an edge."""
+    import numpy as np
+    out = {}
+    if card.keys() != cpu.keys():
+        raise RuntimeError(f"{label}: stores {sorted(card)} vs {sorted(cpu)}")
+    for key in card:
+        (g, gd), (c, cd) = _sorted_rows(card[key]), _sorted_rows(cpu[key])
+        if g.shape != c.shape or not np.array_equal(g[:, :2], c[:, :2]):
+            raise RuntimeError(f"{label} {key}: {len(g)} regions on the "
+                               f"card, {len(c)} on the CPU")
+        dg = float(np.abs(g - c).max(initial=0.0))
+        dd = np.abs(gd - cd)
+        res = dict(rows=len(g), max_abs_frame=dg,
+                   max_abs_desc=float(dd.max(initial=0.0)),
+                   share_desc_over_tol=float((dd > FLOAT_TOL).mean())
+                   if dd.size else 0.0)
+        out["/".join(key)] = res
+        if dg > FLOAT_TOL:
+            raise RuntimeError(f"{label} {key}: frames differ by {dg}")
+        if key[1] in exact:
+            if not np.array_equal(gd, cd):
+                raise RuntimeError(f"{label} {key}: rows differ")
+        elif key[1] in quantized:
+            if res["max_abs_desc"] > 1.0 or res["share_desc_over_tol"] > 1e-3:
+                raise RuntimeError(f"{label} {key}: descriptors {res}")
+        elif res["max_abs_desc"] > FLOAT_TOL:
+            raise RuntimeError(f"{label} {key}: descriptors {res}")
+    return out
+
+
+def _drive_drawings(held, work: Path) -> None:
+    """12a: ``cli match`` on tilt4 with both drawn outputs, under
+    LORANSACH and LORANSACF: the count it prints is the file's, and each
+    PNG, read back, is the port's ``viz`` drawing of the written matches
+    and H or F over the images as loaded."""
+    import numpy as np
+    from mods_tpu_torch import viz
+    from mods_tpu_torch.io.png import read_png
+    from mods_tpu_torch.io.regions_io import read_h, read_matches
+    pair = "tilt4"
+    imgs = [str(PAIRS / f"{pair}_{i}.png") for i in (1, 2)]
+    loaded = [read_png(p) for p in imgs]
+    config, iters = str(work / "config.ini"), str(work / "iters.ini")
+    line = re.compile(r"Matches: (\d+) \(tentatives (\d+), steps (\d+)\)")
+    for ver in ("LORANSACH", "LORANSACF"):
+        o1, o2, m = (work / f"{n}_{ver}" for n in ("o1.png", "o2.png",
+                                                    "m.txt"))
+        matcher = _cli_matcher(config, iters, ver)
+
+        def plan(out, matcher=matcher):
+            steps = int(line.search(out[1]).group(3))
+            return _planned_launches(matcher, [a.shape[:2] for a in loaded],
+                                     steps)
+
+        (_, text), res = held(f"cli match {ver}", lambda: _run_cli(
+            ["match", *imgs, str(o1), str(o2), "k1", "k2", str(m), "0", ver,
+             config, iters]), plan)
+        matcher.close()
+        n, tent, steps = map(int, line.search(text).groups())
+        if int(m.read_text().split()[0]) != n:
+            raise RuntimeError(f"cli match {ver}: the Matches line says {n}, "
+                               f"the matchings file differs")
+        xy1, xy2 = (read_matches(str(m)) if n else (np.zeros((0, 2)),) * 2)
+        model = read_h(f"{m}.H")
+        want = [viz.draw_matches(*loaded, xy1, xy2),
+                viz.draw_epipolar(*loaded, xy1, xy2, model)
+                if ver == "LORANSACF" else
+                viz.draw_matches_with_error(*loaded, xy1, xy2, model)]
+        for i, (path, canvas) in enumerate(zip((o1, o2), want), 1):
+            got = read_png(path)
+            if got.shape != canvas.shape or not np.array_equal(got, canvas):
+                raise RuntimeError(f"cli match {ver}: out{i} is not the "
+                                   f"drawing of its matches")
+        res.update(matches=n, tentatives=tent, steps=steps,
+                   canvases=[list(c.shape) for c in want], equal=True)
+        print(f"[12] a, cli match {pair} {ver} with drawn outputs: "
+              f"{json.dumps(res)}", flush=True)
+
+
+def _michal_expected(st) -> tuple:
+    """(xy, s', rectified A) that ``save_regions_michal`` writes for one
+    store, in float64."""
+    import numpy as np
+    from mods_tpu_torch.io.regions_io import _rectify_up_is_up
+    A = np.asarray(st.A, np.float64)
+    s = st.s * np.sqrt(np.abs(np.linalg.det(A))) * 3.0 * np.sqrt(3.0)
+    return np.asarray(st.xy, np.float64), s, _rectify_up_is_up(A)
+
+
+def _drive_extract(held, work: Path) -> None:
+    """12b: ``cli extract`` on zoom2x's image 1 (1000x598; tilt4's image 1
+    holds the same pixels) and tilt4's image 2 (1000x150) in the mods,
+    michal and michal-text formats: the regions it saves are the stores'
+    rows, read back with ``load_regions`` / ``load_regions_michal`` (the
+    text formats to their ``%.10g``)."""
+    import numpy as np
+    from mods_tpu_torch import cli
+    from mods_tpu_torch.io.png import png_size
+    from mods_tpu_torch.io.regions_io import load_regions, load_regions_michal
+    config, iters = str(work / "config.ini"), str(work / "iters.ini")
+    matcher = _cli_matcher(config, iters, "LORANSACH")
+    inner = cli._extract_stores
+    for pair in ("zoom2x_1", "tilt4_2"):
+        img = str(PAIRS / f"{pair}.png")
+        w, h = png_size(img)
+        for fmt in ("mods", "michal", "michal-text"):
+            out = work / f"extract_{pair}_{fmt}"
+            kept = []
+
+            def keep(*a):
+                kept.append(inner(*a))
+                return kept[-1]
+
+            cli._extract_stores = keep
+            try:
+                (_, text), res = held(
+                    f"cli extract {pair} {fmt}",
+                    lambda: _run_cli(["extract", img, str(out), config, iters,
+                                      fmt]),
+                    lambda _: _planned_launches(matcher, [(h, w)], 1))
+            finally:
+                cli._extract_stores = inner
+            stores = kept[0]
+            total = sum(st.count for st in stores.values())
+            if f"Saved {total} regions" not in text or total == 0:
+                raise RuntimeError(f"extract {pair} {fmt}: {text}")
+            err = 0.0
+            for (det, name), st in stores.items():
+                xy, s, R = _michal_expected(st)
+                if fmt == "mods":
+                    rs = load_regions(str(out))[det][name]
+                    got = [rs.det_xy, rs.det_A, rs.det_s]
+                    want = [st.xy, st.A, st.s]
+                    tol = 1e-9                   # %.10g of float32 values
+                elif fmt == "michal":
+                    path = f"{out}{name}"
+                    with open(path, "rb") as f:
+                        head = np.frombuffer(f.read(20), "<i4")
+                    if tuple(head[3:]) != (w, h):
+                        raise RuntimeError(f"{path}: size {head[3:]}")
+                    gxy, gs, gA, *_ = load_regions_michal(path)
+                    got, want = [gxy, gs, gA], [xy, s, R]
+                    tol = 1e-6                             # float32 fields
+                else:
+                    rows = np.loadtxt(f"{out}{name}", ndmin=2)
+                    got = [rows[:, :2], rows[:, 2],
+                           rows[:, 3:7].reshape(-1, 2, 2)]
+                    want, tol = [xy, s, R], 1e-9
+                for a, b in zip(got, want):
+                    if a.shape != np.shape(b):
+                        raise RuntimeError(f"extract {pair} {fmt} {name}: "
+                                           f"{a.shape} rows, store "
+                                           f"{np.shape(b)}")
+                    d = np.abs(a - b) / np.maximum(np.abs(b), 1e-3)
+                    err = max(err, float(d.max(initial=0.0)))
+                if err > tol:
+                    raise RuntimeError(f"extract {pair} {fmt} {name}: "
+                                       f"relative error {err} > {tol}")
+            res.update(regions={"/".join(k): st.count
+                                for k, st in stores.items()},
+                       max_rel_err=err)
+            print(f"[12] b, cli extract {pair} {fmt}: {json.dumps(res)}",
+                  flush=True)
+    matcher.close()
+
+
+def _drive_readaffs(held, work: Path):
+    """12c: ``cli extract_benchmark`` on both zoom2x images at one
+    HessianAffine rung (Oxford files), then a ReadAffs rung on those
+    files: at least ``min_matches`` verified and >= 0.8x the HessianAffine
+    rung's matches within 3 px of the ground truth; image 1's stores on
+    the card against the port's CPU run on the same file.  Returns the
+    HessianAffine matcher, whose stores hold zoom2x's regions (12f)."""
+    import torch
+    from mods_tpu_torch.cli import _build_engine
+    from mods_tpu_torch.config import IterationParams
+    from mods_tpu_torch.ops.image import to_gray_np
+    from mods_tpu_torch.pipeline import TwoViewMatcher
+    from mods_tpu_torch.timing import TimeLog
+    img1, img2, H_gt = _load_pair_np("zoom2x")
+    config = str(work / "config.ini")
+    rung = dict(_HESAFF, tilt_set=(1.0,))
+    iters = work / "iters_hessaff.ini"
+    iters.write_text(cviu_iters_ini([([rung], None)]))
+    cfg, ladder = _build_engine(config, str(iters))
+    hes = TwoViewMatcher(ladder, cfg, device="cuda")
+    files = []
+    for i, img in ((1, img1), (2, img2)):
+        files.append(str(work / f"zoom2x_{i}.oxford"))
+        held(f"cli extract_benchmark zoom2x_{i}", lambda i=i: _run_cli(
+            ["extract_benchmark", str(PAIRS / f"zoom2x_{i}.png"), files[-1],
+             "0", config, str(iters)]),
+            lambda _, img=img: _planned_launches(hes, [img.shape], 1))
+    shapes = (img1.shape, img2.shape)
+    r_h, res_h = held("HessianAffine rung", lambda: hes.match(img1, img2),
+                      lambda _: _planned_launches(hes, shapes, hes.rungs_run))
+    ra_it = IterationParams(**dict(rung, detector="ReadAffs"))
+    ra = TwoViewMatcher([ra_it], cfg, device="cuda")
+    ra.affs_paths = tuple(files)
+    r, res = held("ReadAffs rung", lambda: ra.match(img1, img2),
+                  lambda _: _planned_launches(ra, shapes, ra.rungs_run))
+    cpu = TwoViewMatcher([ra_it], cfg, device="cpu")
+    cpu.affs_paths = tuple(files)
+    stores: dict = {}
+    g = to_gray_np(img1)
+    cpu._process_image(torch.as_tensor(g), ra_it, [], stores, TimeLog(), 0,
+                       g)
+    cpu.close()
+    res["card_vs_cpu"] = _stores_card_vs_cpu("ReadAffs", ra._stores[0],
+                                             stores)
+    ra.close()
+    true, true_h = (_gt_consistent(H_gt, x.xy1, x.xy2) for x in (r, r_h))
+    res.update(regions=[st.count for st in (ra._stores[0][k]
+                                            for k in ra._stores[0])],
+               steps_used=r.steps_used, matches=r.n_matches,
+               gt_consistent_3px=true, hessaff=dict(
+                   res_h, matches=r_h.n_matches, gt_consistent_3px=true_h))
+    print(f"[12] c, ReadAffs on zoom2x: {json.dumps(res)}", flush=True)
+    if r.n_matches < cfg.min_matches or true < 0.8 * true_h:
+        raise RuntimeError(f"ReadAffs: {r.n_matches} verified, {true} "
+                           f"within 3 px; HessianAffine {r_h.n_matches}, "
+                           f"{true_h}")
+    return hes
+
+
+# 12d's pairs: an image and its translation by the grid step, (12, -12) px
+EXTERNAL_SHIFT = (12, -12)
+
+
+def _translated(img, dx: int, dy: int):
+    """``img`` moved by (dx, dy) px, the uncovered band 128, and the H."""
+    import numpy as np
+    out = np.full_like(img, 128)
+    h, w = img.shape
+    out[max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
+        img[max(-dy, 0):h + min(-dy, 0), max(-dx, 0):w + min(-dx, 0)]
+    return out, np.array([[1.0, 0, dx], [0, 1.0, dy], [0, 0, 1.0]])
+
+
+def _drive_external(held, work: Path) -> None:
+    """12d: the External detector and descriptor (``plugin_commands``) on
+    tilt4's image 1 (1000x598) and image 2 (1000x150) at full size, each
+    against its translation by the grid step: one rung with RootSIFT and
+    External, one with External only, each verifying >= 8
+    (tests/test_aux.py's rule); image 1's stores on the card against the
+    port's CPU run (RootSIFT within FLOAT_TOL but for one-quantum flips,
+    the External rows bit for bit); one ``PairBatchMatcher`` batch of the
+    two pairs, each at its serial rung with >= 0.8x its serial verified
+    matches."""
+    import torch
+    from mods_tpu_torch.config import IterationParams, replace
+    from mods_tpu_torch.ops.image import to_gray_np
+    from mods_tpu_torch.parallel.multi import PairBatchMatcher
+    from mods_tpu_torch.pipeline import (EngineConfig, ExternalCmdParams,
+                                         TwoViewMatcher)
+    from mods_tpu_torch.timing import TimeLog
+    det_cmd, desc_cmd = plugin_commands(work / "plugins")
+    cfg = replace(EngineConfig(), external=ExternalCmdParams(
+        command=det_cmd, desc_command=desc_cmd, desc_dim=8))
+    names = ("tilt4_1", "tilt4_2")
+    pairs = {name: (img, *_translated(img, *EXTERNAL_SHIFT))
+             for name, img in zip(names, _load_pair_np("tilt4")[:2])}
+    both = IterationParams(detector="External",
+                           descriptors=("RootSIFT", "External"),
+                           fginn_threshold=(0.9, 0.9))
+    serial = {}
+    for label, it in (("RootSIFT + External", both),
+                      ("External", IterationParams(
+                          detector="External", descriptors=("External",),
+                          fginn_threshold=(0.9,)))):
+        m = TwoViewMatcher([it], cfg, device="cuda")
+        for p in (names if it is both else names[:1]):
+            img1, img2, H = pairs[p]
+            r, res = held(f"External {label} {p}", lambda: m.match(img1, img2),
+                          lambda _: _planned_launches(
+                              m, (img1.shape, img2.shape), m.rungs_run))
+            true = _gt_consistent(H, r.xy1, r.xy2)
+            res.update(steps_used=r.steps_used, tentatives=r.n_tentatives,
+                       matches=r.n_matches, gt_consistent_3px=true,
+                       regions=[st.count for st in m._stores[0].values()])
+            if it is both:
+                serial[p] = r
+            if it is both and p == names[0]:
+                cpu = TwoViewMatcher([it], cfg, device="cpu")
+                stores: dict = {}
+                g = to_gray_np(img1)
+                cpu._process_image(torch.as_tensor(g), it, [], stores,
+                                   TimeLog(), 0, g)
+                cpu.close()
+                res["card_vs_cpu"] = _stores_card_vs_cpu(
+                    "External", m._stores[0], stores, exact=("External",),
+                    quantized=("RootSIFT",))
+            print(f"[12] d, {label} on {p} and its translation: "
+                  f"{json.dumps(res)}", flush=True)
+            if r.n_matches < 8:
+                raise RuntimeError(f"External {label} {p}: {r.n_matches} "
+                                   f"verified")
+        m.close()
+    bm = PairBatchMatcher([both], cfg, device="cuda")
+    batch = [pairs[p][:2] for p in names]
+    r, res = held("External pair batch", lambda: bm.match_batch(batch),
+                  lambda _: batch_planned_launches(bm, batch))
+    bm.close()
+    res.update(steps_used=r.steps_used.tolist(), matches=r.counts.tolist(),
+               serial=[[serial[p].steps_used, serial[p].n_matches]
+                       for p in names])
+    print(f"[12] d, External pair batch {list(names)}: {json.dumps(res)}",
+          flush=True)
+    for i, p in enumerate(names):
+        if r.steps_used[i] > serial[p].steps_used \
+                or r.counts[i] < 0.8 * serial[p].n_matches:
+            raise RuntimeError(f"External batch {p}: rung {r.steps_used[i]}"
+                               f" with {r.counts[i]} verified, alone "
+                               f"{serial[p].steps_used}, "
+                               f"{serial[p].n_matches}")
+
+
+def _drive_match_multi(held, work: Path) -> None:
+    """12e: ``cli match_multi``, the query BATCH_PAIRS' shared image 1 and
+    the gallery their image 2s, with a manifest: each gallery image's
+    rung, verified matches and matches within 3 px held to
+    JAX_MATCH_MULTI_REFERENCE by ``_rule_failure``, its tentatives within
+    20 % where JAX has ``min_matches``; launches equal to the plan; the
+    per-gallery logs and drawings written; a rerun on the manifest runs
+    nothing and prints the recorded counts."""
+    from mods_tpu_torch.parallel import multi
+    from mods_tpu_torch.parallel.multi import _pad_gallery
+    data = [_load_pair_np(p) for p in BATCH_PAIRS]
+    argv = match_multi_files(work / "multi")
+    logs, draws = work / "multi" / "log", work / "multi" / "draw_"
+    manifest = work / "multi" / "run.manifest.json"
+    argv += [str(logs), str(draws), str(manifest)]
+    canvas, sizes = _pad_gallery([b for _, b, _ in data])
+    seen, release = keep_multi_results(multi.MultiMatcher)
+    try:
+        (_, text), res = held("cli match_multi", lambda: _run_cli(
+            ["match_multi", *argv]), lambda _: _planned_launches(
+                seen[0][0].qmatcher, (data[0][0].shape, canvas.shape[1:]),
+                seen[0][0].rungs_run, (None, tuple(sizes))))
+    finally:
+        release()
+    (mm, r), = seen
+    figures = multi_figures(r, data)
+    res.update(figures=figures, jax_cpu=JAX_MATCH_MULTI_REFERENCE)
+    print(f"[12] e, cli match_multi: {json.dumps(res)}", flush=True)
+    min_matches = mm.cfg.min_matches
+    for pair, got in figures.items():
+        ref = JAX_MATCH_MULTI_REFERENCE[pair]
+        failure = _rule_failure(pair, got["steps"], got["matches"],
+                                got["gt_consistent"], got["corner_error_px"],
+                                ref, min_matches)
+        if failure:
+            raise RuntimeError(f"match_multi {failure}")
+        if ref["tentatives"] >= min_matches and abs(
+                got["tentatives"] - ref["tentatives"]) > 0.2 * ref[
+                    "tentatives"]:
+            raise RuntimeError(f"match_multi {pair}: {got['tentatives']} "
+                               f"tentatives, JAX {ref['tentatives']}")
+        name = f"{pair}_2"
+        for f in (Path(f"{logs}-{name}.log"), Path(f"{draws}{name}-1.png")):
+            if not f.exists():
+                raise RuntimeError(f"match_multi: {f.name} missing")
+    lines = re.findall(r"^(\S+): (\d+) matches \((\d+) tentatives\)$",
+                       text, re.M)
+    (_, again), res = held("cli match_multi, rerun", lambda: _run_cli(
+        ["match_multi", *argv]), lambda _: dict.fromkeys(
+            ("baumberg_smm", "window_sampler"), 0))
+    if f"{len(data)}/{len(data)} gallery images already done" not in again \
+            or re.findall(r"^(\S+): (\d+) matches \((\d+) tentatives\)$",
+                          again, re.M) != lines:
+        raise RuntimeError(f"match_multi rerun:\n{again}")
+    res.update(printed=lines)
+    print(f"[12] e, cli match_multi rerun on the manifest: {json.dumps(res)}",
+          flush=True)
+
+
+def _drive_clahe_densify(hes) -> None:
+    """12f: the device ``clahe`` on zoom2x's image 1 and
+    ``densify_by_homography`` on zoom2x's regions (``hes``'s stores, 12c)
+    under its ``_H.txt``, on the card against the CPU: CLAHE within 1e-3
+    grey levels, the same accepted pairs."""
+    import numpy as np
+    import torch
+    from mods_tpu_torch.matching.densify import densify_by_homography
+    from mods_tpu_torch.ops.clahe import clahe
+    img1, _, H = _load_pair_np("zoom2x")
+    t0 = time.perf_counter()
+    card = clahe(torch.as_tensor(img1, device="cuda"))
+    torch.cuda.synchronize()
+    clahe_s = time.perf_counter() - t0
+    d = float((card.cpu() - clahe(torch.as_tensor(img1))).abs().max())
+    regions = [st[("HessianAffine", "RootSIFT")] for st in hes._stores]
+    args = [a for st in regions for a in (st.xy, st.A, st.s,
+                                          np.ones(st.count, bool))]
+    out = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        idx, err, ok = densify_by_homography(
+            *(torch.as_tensor(a, device=where) for a in args), H)
+        out[where] = (idx.cpu().numpy(), err.cpu().numpy(),
+                      ok.cpu().numpy(), time.perf_counter() - t0)
+    (gi, ge, gok, gs), (ci, ce, cok, _) = out["cuda"], out["cpu"]
+    res = dict(clahe_max_abs=d, clahe_s=clahe_s,
+               regions=[st.count for st in regions], accepted=int(gok.sum()),
+               densify_s=gs,
+               same_pairs=bool(np.array_equal(gok, cok)
+                               and np.array_equal(gi[gok], ci[cok])),
+               max_abs_err=float(np.abs(ge[gok] - ce[cok]).max(initial=0.0)))
+    print(f"[12] f, clahe and densify on zoom2x: {json.dumps(res)}",
+          flush=True)
+    if d > 1e-3 or not res["same_pairs"] or res["accepted"] == 0:
+        raise RuntimeError(f"clahe / densify card vs CPU: {res}")
+
+
+def _drive_phase12(wrappers: dict) -> dict:
+    """Phase 12 (12a-12f).  Every counted run has every kernel's count set
+    to 0 just before and read just after, and its launches held to the
+    plan; the card-vs-CPU runs are not counted.  Returns each kernel's
+    launches over the counted runs."""
+    import tempfile
+    import torch
+    total = dict.fromkeys(wrappers, 0)
+
+    def held(label: str, run, plan) -> tuple:
+        torch.cuda.reset_peak_memory_stats()
+        for ws in wrappers.values():
+            for w in ws:
+                w.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = {k: sum(w.launches for w in ws)
+                    for k, ws in wrappers.items()}
+        planned = plan(out)
+        if launched != planned:
+            raise RuntimeError(f"{label}: launched {launched}, the plan "
+                               f"gives {planned}")
+        for k, n in launched.items():
+            total[k] += n
+        return out, dict(s=dt, kernel_launches=launched,
+                         planned_launches=planned,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    with tempfile.TemporaryDirectory() as d:
+        work = Path(d)
+        (work / "config.ini").write_text(CVIU_CONFIG_INI)
+        (work / "iters.ini").write_text(cviu_iters_ini())
+        for part, fn in (("a", _drive_drawings), ("b", _drive_extract),
+                         ("d", _drive_external),
+                         ("e", _drive_match_multi)):
+            t0 = time.perf_counter()
+            fn(held, work)
+            print(f"[12] {part} took {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        hes = _drive_readaffs(held, work)
+        _drive_clahe_densify(hes)
+        hes.close()
+        print(f"[12] c and f took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3250,6 +3890,14 @@ def main() -> int:
             raise RuntimeError(f"{name} was not launched on phase 11's "
                                "paths")
     clock("11")
+    phase12_launches = _drive_phase12(wrappers)
+    print(f"[12] kernel launches on the plugins' and commands' paths: "
+          f"{json.dumps(phase12_launches)}", flush=True)
+    for name in wrappers:
+        if phase12_launches[name] <= 0:
+            raise RuntimeError(f"{name} was not launched on phase 12's "
+                               "paths")
+    clock("12")
 
     kernels = []
     for name, replaces, checks in (
@@ -3261,13 +3909,15 @@ def main() -> int:
             source=f"mods_tpu_torch/csrc/{name}.cu", replaces=replaces,
             launches=(launches[name] + ladder_launches[name]
                       + cviu_launches[name] + detector_launches[name]
-                      + batch_launches[name] + descriptor_launches[name]),
+                      + batch_launches[name] + descriptor_launches[name]
+                      + phase12_launches[name]),
             launches_flagship=launches[name],
             launches_ladder=ladder_launches[name],
             launches_cviu_ladder=cviu_launches[name],
             launches_other_detectors=detector_launches[name],
             launches_pair_batched=batch_launches[name],
             launches_other_descriptors=descriptor_launches[name],
+            launches_plugins_and_commands=phase12_launches[name],
             max_abs_err=max(g["max_abs_err"] for g in checks),
             ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],
             bound_ms=main_geom["bound_ms"], bound_by=main_geom["bound_by"],

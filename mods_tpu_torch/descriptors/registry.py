@@ -6,10 +6,9 @@ Kinds: ``sift`` (the SIFT family shares patch extraction and histograms
 and differs in folding and normalization), ``pixels`` (the normalized
 raw patch, descriptors/pixelsdesc.hpp), ``binary`` (ORB's rBRIEF,
 ``detectors/orb.py``), ``patch`` (the patch functors of
-``descriptors/patch_descs.py``) and ``cnn`` (``descriptors/cnn.py``).
-``External`` (a host command's rows) is known here, so a ladder that
-lists it fails with the ROADMAP.md item that ports it instead of
-producing nothing.
+``descriptors/patch_descs.py``), ``cnn`` (``descriptors/cnn.py``) and
+``external`` (the rows that the External detector's descriptor command
+writes on the host, ``pipeline.py::ExternalCmdParams``).
 """
 
 from __future__ import annotations
@@ -23,7 +22,8 @@ from mods_tpu_torch.config import SIFTDescriptorParams
 @dataclass(frozen=True)
 class DescriptorSpec:
     name: str
-    kind: str                  # "sift" | "pixels" | "binary" | "patch" | "cnn"
+    # "sift" | "pixels" | "binary" | "patch" | "cnn" | "external"
+    kind: str
     sift: SIFTDescriptorParams | None = None
     half_sift_like: bool = False   # uses half-SIFT orientation folding
     dim: int = 128
@@ -66,24 +66,18 @@ REGISTRY: dict[str, DescriptorSpec] = {
     "MROGH": DescriptorSpec(name="MROGH", kind="patch", dim=144),
     # the Caffe CNN slot (imagerepresentation.cpp:1343-1534)
     "CNN": DescriptorSpec(name="CNN", kind="cnn", dim=128),
+    # the external-binary descriptor plugin (the BICE pattern,
+    # bicedescriptor.hpp, imagerepresentation.cpp:1610)
+    "External": DescriptorSpec(name="External", kind="external", dim=128),
 }
-
-# descriptor names of the JAX registry that wait for a later slice, with
-# the ROADMAP.md item that ports each
-NOT_PORTED = {"External": ("external", 21)}
 
 
 def get_spec(name) -> DescriptorSpec:
     if isinstance(name, DescriptorSpec):
         return name
-    if name in NOT_PORTED:
-        kind, item = NOT_PORTED[name]
-        raise NotImplementedError(
-            f"descriptor {name!r} (kind {kind!r}) is not ported yet: "
-            f"ROADMAP.md item {item}")
     if name not in REGISTRY:
         raise KeyError(f"unknown descriptor {name!r}; known: "
-                       f"{sorted(REGISTRY) + sorted(NOT_PORTED)}")
+                       f"{sorted(REGISTRY)}")
     return REGISTRY[name]
 
 
@@ -133,4 +127,6 @@ def spec_for(name: str, cfg=None) -> DescriptorSpec:
                            ("patch_size", c.patch_size),
                            ("mr_size", c.mr_size),
                            ("normalization", c.normalization)))
+    if name == "External":
+        return rep(base, dim=cfg.external.desc_dim)
     return base

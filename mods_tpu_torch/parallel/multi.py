@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mods_tpu_torch.config import as_rungs
 from mods_tpu_torch.ops.image import to_gray_np
 from mods_tpu_torch.ops.select import nonzero_static
 from mods_tpu_torch.pipeline import (BatchedDeviceStore, EngineConfig,
@@ -88,7 +89,10 @@ class MultiMatcher:
                  device: str | torch.device = "cuda"):
         if mesh is not None:
             raise _not_ported("matching over a mesh of several GPUs", 22)
-        self.qmatcher = TwoViewMatcher(ladder, cfg, seed=seed, device=device)
+        # an empty ladder is the default one, as in the JAX package's
+        # batched matchers
+        self.qmatcher = TwoViewMatcher(ladder or None, cfg, seed=seed,
+                                       device=device)
         self.cfg = self.qmatcher.cfg
         self.device = self.qmatcher.device
         self._seed = seed
@@ -117,6 +121,11 @@ class MultiMatcher:
         run, verification, counts)], rungs run)."""
         # one generator a pair, each seeded as the serial matcher seeds a
         # pair: pair p draws what TwoViewMatcher(seed).match draws on it
+        if any(it.detector == "ReadAffs"
+               for rung in as_rungs(self.qmatcher.ladder) for it in rung.dets):
+            raise NotImplementedError(
+                "ReadAffs has no per-gallery keypoint files; use the "
+                "serial path")
         generators = [torch.Generator(device=self.device).manual_seed(
             self._seed) for _ in range(P)]
         bank: dict = {}

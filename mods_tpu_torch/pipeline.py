@@ -27,19 +27,24 @@ hand-written kernels ``csrc/window_sampler.cu`` and
 ``csrc/baumberg_smm.cu``.
 
 Ported here: every device detector of the JAX package, the host-stage
-MSER (prefetched for the whole ladder by a pool of two threads that run
-native code and never touch the card), every descriptor kind but
-``external``, FGINN with a descriptor database, the verification
-modes LORANSACH, LORANSACF (DEGENSAC), ORSA and GR_TRUTH (with its dual
-mode), the ``sync``, ``async`` and ``pipelined`` stop modes and CLAHE.
-What is not ported yet raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+detectors (MSER, prefetched for the whole ladder by a pool of two threads
+that run native code and never touch the card; ReadAffs, keypoints read
+from a file; External, keypoints from a command run on each rendered
+view), every descriptor kind (``external``: rows a command writes for
+the External detector's keypoints), FGINN with a descriptor database,
+the verification modes LORANSACH, LORANSACF (DEGENSAC), ORSA and
+GR_TRUTH (with its dual mode), the ``sync``, ``async`` and
+``pipelined`` stop modes and CLAHE.  The monolith ladder program is not
+ported yet and raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -73,6 +78,8 @@ from mods_tpu_torch.descriptors.sift import sift_histograms, sift_norm
 from mods_tpu_torch.detectors.hessaff import detect_affine_keypoints
 from mods_tpu_torch.detectors.mser import detect_msers_padded
 from mods_tpu_torch.device import resolve_device
+from mods_tpu_torch.io.oxford import read_kps, read_oxford
+from mods_tpu_torch.io.png import write_png
 from mods_tpu_torch.matching.fginn import (duplicate_filter, match_distance,
                                            match_fginn)
 from mods_tpu_torch.ops.clahe import clahe_np
@@ -103,13 +110,32 @@ BORDER_CLAMP_FRAC = 0.2
 # ReadAffs, External) need a host stage
 DEVICE_DETECTORS = ("HessianAffine", "DoG", "HarrisAffine", "ORB", "SURF",
                     "KAZE", "TILDE", "FAST", "STAR", "BRISK")
-# the ROADMAP.md item that ports each detector still left out
-_DETECTOR_ITEM = {"ReadAffs": 21, "External": 21}
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md item {item}")
+
+
+def _empty_regions(V: int, cap: int) -> dict:
+    """Padded host-stage region slabs of V views, ``cap`` rows each."""
+    return dict(xy=np.zeros((V, cap, 2), np.float32),
+                A=np.tile(np.eye(2, dtype=np.float32), (V, cap, 1, 1)),
+                s=np.zeros((V, cap), np.float32),
+                response=np.zeros((V, cap), np.float32),
+                mask=np.zeros((V, cap), bool))
+
+
+def _put_regions(out: dict, v: int, xy, A, s) -> int:
+    """The first rows of a keypoint file into view ``v`` of ``out``, up
+    to its cap, each with response 1; returns how many."""
+    n = min(len(xy), out["xy"].shape[1])
+    out["xy"][v, :n] = xy[:n]
+    out["A"][v, :n] = A[:n]
+    out["s"][v, :n] = s[:n]
+    out["response"][v, :n] = 1.0
+    out["mask"][v, :n] = True
+    return n
 
 
 class _HostLog:
@@ -140,10 +166,19 @@ class MserParams:
 
 @dataclass(frozen=True)
 class ExternalCmdParams:
-    """The JAX package's external-process detector/descriptor section
-    ([ExternalDetector], imagerepresentation.cpp:747-1026 and
-    bicedescriptor.hpp); parsed and carried, its detector not ported
-    yet (ROADMAP.md item 21)."""
+    """Generic external-process detector/descriptor ([ExternalDetector];
+    the reference's external-binary branches,
+    imagerepresentation.cpp:747-1026, and the BICE descriptor,
+    descriptors/bicedescriptor.hpp, dispatched at
+    imagerepresentation.cpp:1610).  ``command`` is a shell template with
+    {img} and {out}, run on each rendered view (a PNG in, a keypoint file
+    out, parsed as Oxford ellipses or ``kp`` x/y/scale rows); the regions
+    are described on the device like any host-stage detector's.
+
+    ``desc_command`` is the descriptor counterpart, listed as descriptor
+    "External" in a rung of detector "External": a template with {img},
+    {pts} (``x y s`` rows of the view's keypoints) and {out}, which must
+    write one row ``x y v0 .. v{desc_dim-1}`` a point, in order."""
     command: str = ""
     format: str = "oxford"       # "oxford" | "kp"
     cap: int = 512               # padded keypoint rows per view
@@ -423,7 +458,10 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
     share patches and histograms and differ only in folding and
     normalization (siftdesc.cpp operator()); the patch functors and
     Pixels read the same patches, and each CNN spec samples its own
-    (CaffeDescParam.patchSize, P = 32 by default)."""
+    (CaffeDescParam.patchSize, P = 32 by default).  An ``external`` spec
+    takes the rows of ``ext_desc``, the (P*V, K, dim) host slab that the
+    External detector's command wrote, through the same compaction as the
+    region geometry, unchanged."""
     specs = tuple(get_spec(s) for s in specs)
     M = caps.max_angles
     P = pairs or 1
@@ -432,7 +470,7 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
     L = DESC_MIP_LEVELS
 
     def fam_key(sp):
-        if sp.kind == "binary":
+        if sp.kind in ("binary", "external"):
             # detected frames used directly, no dominant orientation
             return "none"
         return "half" if sp.half_sift_like else "sift"
@@ -440,7 +478,7 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
     families = sorted({fam_key(sp) for sp in specs})
 
     def program(views, valid_hw, regs_xy, regs_A, regs_s, regs_resp,
-                regs_mask, hinv, stores):
+                regs_mask, hinv, stores, ext_desc=None):
         dev = views.device
         mips_v, mip_hw = mip_stack(views, L)          # (P*V, L, Hp, Wp)
         Hp, Wp = mips_v.shape[-2:]
@@ -493,8 +531,9 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
 
         half = torch.ceil(K_SIGMA * s1 / 2.0)
 
-        def stage2(fam):
-            """-> compacted descriptor-stage rows for one family."""
+        def stage2(fam, extra=None):
+            """-> compacted descriptor-stage rows for one family, and the
+            rows of ``extra`` (P*C1, ...) through the same compaction."""
             if fam == "none":
                 # detected regions used directly
                 # (imagerepresentation.cpp:1299-1302), compacted to the
@@ -510,7 +549,8 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
                                       idx2, ok2).reshape(a.shape)
                 return (takeN(xy1), takeN(A1), takeN(s1), takeN(r1),
                         takeN(vidx), takeN(xy_r1), takeN(A_r),
-                        ok2.sum(-1))
+                        ok2.sum(-1), None if extra is None
+                        else extra[(idx2 + first * C1).reshape(-1)])
             angles, pmask = find_peaks(
                 hist_o, M, dom_ori.threshold,
                 half_sift=(fam == "half" or dom_ori.half_sift_mode))
@@ -539,13 +579,24 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
                                   ok2).reshape((P * C2,) + a.shape[2:])
 
             return (xy1[row], takeA(Arot), s1[row], r1[row], vidx[row],
-                    xy_r1[row], takeA(A_rf), ok2.sum(-1))
+                    xy_r1[row], takeA(A_rf), ok2.sum(-1),
+                    None if extra is None else extra[row])
 
         out = {}
         base = SIFTDescriptorParams()  # raw histogram params
         for fam in families:
             fam_specs = [sp for sp in specs if fam_key(sp) == fam]
-            xyv, Av, sv, rv, vi, xy_r, A_r, n2 = stage2(fam)
+            ext = None
+            if any(sp.kind == "external" for sp in fam_specs):
+                if ext_desc is None:
+                    raise ValueError(
+                        "descriptor 'External' needs detector 'External' "
+                        "with [ExternalDetector] descCommand set")
+                # host rows (BICE semantics: one descriptor a detected
+                # region, no re-orientation) ride through the same
+                # compaction chain as the region geometry
+                ext = take1(ext_desc)
+            xyv, Av, sv, rv, vi, xy_r, A_r, n2, ext = stage2(fam, ext)
 
             def sample(t, size):
                 """(patches, mip level) of the family's rows at scale t."""
@@ -561,6 +612,10 @@ def _make_desc_fn(V: int, hc: int, wc: int, h0: int, w0: int, K: int,
                 return aa_filter_patches(raw, lvl, t, photo_norm=pe_photo)
 
             res = {}
+            if ext is not None:
+                for sp in fam_specs:
+                    if sp.kind == "external":
+                        res[sp.name] = ext
             if any(sp.kind == "binary" for sp in fam_specs):
                 from mods_tpu_torch.detectors.orb import brief_from_patches
                 bits = brief_from_patches(sample(sv * 5.1962 / 31.0, 31)[0])
@@ -899,12 +954,9 @@ class TwoViewMatcher:
         self.device = resolve_device(device)
         self.cfg = EngineConfig() if cfg is None else cfg
         self.ladder = ladder if ladder is not None else [IterationParams()]
-        for rung in as_rungs(self.ladder):
-            for it in rung.dets:
-                if it.detector in _DETECTOR_ITEM:
-                    raise _not_ported(f"host-stage detector {it.detector!r}",
-                                      _DETECTOR_ITEM[it.detector])
         self._seed = seed
+        # keypoint files of the ReadAffs detector, one an image
+        self.affs_paths: tuple = (None, None)
         # per-(rung, image-size) geometry cache (see _prep_groups)
         self._prep_cache: dict = {}
         # sync_timing=True waits for the device at phase boundaries so
@@ -1004,12 +1056,15 @@ class TwoViewMatcher:
         specs = self._specs(it)
         pe = cfg.sift.patch_extraction
         device_det = self._device_det(it.detector)
-        # host-stage detectors hand the describe stage K = host_cap rows
-        # a view (_fused_hostdet_program of the JAX package)
+        # host-stage detectors hand the describe stage their own rows a
+        # view (host_k of the JAX package's _prep_groups)
         if device_det:
             detect, K = _make_detect_fn(it.detector, cfg), cfg.caps.per_view
         else:
-            detect, K = None, cfg.mser.host_cap
+            detect = None
+            K = {"MSER": cfg.mser.host_cap,
+                 "External": cfg.external.cap}.get(it.detector,
+                                                   cfg.caps.per_view)
         preps = []
         for groups in zip(*grouped):
             p0 = groups[0][0]
@@ -1060,24 +1115,50 @@ class TwoViewMatcher:
 
     def _host_stage_regions(self, det: str, g_host: np.ndarray, group,
                             rot_inv: np.ndarray, hr: int, wr: int, hc: int,
-                            wc: int, log: TimeLog) -> dict:
-        """Host-stage detection (MSER): the group's views rendered by
-        ``native/render.cpp``, never read back from the card, and the
-        regions returned as padded numpy (V, K, ...) arrays in view
-        coordinates.  Runs on the prefetch pool's threads: numpy and
-        native code only, nothing of torch."""
-        if det != "MSER":
-            raise _not_ported(f"host-stage detector {det!r}",
-                              _DETECTOR_ITEM[det])
+                            wc: int, log: TimeLog, img_idx=0) -> dict:
+        """Host-stage detection (MSER, ReadAffs, External): the regions as
+        padded numpy (V, K, ...) arrays in view coordinates, over views
+        that ``native/render.cpp`` renders on the host (never read back
+        from the card).  ReadAffs reads the keypoint file of image
+        ``img_idx`` (``affs_paths``) into the identity view; External runs
+        its command on each view and, with a descriptor command, adds the
+        (V, K, dim) rows it writes as ``ext_desc``.  MSER runs on the
+        prefetch pool's threads: numpy and native code only, nothing of
+        torch."""
         cfg = self.cfg
         V = len(group)
         p0 = group[0]
+        if det == "ReadAffs":
+            # keypoints ingested from a file as a "detector"
+            # (imagerepresentation.cpp:721-746); identity view only
+            path = (self.affs_paths[img_idx]
+                    if img_idx < len(self.affs_paths) else None)
+            if not path:
+                raise ValueError("ReadAffs detector needs "
+                                 "TwoViewMatcher.affs_paths set")
+            with log.phase("DetectTime"):
+                try:
+                    xy, A, s, _ = read_oxford(path)
+                except (ValueError, IndexError):
+                    xy, A, s = read_kps(path)
+            out = _empty_regions(V, cfg.caps.per_view)
+            iv = next((i for i, p in enumerate(group) if p.identity), 0)
+            _put_regions(out, iv, xy, A, s)
+            return out
         valid_hw = np.asarray([[p.h_new, p.w_new] for p in group], np.int32)
+        if det == "External" and not cfg.external.command:
+            raise ValueError("External detector needs [ExternalDetector] "
+                             "command set")
         with log.phase("SynthTime"):
             views_np = render_group_np(
                 g_host, rot_inv, hr, wr, p0.view.do_blur, p0.sigma_x,
                 p0.sigma_y, p0.tilt_scale[0], p0.tilt_scale[1], valid_hw,
                 hc, wc, p0.identity)
+        if det == "External":
+            with log.phase("DetectTime"):
+                return self._external_regions(views_np, valid_hw)
+        if det != "MSER":
+            raise KeyError(f"unknown host-stage detector {det!r}")
         caps = replace(cfg.caps, per_view=cfg.mser.host_cap)
         with log.phase("DetectTime"):
             # threaded across views: the native component tree releases
@@ -1093,12 +1174,59 @@ class TwoViewMatcher:
         stack.pop("sub_type")
         return stack
 
+    def _external_regions(self, views_np: np.ndarray,
+                          valid_hw: np.ndarray) -> dict:
+        """The External plugin (imagerepresentation.cpp:747-1026) on one
+        group's host-rendered views: each view's valid extent written as a
+        PNG, ``command`` run on it, its keypoint file read as Oxford
+        ellipses or ``kp`` rows; with ``desc_command``, the view's points
+        handed to it and its rows (bicedescriptor.hpp) read as
+        ``ext_desc``."""
+        ext = self.cfg.external
+        V = len(valid_hw)
+        out = _empty_regions(V, ext.cap)
+        if ext.desc_command:
+            out["ext_desc"] = np.zeros((V, ext.cap, ext.desc_dim), np.float32)
+        with tempfile.TemporaryDirectory() as td:
+            for v in range(V):
+                h_v, w_v = int(valid_hw[v, 0]), int(valid_hw[v, 1])
+                ip, op = f"{td}/v{v}.png", f"{td}/v{v}.keys"
+                write_png(ip, np.clip(views_np[v, :h_v, :w_v], 0,
+                                      255).astype(np.uint8))
+                subprocess.run(ext.command.format(img=ip, out=op),
+                               shell=True, check=True, timeout=600,
+                               capture_output=True)
+                if ext.format == "kp":
+                    xy, A, s = read_kps(op)
+                else:
+                    xy, A, s, _ = read_oxford(op)
+                n = _put_regions(out, v, xy, A, s)
+                if not (ext.desc_command and n):
+                    continue
+                pp, dp = f"{td}/v{v}.pts", f"{td}/v{v}.descs"
+                with open(pp, "w") as f:
+                    for i in range(n):
+                        f.write(f"{xy[i, 0]} {xy[i, 1]} {s[i]}\n")
+                subprocess.run(ext.desc_command.format(img=ip, pts=pp,
+                                                       out=dp),
+                               shell=True, check=True, timeout=600,
+                               capture_output=True)
+                rows = np.loadtxt(dp, dtype=np.float32, ndmin=2)
+                if rows.shape[1] != ext.desc_dim + 2:
+                    raise ValueError(
+                        f"external descriptor wrote {rows.shape[1] - 2} "
+                        f"dims, config says {ext.desc_dim}")
+                m = min(len(rows), n)
+                out["ext_desc"][v, :m] = rows[:m, 2:]
+        return out
+
     def _host_stage_group(self, det: str, imgs_np: np.ndarray, gp: dict,
-                          log) -> dict:
+                          log, img_idx=0) -> dict:
         """One view group's host-stage regions for each of the P images
         of ``imgs_np`` (P, h, w) -> (P, V, K, ...) numpy arrays.  Several
         images run on a pool of threads (numpy and native code, which
-        releases the GIL), as the JAX package's ``_host_stage_batch``."""
+        releases the GIL), as the JAX package's ``_host_stage_batch``.
+        ``img_idx`` picks ReadAffs's file (which a batch refuses)."""
         P = imgs_np.shape[0]
         V, Vb = gp["V"], gp["Vb"]
         rot = gp["rot_inv_np"].reshape(P, Vb, 2, 3)[:, :V]
@@ -1106,7 +1234,7 @@ class TwoViewMatcher:
         def one(p, lg=log):
             return self._host_stage_regions(
                 det, imgs_np[p], gp["groups"][p], rot[p], gp["hr"],
-                gp["wr"], gp["hc"], gp["wc"], lg)
+                gp["wr"], gp["hc"], gp["wc"], lg, img_idx)
 
         if P == 1:
             regs = [one(0)]
@@ -1143,7 +1271,9 @@ class TwoViewMatcher:
         prev_sim: dict = {}
         for step, rung in enumerate(rungs):
             for it in rung.dets:
-                if self._device_det(it.detector):
+                # ReadAffs reads a file and External runs its command
+                # inline, as in the JAX package
+                if self._device_det(it.detector) or it.detector != "MSER":
                     continue
                 for img_key, imgs_np, sizes in images:
                     h, w = imgs_np.shape[-2:]
@@ -1172,7 +1302,8 @@ class TwoViewMatcher:
         (P, h, w) on the device: the prefetched job's result (only the
         residual wait lands in ``DetectTime``) or the job run inline,
         padded with empty rows to the group's Vb view slots and uploaded
-        in one copy, (P*Vb, K, ...)."""
+        in one copy, (P*Vb, K, ...); then the External descriptor rows,
+        (P*Vb, K, dim) in a second copy, or None."""
         V, Vb = gp["V"], gp["Vb"]
         fut = self._host_futures.pop(key, None)
         if fut is not None:
@@ -1183,7 +1314,8 @@ class TwoViewMatcher:
             self.host_stage["job_s"] += job_s
         else:
             t0 = time.perf_counter()
-            regs = self._host_stage_group(it.detector, imgs_np, gp, log)
+            regs = self._host_stage_group(it.detector, imgs_np, gp, log,
+                                          key[2])
             self.host_stage["inline_s"] += time.perf_counter() - t0
         P, _, K = regs["xy"].shape[:3]
         # one (P, Vb, K, 9) float32 slab: xy, A, s, response, mask
@@ -1194,8 +1326,15 @@ class TwoViewMatcher:
         slab[:, :V, :, 7] = regs["response"]
         slab[:, :V, :, 8] = regs["mask"]
         t = torch.from_numpy(slab).to(self.device).reshape(P * Vb, K, 9)
+        ext = None
+        if "ext_desc" in regs:
+            # the command's float32 rows, carried bit for bit
+            ed = np.zeros((P, Vb) + regs["ext_desc"].shape[2:], np.float32)
+            ed[:, :V] = regs["ext_desc"]
+            ext = torch.from_numpy(ed).to(self.device).reshape(
+                (P * Vb,) + ed.shape[2:])
         return (t[..., 0:2], t[..., 2:6].reshape(P * Vb, K, 2, 2), t[..., 6],
-                t[..., 7], t[..., 8] > 0.5)
+                t[..., 7], t[..., 8] > 0.5), ext
 
     def _process_image(self, img: torch.Tensor, it: IterationParams,
                        prev_views: list, stores: dict, log: TimeLog,
@@ -1226,13 +1365,14 @@ class TwoViewMatcher:
                                        sp.dim, self.device) if sizes else
                     DeviceStore(cfg.caps.per_image, sp.dim, self.device))
             sts.append(st)
+        ext = None
         for gi, gp in enumerate(preps):
             if gp["detect"] is None:
                 if img_np is None:
                     img_np = img.cpu().numpy()
-                regs = self._host_regions(img_np.reshape((-1, h, w)), gp, it,
-                                          log, (step, it.detector, img_idx,
-                                                gi))
+                regs, ext = self._host_regions(
+                    img_np.reshape((-1, h, w)), gp, it, log,
+                    (step, it.detector, img_idx, gi))
             with log.phase("SynthTime"):
                 views = gp["render"](img, gp["rot_inv"], gp["squash_inv"],
                                      gp["sig_x"], gp["sig_y"],
@@ -1244,7 +1384,7 @@ class TwoViewMatcher:
                     regs = (r.xy, r.A, r.s, r.response, r.mask)
             with log.phase("DescTime"):
                 gp["describe"](views, gp["valid_hw"], *regs, gp["hinv"],
-                               sts)
+                               sts, ext)
         return new_prev
 
     # -- matching ----------------------------------------------------------

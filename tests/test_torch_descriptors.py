@@ -206,11 +206,6 @@ def test_spec_for_equals_jax(with_cfg):
     from mods_tpu.descriptors import registry as jr
     for name in jr.REGISTRY:
         ref = jr.spec_for(name, jcfg)
-        if name == "External":
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP\.md item 21\b"):
-                tr.spec_for(name, tcfg)
-            continue
         got = tr.spec_for(name, tcfg)
         assert tr.get_spec(name) == tr.REGISTRY[name]
         for f in ("name", "kind", "half_sift_like", "dim", "dsp_levels",
@@ -220,7 +215,7 @@ def test_spec_for_equals_jax(with_cfg):
         if got.sift is not None:
             assert dataclasses.asdict(got.sift) == dataclasses.asdict(
                 ref.sift)
-    assert set(tr.REGISTRY) == set(jr.REGISTRY) - {"External"}
+    assert set(tr.REGISTRY) == set(jr.REGISTRY)
     assert T.PATCH_DIMS == J.PATCH_DIMS
     assert set(T.PATCH_FNS) == set(J.PATCH_FNS)
 

@@ -377,15 +377,16 @@ def test_star_against_jax():
 
 def test_every_device_detector_dispatches():
     """``_make_detect_fn`` has a branch for every device detector of the
-    JAX package, device MSER included; only ReadAffs and External (item
-    21) are left."""
+    JAX package, device MSER included; ReadAffs and External are
+    host-stage detectors (``tests/test_torch_plugins.py``)."""
     cfg = tp.EngineConfig(mser=tp.MserParams(backend="device"))
     for det in tp.DEVICE_DETECTORS + ("MSER",):
         assert callable(tp._make_detect_fn(det, cfg))
-    assert set(tp._DETECTOR_ITEM) == {"ReadAffs", "External"}
+    assert tp.DEVICE_DETECTORS == jp.DEVICE_DETECTORS
     m = tp.TwoViewMatcher([tc.IterationParams(detector="MSER")], cfg,
                           device="cpu")
     assert m._device_det("MSER")
+    assert not any(m._device_det(d) for d in ("ReadAffs", "External"))
 
 
 def shifted_pair(h=160, w=192, seed=9):

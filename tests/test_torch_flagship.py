@@ -258,14 +258,14 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'mods_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'mods_tpu', 'PIL')]\n"
         "assert not bad, bad\n"
         "for n in ('surf', 'kaze', 'tilde', 'corners', 'mser_tpu'):\n"
         "    assert 'mods_tpu_torch.detectors.' + n in sys.modules, n\n"
         "for n in ('multi', 'manifest'):\n"
         "    assert 'mods_tpu_torch.parallel.' + n in sys.modules, n\n"
         "for n in ('descriptors.patch_descs', 'descriptors.cnn', "
-        "'io.oxford'):\n"
+        "'io.oxford', 'io.regions_io', 'viz', 'matching.densify'):\n"
         "    assert 'mods_tpu_torch.' + n in sys.modules, n\n"
         "from mods_tpu_torch import csrc\n"
         "from mods_tpu_torch.detectors import mser\n"

@@ -455,35 +455,10 @@ def test_ground_truth_modes_against_jax():
         assert abs(got.extras[k] - ref.extras[k]) <= 0.2 * ref.extras[k]
 
 
-def _cli(*argv):
-    from mods_tpu_torch import cli
-    return cli.main(list(argv) + ["--device", "cpu"])
-
-
 @pytest.mark.parametrize("what,item,make", [
-    ("External detector", 21, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(detector="External")], device="cpu")),
-    ("ReadAffs", 21, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(detector="ReadAffs")], device="cpu")),
-    ("match_multi command", 21, lambda: _cli("match_multi", "q.png",
-                                             "list.txt")),
-    ("extract command, michal format", 21, lambda: _cli(
-        "extract", "a.png", "a.keys", "0", "0", "michal")),
-    ("External descriptor in a ladder", 21, lambda: tp.TwoViewMatcher(
-        [tc.IterationParams(descriptors=("External",))],
-        device="cpu").match(np.zeros((64, 64)), np.zeros((64, 64)))),
     ("MultiMatcher over a mesh", 22, lambda: tm.MultiMatcher(
         mesh="pair", device="cpu")),
     ("monolith", 23, lambda: tp.TwoViewMatcher(monolith=True, device="cpu")),
-    ("extract command", 21, lambda: _cli("extract", "a.png", "a.keys")),
-    ("drawn output", 21, lambda: _cli("match", "a.png", "b.png", "x.png",
-                                      "0", "k1", "k2", "m.txt", "0")),
-    ("drawn output of image 2", 21, lambda: _cli(
-        "match", "a.png", "b.png", "0", "y.png", "k1", "k2", "m.txt", "0")),
-    ("External descriptor in a pair batch", 21, lambda: tm.PairBatchMatcher(
-        [tc.IterationParams(descriptors=("External",))],
-        device="cpu").match_batch([(np.zeros((64, 64)),) * 2])),
-    ("External", 21, lambda: tp.spec_for("External")),
 ])
 def test_unported_branches_name_their_roadmap_item(what, item, make):
     with pytest.raises(NotImplementedError,
