@@ -154,7 +154,17 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    on the card must equal the launches counted.  The kernels line adds
    phase 13's launches: the wrappers' and, where a graph is replayed,
    those it holds (``monolith.REPLAYED``); the launches that captures
-   recorded without running them stand apart.
+   recorded without running them stand apart;
+14. image files on the card machine, which has no PIL (ROADMAP C1):
+   (a) the JPEG fixtures of ``tests/data/image_io`` decoded on the host
+   by ``io/image.py`` (``csrc/jpeg_decode.cpp``), each array's SHA-256
+   held to PIL's (``JPEG_FIXTURE_SHA256``), the decode ms printed; (b)
+   zoom2x's PNGs written by ``save_image`` as .pgm, 16-bit .pgm, .ppm and
+   .bmp and read back equal; (c) ``cli match`` on zoom2x's pair as JPEGs
+   with the CVIU-shaped INI files, its launches held to the plan and its
+   figures to ``JAX_JPEG_REFERENCE`` by phase 6's rule; (d) that
+   command's drawings, named .ppm and .bmp, decoded to ``viz``'s
+   canvases.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -167,7 +177,8 @@ zoom2x, capturing each rung it reaches (``capture_all``).
 
 ``python3 chip_smoke.py --probe-batched-f TREE LABEL`` instead shows
 where 13c's ORSA batch spends its time with the port of the checkout at
-TREE (``probe_batched_f``).
+TREE, and where its witness parts from the pairs alone, round by round
+(``probe_batched_f``).
 
 ``python3 chip_smoke.py --seed-spread PAIR N [DET]`` instead measures how
 far a pair's stop rung on the CVIU-shaped ladder (or on DET's ladder of
@@ -179,6 +190,7 @@ and the spread of the card's verification of them over N seeds
 from __future__ import annotations
 
 import bisect
+import functools
 import json
 import os
 import re
@@ -1239,14 +1251,22 @@ def _corner_error(H, H_gt, w: int, h: int) -> float:
     return float(np.sqrt((d * d).sum(-1)).max())
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_gray(pair: str, i: int):
+    """Image ``i`` of a ``.parity_work`` pair as gray, decoded once a run
+    (the PNG reader's filters run in Python, about a quarter second an
+    image, and the phases load the same pairs again and again); callers
+    get a copy."""
+    from mods_tpu_torch.io.png import read_png_gray
+    return read_png_gray(PAIRS / f"{pair}_{i}.png")
+
+
 def _load_pair(pair: str):
     """A ``.parity_work`` pair on the card and its ground-truth H."""
     import numpy as np
     import torch
-    from mods_tpu_torch.io.png import read_png_gray
-    imgs = [torch.as_tensor(read_png_gray(PAIRS / f"{pair}_{i}.png"),
-                            dtype=torch.float32, device="cuda")
-            for i in (1, 2)]
+    imgs = [torch.as_tensor(_pair_gray(pair, i), dtype=torch.float32,
+                            device="cuda") for i in (1, 2)]
     return imgs[0], imgs[1], np.loadtxt(PAIRS / f"{pair}_H.txt")
 
 
@@ -1541,9 +1561,7 @@ def _ladder_matcher():
 
 def _load_pair_np(pair: str):
     import numpy as np
-    from mods_tpu_torch.io.png import read_png_gray
-    return (read_png_gray(PAIRS / f"{pair}_1.png"),
-            read_png_gray(PAIRS / f"{pair}_2.png"),
+    return (_pair_gray(pair, 1).copy(), _pair_gray(pair, 2).copy(),
             np.loadtxt(PAIRS / f"{pair}_H.txt"))
 
 
@@ -1737,11 +1755,13 @@ def _profile_ladder() -> None:
 # ``match`` command
 
 def _build_native() -> None:
-    """Phase 1, host side: the port's own builds of ``native/mser.cpp``
-    and ``native/render.cpp`` (g++, into ``mods_tpu_torch/_build/native``);
-    raises when g++ or OpenMP is missing."""
+    """Phase 1, host side: the port's own builds of ``native/mser.cpp``,
+    ``native/render.cpp`` and the JPEG decoder ``csrc/jpeg_decode.cpp``
+    (g++, into ``mods_tpu_torch/_build/native``); raises when g++ or
+    OpenMP is missing."""
     import os
     from mods_tpu_torch.detectors import mser
+    from mods_tpu_torch.io import image
     from mods_tpu_torch.ops import host_render
     out = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True, timeout=60)
@@ -1750,8 +1770,10 @@ def _build_native() -> None:
     t0 = time.perf_counter()
     mser._lib()
     host_render._lib()
-    print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp and "
-          f"native/render.cpp built into {mser.BUILD_DIR} in "
+    image._jpeg_lib()
+    print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
+          f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp "
+          f"built into {mser.BUILD_DIR} in "
           f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}, "
           f"OpenMP threads {host_render.omp_max_threads()}", flush=True)
 
@@ -3340,16 +3362,16 @@ def _drive_drawings(held, work: Path) -> None:
     and H or F over the images as loaded."""
     import numpy as np
     from mods_tpu_torch import viz
-    from mods_tpu_torch.io.png import read_png
+    from mods_tpu_torch.io.image import read_image
     from mods_tpu_torch.io.regions_io import read_h, read_matches
     pair = "tilt4"
     imgs = [str(PAIRS / f"{pair}_{i}.png") for i in (1, 2)]
-    loaded = [read_png(p) for p in imgs]
+    loaded = [read_image(p) for p in imgs]
     config, iters = str(work / "config.ini"), str(work / "iters.ini")
     line = re.compile(r"Matches: (\d+) \(tentatives (\d+), steps (\d+)\)")
     for ver in ("LORANSACH", "LORANSACF"):
-        o1, o2, m = (work / f"{n}_{ver}" for n in ("o1.png", "o2.png",
-                                                    "m.txt"))
+        o1, o2, m = (work / f"{n}_{ver}.{ext}" for n, ext in (
+            ("o1", "png"), ("o2", "png"), ("m", "txt")))
         matcher = _cli_matcher(config, iters, ver)
 
         def plan(out, matcher=matcher):
@@ -3372,7 +3394,7 @@ def _drive_drawings(held, work: Path) -> None:
                 if ver == "LORANSACF" else
                 viz.draw_matches_with_error(*loaded, xy1, xy2, model)]
         for i, (path, canvas) in enumerate(zip((o1, o2), want), 1):
-            got = read_png(path)
+            got = read_image(path)
             if got.shape != canvas.shape or not np.array_equal(got, canvas):
                 raise RuntimeError(f"cli match {ver}: out{i} is not the "
                                    f"drawing of its matches")
@@ -3400,14 +3422,14 @@ def _drive_extract(held, work: Path) -> None:
     text formats to their ``%.10g``)."""
     import numpy as np
     from mods_tpu_torch import cli
-    from mods_tpu_torch.io.png import png_size
+    from mods_tpu_torch.io.image import image_size
     from mods_tpu_torch.io.regions_io import load_regions, load_regions_michal
     config, iters = str(work / "config.ini"), str(work / "iters.ini")
     matcher = _cli_matcher(config, iters, "LORANSACH")
     inner = cli._extract_stores
     for pair in ("zoom2x_1", "tilt4_2"):
         img = str(PAIRS / f"{pair}.png")
-        w, h = png_size(img)
+        w, h = image_size(img)
         for fmt in ("mods", "michal", "michal-text"):
             out = work / f"extract_{pair}_{fmt}"
             kept = []
@@ -3717,14 +3739,12 @@ def _drive_clahe_densify(hes) -> None:
         raise RuntimeError(f"clahe / densify card vs CPU: {res}")
 
 
-def _drive_phase12(wrappers: dict) -> dict:
-    """Phase 12 (12a-12f).  Every counted run has every kernel's count set
-    to 0 just before and read just after, and its launches held to the
-    plan; the card-vs-CPU runs are not counted.  Returns each kernel's
-    launches over the counted runs."""
-    import tempfile
+def _held_runs(wrappers: dict, total: dict):
+    """``held(label, run, plan)``: ``run()`` with every kernel's count set
+    to 0 just before and read just after, the launches held to
+    ``plan(run's result)`` and added to ``total`` -> (the result, its
+    seconds, launches and peak memory)."""
     import torch
-    total = dict.fromkeys(wrappers, 0)
 
     def held(label: str, run, plan) -> tuple:
         torch.cuda.reset_peak_memory_stats()
@@ -3746,7 +3766,17 @@ def _drive_phase12(wrappers: dict) -> dict:
         return out, dict(s=dt, kernel_launches=launched,
                          planned_launches=planned,
                          peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return held
 
+
+def _drive_phase12(wrappers: dict) -> dict:
+    """Phase 12 (12a-12f).  Every counted run has every kernel's count set
+    to 0 just before and read just after, and its launches held to the
+    plan; the card-vs-CPU runs are not counted.  Returns each kernel's
+    launches over the counted runs."""
+    import tempfile
+    total = dict.fromkeys(wrappers, 0)
+    held = _held_runs(wrappers, total)
     with tempfile.TemporaryDirectory() as d:
         work = Path(d)
         (work / "config.ini").write_text(CVIU_CONFIG_INI)
@@ -4362,6 +4392,171 @@ def _drive_phase13(wrappers: dict, work: Path) -> tuple:
     return counts(), dict(monolith.REPLAYED), captured
 
 
+# ---------------------------------------------------------------------------
+# phase 14: image input and output (ROADMAP C1) on the card machine, which
+# has no PIL
+
+IMAGE_FIXTURES = ROOT / "tests" / "data" / "image_io"
+# PIL 12.1.0 (libjpeg-turbo) on each fixture: the shape and the SHA-256 of
+# np.asarray(Image.open(path)).tobytes()
+# (tests/test_torch_image_io.py::test_fixture_hashes_are_pils, which also
+# says how the fixtures were written)
+JPEG_FIXTURE_SHA256 = {
+    "zoom2x_1.jpg": ((1000, 598), "96fd69a746d1341967feddc0f09ffa24"
+                                  "9e29a311cbfd619f7fdad69a5cd4f732"),
+    "zoom2x_2.jpg": ((1000, 598), "3ad197890b46e0f88fa6373afea18831"
+                                  "11753f24b1bfb983e0525a2640eaefd0"),
+    "color_420_restart.jpg": ((211, 301, 3), "e32fe25ba3acdea72a57d8d3635"
+                                             "426ae3b923e6c81c7c03d5e8e3d"
+                                             "43e8070a85"),
+    "color_420_progressive.jpg": ((211, 301, 3), "e32fe25ba3acdea72a57d8d"
+                                                 "3635426ae3b923e6c81c7c0"
+                                                 "3d5e8e3d43e8070a85"),
+    "color_422.jpg": ((211, 301, 3), "e53381871331e13e203f74e1d82c836498e"
+                                     "b7f8c74d533469ab8521d4dac8cdb"),
+}
+# The JAX command (``mods_tpu.cli.cmd_match``, LORANSACH, this script's
+# CVIU-shaped INI files) on the JPEG zoom2x pair, on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_image_io.py --jax-jpeg``
+JAX_JPEG_REFERENCE = dict(steps=1, tentatives=117, matches=32,
+                          gt_consistent=32, corner_error_px=9.639)
+MATCH_LINE = re.compile(r"Matches: (\d+) \(tentatives (\d+), steps (\d+)\)")
+
+
+def match_figures(printed: str, matchings: str, H_gt, w: int,
+                  h: int) -> dict:
+    """A ``match`` command's figures, either package's: rungs, tentatives
+    and verified matches from its Matches line; the matches within 3 px
+    of the ground truth and the worst corner error of its H from its
+    files."""
+    import numpy as np
+    from mods_tpu_torch.io.regions_io import read_h, read_matches
+    n, tent, steps = map(int, MATCH_LINE.search(printed).groups())
+    xy1, xy2 = read_matches(matchings) if n else (np.zeros((0, 2)),) * 2
+    return dict(steps=steps, tentatives=tent, matches=n,
+                gt_consistent=_gt_consistent(H_gt, xy1, xy2),
+                corner_error_px=_corner_error(read_h(f"{matchings}.H"),
+                                              H_gt, w, h))
+
+
+def _decode_fixtures() -> list:
+    """14a: each JPEG fixture decoded on the host, its array's SHA-256
+    against PIL's, and the median decode ms of three."""
+    import hashlib
+    from mods_tpu_torch.io.image import read_image
+    out, failures = {}, []
+    for name, (shape, sha) in JPEG_FIXTURE_SHA256.items():
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a = read_image(IMAGE_FIXTURES / name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = hashlib.sha256(a.tobytes()).hexdigest()
+        equal = a.shape == tuple(shape) and got == sha
+        out[name] = dict(shape=list(a.shape), decode_ms=statistics.median(ms),
+                         sha256_equal_to_pil=equal)
+        if not equal:
+            failures.append(f"{name}: decoded {a.dtype} {a.shape} with "
+                            f"SHA-256 {got}; PIL's {shape} {sha}")
+    print(f"[14] a, JPEG decode on the host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def _round_trips(work: Path) -> list:
+    """14b: zoom2x's PNGs written by ``save_image`` as .pgm, 16-bit .pgm,
+    .ppm (a colour image made of them) and .bmp, each read back equal,
+    in the format PIL writes for that extension."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    out, failures = [], []
+    for i in (1, 2):
+        g = read_image(PAIRS / f"zoom2x_{i}.png")
+        rgb = np.stack([g, 255 - g, g // 2], -1)
+        wide = g.astype(np.uint16) * 257
+        for suffix, magic, arr, want in (
+                (".pgm", b"P5", g, g),
+                ("_16.pgm", b"P5", wide, wide.astype(np.int32)),
+                (".ppm", b"P6", rgb, rgb), (".bmp", b"BM", g, g)):
+            p = work / f"zoom2x_{i}{suffix}"
+            save_image(p, arr)
+            back = read_image(p)
+            ok = (p.read_bytes()[:2] == magic and back.dtype == want.dtype
+                  and np.array_equal(back, want))
+            out.append(dict(file=p.name, dtype=str(back.dtype),
+                            bytes=p.stat().st_size, equal=ok))
+            if not ok:
+                failures.append(f"{p.name}: read back {back.dtype} "
+                                f"{back.shape}, not the {arr.dtype} written")
+    print(f"[14] b, round trips: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def _match_jpeg_pair(held, work: Path) -> list:
+    """14c and 14d: ``cli match`` (LORANSACH, the CVIU-shaped INI files) on
+    the JPEG zoom2x pair, its launches held to the plan and its figures to
+    ``JAX_JPEG_REFERENCE`` by phase 6's rule, its drawn outputs named
+    ``.ppm`` and ``.bmp`` decoded to ``viz``'s canvases of the written
+    matches and H over the images as loaded."""
+    import numpy as np
+    from mods_tpu_torch import viz
+    from mods_tpu_torch.io.image import read_image
+    from mods_tpu_torch.io.regions_io import read_h, read_matches
+    config, iters = str(work / "config.ini"), str(work / "iters.ini")
+    (work / "config.ini").write_text(CVIU_CONFIG_INI)
+    (work / "iters.ini").write_text(cviu_iters_ini())
+    jpgs = [str(IMAGE_FIXTURES / f"zoom2x_{i}.jpg") for i in (1, 2)]
+    loaded = [read_image(p) for p in jpgs]
+    o1, o2, m = work / "o1.ppm", work / "o2.bmp", work / "m.txt"
+    matcher = _cli_matcher(config, iters, "LORANSACH")
+    (_, text), res = held("14c cli match on the JPEG pair", lambda: _run_cli(
+        ["match", *jpgs, str(o1), str(o2), "k1", "k2", str(m), "0",
+         "LORANSACH", config, iters]), lambda out: _planned_launches(
+            matcher, [a.shape[:2] for a in loaded],
+            int(MATCH_LINE.search(out[1]).group(3))))
+    matcher.close()
+    H_gt = np.loadtxt(PAIRS / "zoom2x_H.txt")
+    h, w = loaded[0].shape[:2]
+    res.update(match_figures(text, str(m), H_gt, w, h),
+               jax=JAX_JPEG_REFERENCE)
+    failures = []
+    failure = _rule_failure("zoom2x JPEG", res["steps"], res["matches"],
+                            res["gt_consistent"], res["corner_error_px"],
+                            JAX_JPEG_REFERENCE, 10)
+    if failure:
+        failures.append(failure)
+    n = res["matches"]
+    xy1, xy2 = read_matches(str(m)) if n else (np.zeros((0, 2)),) * 2
+    H = read_h(f"{m}.H")
+    for path, magic, want in (
+            (o1, b"P6", viz.draw_matches(*loaded, xy1, xy2)),
+            (o2, b"BM", viz.draw_matches_with_error(*loaded, xy1, xy2, H))):
+        got = read_image(path)
+        ok = path.read_bytes()[:2] == magic and got.shape == want.shape \
+            and np.array_equal(got, want)
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"{path.name} is not viz's drawing")
+    print(f"[14] c and d, cli match on the JPEG pair: {json.dumps(res)}",
+          flush=True)
+    return failures
+
+
+def _drive_phase14(wrappers: dict) -> dict:
+    """Phase 14 (14a-14d), on the card machine without PIL.  Raises with
+    every failure of its parts; returns each kernel's launches in 14c."""
+    import tempfile
+    t0 = time.perf_counter()
+    total = dict.fromkeys(wrappers, 0)
+    failures = _decode_fixtures()
+    with tempfile.TemporaryDirectory() as d:
+        failures += _round_trips(Path(d))
+        failures += _match_jpeg_pair(_held_runs(wrappers, total), Path(d))
+    print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
+    if failures:
+        raise RuntimeError(f"phase 14: {failures}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4538,6 +4733,13 @@ def main() -> int:
             raise RuntimeError(f"{name} was not launched on phase 13's "
                                "paths")
     clock("13")
+    phase14_launches = _drive_phase14(wrappers)
+    print(f"[14] kernel launches on the JPEG pair's command: "
+          f"{json.dumps(phase14_launches)}", flush=True)
+    if phase14_launches["window_sampler"] <= 0:
+        raise RuntimeError("window_sampler was not launched on phase 14's "
+                           "path")
+    clock("14")
 
     kernels = []
     for name, replaces, checks in (
@@ -4765,12 +4967,19 @@ def probe_batched_f(tree: str, label: str) -> int:
     allocator retries.  With LABEL other than ``parent`` also: each
     rung's verified counts of the batch and of the serial matcher on the
     same pairs; the serial runs' rung-4 tentatives verified as one batch
-    and pair by pair from the same generator states (the witness); the
-    verified counts over 50 seeds of the serial runs' and the batch's
-    rung-4 tentatives, and whether those rows are equal; and the PyTorch
-    operations that rung 5 alone issues for the batch and for one pair,
-    each counted against the innermost function of the port that issued
-    it.  Needs the card."""
+    and pair by pair from the same generator states (the witness), and
+    the same verification traced round by round (``orsa_trace``): per
+    pair where the batch first parts from the pair alone
+    (``orsa_parting``), and the ops of the prologue, of round 0 and of
+    each pair's first round apart run again on the card on the batch's
+    inputs, on all rows and on the pair's row alone
+    (``orsa_ops_alone``); the verified counts over 50 seeds of the
+    serial runs' and the batch's rung-4 tentatives, and whether those
+    rows are equal; and the PyTorch operations that rung 5 alone issues
+    for the batch and for one pair, each counted against the innermost
+    function of the port that issued it.  LABEL ``rounds`` stops after
+    the round-by-round witness and runs no batch of the ladder.  Needs
+    the card."""
     import collections
 
     import numpy as np
@@ -4812,6 +5021,8 @@ def probe_batched_f(tree: str, label: str) -> int:
         bm.close()
 
     batch(ladder[:1], "LORANSACH", "warmup")
+    if label == "rounds":
+        b_calls = []
     if label == "parent":
         batch(ladder, "ORSA", "orsa_batch")
         return 0
@@ -4830,8 +5041,9 @@ def probe_batched_f(tree: str, label: str) -> int:
 
     pipeline._verify_core = record
     try:
-        batch(ladder, "ORSA", "orsa_batch")
-        b_calls = [c for c in calls if c["batched"]]
+        if label != "rounds":
+            batch(ladder, "ORSA", "orsa_batch")
+            b_calls = [c for c in calls if c["batched"]]
         cfg = EngineConfig(ver_type="ORSA")
         serial = TwoViewMatcher(ladder, cfg, device="cuda")
         s_calls = []
@@ -4865,6 +5077,30 @@ def probe_batched_f(tree: str, label: str) -> int:
         serial_run=[c["n_inl"] for c in r4],
         masks_equal=all(torch.equal(ob["inlier_mask"][i], p["inlier_mask"])
                         for i, p in enumerate(per))))
+
+    # the witness round by round (ROADMAP C2)
+    gb = gens_from([c["states"][0] for c in r4])
+    trace_b = orsa_rounds(orsa_trace(lambda: verify(
+        cfg, w, h, *stacked, gb))[1], gb)
+    trace_a = []
+    for c in r4:
+        g = gens_from(c["states"])
+        trace_a.append(orsa_rounds(orsa_trace(lambda: verify(
+            cfg, w, h, *c["rows"], g[0]))[1], g))
+    parting = orsa_parting(trace_b, trace_a)
+    for rec in parting["pairs"]:
+        emit(f"witness_rung4_rounds pair {rec['pair']}", rec)
+    # the ops of the prologue, of round 0 and of each pair's first round
+    # apart, on the same inputs in the batch and alone
+    looked = {(None, 0), (0, 0)} | {
+        (rec["first_state"]["round"], rec["pair"])
+        for rec in parting["pairs"] if rec["first_state"]}
+    for r, p in sorted(looked, key=lambda k: (k[0] is not None, k)):
+        emit(f"witness_rung4_ops_alone pair {p} round {r}",
+             orsa_ops_alone(trace_b, r, p, "cuda"))
+    del trace_a, trace_b
+    if label == "rounds":
+        return 0
 
     def over_seeds(rows):
         got = np.asarray([verify(cfg, w, h, *rows, [
@@ -4906,6 +5142,291 @@ def probe_batched_f(tree: str, label: str) -> int:
             torch.cuda.synchronize()
         emit(key, dict(ops=c.n, top=c.by.most_common(25)))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# ORSA round by round: a pair batch against each pair verified alone
+
+# what ``orsa_trace`` records: ``ransac/orsa.py``'s ops by their names
+# there, and the two steps of ``pipeline._verify_core`` around ORSA
+ORSA_OPS = ("_normalization", "_apply_T", "nonzero_static", "take_rows",
+            "_uniform_indices", "_solve_7pt", "_epiline_dist2",
+            "_log10_comb", "_best_nfa")
+VERIFY_OPS = ("duplicate_filter", "f_laf_check")
+
+
+def orsa_trace(run) -> tuple:
+    """``run()``'s result and the calls it made of ``ORSA_OPS`` and
+    ``VERIFY_OPS``, in order, each (name, inputs, outputs) with every
+    tensor copied to the host and each generator given by its ``id``."""
+    import torch
+    from mods_tpu_torch import pipeline
+    from mods_tpu_torch.ransac import orsa
+    calls = []
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, torch.Generator):
+            return id(x)
+        if isinstance(x, (list, tuple)):
+            return type(x)(host(v) for v in x)
+        return x
+
+    def wrap(name, fn):
+        def traced(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, host(args + tuple(kw.values())), host(out)))
+            return out
+        return traced
+
+    saved = [(m, n, getattr(m, n)) for m, names in
+             ((orsa, ORSA_OPS), (pipeline, VERIFY_OPS)) for n in names]
+    for m, n, fn in saved:
+        setattr(m, n, wrap(n, fn))
+    try:
+        out = run()
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    return out, calls
+
+
+def orsa_rounds(calls: list, gens: list) -> dict:
+    """One pair batch's trace (``orsa_trace``) cut into ORSA's rounds:
+    ``prologue`` (the duplicate filter, the normalizations, the valid
+    rows), ``rounds`` (each closed by its ``_best_nfa``), ``epilogue``;
+    each round's ``act``, the batch rows of the pairs it ran, from the
+    generators (``gens``, a pair's generator at its index) that its
+    ``_uniform_indices`` drew from."""
+    pair_of = {id(g): p for p, g in enumerate(gens)}
+    first = next(i for i, c in enumerate(calls)
+                 if c[0] == "_epiline_dist2")
+    rounds, cur = [], []
+    for c in calls[first:]:
+        cur.append(c)
+        if c[0] == "_best_nfa":
+            rounds.append(cur)
+            cur = []
+    acts = [[pair_of[g] for g in next(c[1][2] for c in r
+                                      if c[0] == "_uniform_indices")]
+            for r in rounds]
+    return dict(prologue=calls[:first], rounds=rounds, acts=acts,
+                epilogue=cur)
+
+
+def _row(x, i: int, n: int):
+    """Row ``i`` of a traced value whose leading axis has the ``n`` rows
+    of a call (every tensor of it; any other value whole)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x[i] if x.dim() and x.shape[0] == n else x
+    if isinstance(x, (list, tuple)):
+        return type(x)(_row(v, i, n) for v in x)
+    return x
+
+
+def _differ(a, b) -> dict | None:
+    """None where two traced values are bit-equal, else the largest
+    |difference| and the two values where it is (inf where shapes or
+    kinds differ)."""
+    import torch
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return dict(max_abs_diff=float("inf"))
+        if torch.equal(a, b):
+            return None
+        d = (a.double() - b.double()).abs().reshape(-1)
+        i = int(torch.argmax(d))
+        return dict(max_abs_diff=float(d[i]), at=i,
+                    batch=float(a.reshape(-1)[i]),
+                    alone=float(b.reshape(-1)[i]))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        ds = [d for d in map(_differ, a, b) if d is not None]
+        if len(a) != len(b):
+            return dict(max_abs_diff=float("inf"))
+        return max(ds, key=lambda d: d["max_abs_diff"]) if ds else None
+    if isinstance(a, int) and isinstance(b, int):
+        return None          # generator ids: the pairing is by round
+    return None if a == b else dict(max_abs_diff=float("inf"))
+
+
+def _round_best(r: list) -> tuple:
+    """The round's best NFA, its model and its hypothesis per row, as
+    ``hyp_round`` chooses them: the least ``_best_nfa`` over the
+    hypotheses whose roots are valid and whose 7 samples are distinct."""
+    import torch
+    idx = next(c[2] for c in r if c[0] == "take_rows" and
+               c[2].dtype == torch.int64)
+    _, rvalid = next(c[2] for c in r if c[0] == "_solve_7pt")
+    F = [c for c in r if c[0] == "_epiline_dist2"][-1][1][0]
+    nfa = next(c[2][0] for c in r if c[0] == "_best_nfa")
+    eye = torch.eye(7, dtype=torch.bool)
+    distinct = ~((idx[..., :, None] == idx[..., None, :]) & ~eye).any(
+        (-2, -1))
+    ok = (rvalid & distinct[..., None]).reshape(nfa.shape)
+    nfa = torch.where(ok, nfa, 1e30)
+    i = torch.argmin(nfa, -1)
+    rows = torch.arange(len(i))
+    return nfa[rows, i], F[rows, i], i
+
+
+def _calls_apart(cb: list, ca: list, i: int, n: int) -> list:
+    """The calls of one part of two traces (a batch's row ``i`` of ``n``,
+    a pair's row 0 of 1) whose outputs differ: call number, op, the
+    inputs' and the outputs' largest difference and its values."""
+    out = []
+    for k, (x, y) in enumerate(zip(cb, ca)):
+        if x[0] != y[0]:
+            out.append(dict(call=k, op=f"{x[0]} / {y[0]}"))
+            break
+        d_out = _differ(_row(x[2], i, n), _row(y[2], 0, 1))
+        if d_out is not None:
+            out.append(dict(call=k, op=x[0],
+                            inputs=_differ(_row(x[1], i, n),
+                                           _row(y[1], 0, 1)),
+                            outputs=d_out))
+    return out
+
+
+def orsa_parting(batch: dict, alone: list) -> dict:
+    """Where a pair batch's ORSA (``orsa_rounds`` of its trace) parts from
+    each pair's own run (``alone[p]``, P = 1).  Per pair: the rounds each
+    ran; ``first_op``, the first traced call, in order, whose outputs
+    differ, with its inputs' difference (None: equal inputs, so that op
+    itself computes the pair's row otherwise in the batch than alone);
+    ``first_state``, the first round after which the best log10 NFA or
+    model (``bnfa``, ``bF``) differ, with both values, that round's own
+    best hypothesis and NFA in both runs, and every call of the round and
+    of the one before it whose outputs differ; ``first_draw``, the first
+    round whose drawn sample indices differ, and whether the pool it drew
+    from (``pool_n``) differed."""
+    P = len(alone)
+    out = []
+    for p in range(P):
+        a = alone[p]
+        rounds = [r for r in range(min(len(batch["rounds"]),
+                                       len(a["rounds"])))
+                  if p in batch["acts"][r]]
+        rec = dict(pair=p, rounds_batch=sum(p in act for act in
+                                            batch["acts"]),
+                   rounds_alone=len(a["rounds"]), first_op=None,
+                   first_state=None, first_draw=None)
+        parts = [("prologue", None, batch["prologue"], a["prologue"], p, P)]
+        parts += [("round", r, batch["rounds"][r], a["rounds"][r],
+                   batch["acts"][r].index(p), len(batch["acts"][r]))
+                  for r in rounds]
+        parts.append(("epilogue", None, batch["epilogue"], a["epilogue"], p,
+                      P))
+        for part, r, cb, ca, i, n in parts:
+            apart = _calls_apart(cb, ca, i, n)
+            if apart:
+                rec["first_op"] = dict(part=part, round=r, **apart[0])
+                break
+        bn = an = 1e30
+        bF = aF = None
+        for r in rounds:
+            i = batch["acts"][r].index(p)
+            nb, Fb, hb = _round_best(batch["rounds"][r])
+            na, Fa, ha = _round_best(a["rounds"][r])
+            if float(nb[i]) < bn:
+                bn, bF = float(nb[i]), Fb[i]
+            if float(na[0]) < an:
+                an, aF = float(na[0]), Fa[0]
+            if bn != an or (bF is not None and aF is not None
+                            and _differ(bF, aF) is not None):
+                n = len(batch["acts"][r])
+                rec["first_state"] = dict(
+                    round=r, bnfa_batch=bn, bnfa_alone=an,
+                    bF=_differ(bF, aF) if bF is not None and aF is not None
+                    else None,
+                    round_best_batch=[int(hb[i]), float(nb[i])],
+                    round_best_alone=[int(ha[0]), float(na[0])],
+                    calls_apart=_calls_apart(batch["rounds"][r],
+                                             a["rounds"][r], i, n),
+                    calls_apart_round_before=_calls_apart(
+                        batch["rounds"][r - 1], a["rounds"][r - 1],
+                        batch["acts"][r - 1].index(p),
+                        len(batch["acts"][r - 1])) if r else None)
+                break
+        for r in rounds:
+            i, n = batch["acts"][r].index(p), len(batch["acts"][r])
+            ub = next(c for c in batch["rounds"][r]
+                      if c[0] == "_uniform_indices")
+            ua = next(c for c in a["rounds"][r]
+                      if c[0] == "_uniform_indices")
+            if _differ(_row(ub[2], i, n), _row(ua[2], 0, 1)) is not None:
+                rec["first_draw"] = dict(
+                    round=r, pool_n=[int(_row(ub[1][1], i, n)),
+                                     int(_row(ua[1][1], 0, 1))])
+                break
+        out.append(rec)
+    return dict(pairs=out)
+
+
+def orsa_ops_alone(trace: dict, r, p: int, device: str) -> dict:
+    """The ops of round ``r`` of a batch's ORSA (``orsa_rounds``; None:
+    its prologue) run again on ``device`` on the recorded inputs, on all
+    the rows and on pair ``p``'s row alone: per call (``op#k``, the k-th
+    call of that op in the part) the largest difference of that row
+    between the two (None: bit-equal).  Beside them, in a round,
+    ``_log10_comb``'s ``lgamma`` and ``hyp_round``'s model product
+    ``T2^T Fn T1`` (``model_product``, from the prologue's normalizations
+    and the round's solutions; ``model_product_recorded`` holds the
+    batch's own product against a recomputation on all rows)."""
+    import torch
+    from mods_tpu_torch.ransac import orsa
+    if r is None:
+        calls, act = trace["prologue"], list(range(
+            trace["prologue"][1][2].shape[0]))
+    else:
+        calls, act = trace["rounds"][r], trace["acts"][r]
+    i, n = act.index(p), len(act)
+
+    def on(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        if isinstance(x, (list, tuple)):
+            return type(x)(on(v) for v in x)
+        return x
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        return type(x)(host(v) for v in x)
+
+    got, seen = {}, {}
+    for name, args, _ in calls:
+        if name not in ("_normalization", "_solve_7pt", "_epiline_dist2",
+                        "_best_nfa", "_log10_comb"):
+            continue
+        k = seen[name] = seen.get(name, -1) + 1
+        fn = getattr(orsa, name)
+        whole = host(fn(*on(args)))
+        one = host(fn(*on(_row(args, i, n))))
+        got[f"{name}#{k}"] = _differ(_row(whole, i, n), one)
+        if name == "_log10_comb" and k == 0:
+            g = torch.lgamma(on(args[0]) + 1.0).cpu()
+            g1 = torch.lgamma(on(_row(args[0], i, n)) + 1.0).cpu()
+            got["lgamma"] = _differ(_row(g, i, n), g1)
+    if r is None:
+        return got
+    T1, T2 = [c[2] for c in trace["prologue"]
+              if c[0] == "_normalization"][:2]
+    a = torch.tensor(act)
+    Fn = next(c[2][0] for c in calls if c[0] == "_solve_7pt")
+
+    def product(t1, t2, fn):
+        t1, t2, fn = on(t1), on(t2), on(fn)
+        return (t2.transpose(-1, -2)[:, None, None] @ fn
+                @ t1[:, None, None]).reshape(len(fn), -1, 3, 3).cpu()
+
+    whole = product(T1[a], T2[a], Fn)
+    one = product(T1[a][i:i + 1], T2[a][i:i + 1], Fn[i:i + 1])
+    got["model_product"] = _differ(whole[i], one[0])
+    F = [c for c in calls if c[0] == "_epiline_dist2"][-1][1][0]
+    got["model_product_recorded"] = _differ(F, whole)
+    return got
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@ Usage, from the repository root:
 
 ``ver_type`` is LORANSACH (the default), LORANSACF, ORSA or GR_TRUTH
 (with ``gt_h_file``).  ``out1`` and ``out2`` (0 or none for no drawing)
-are PNG drawings of the matches: the correspondences, and the epipolar
-lines (LORANSACF, ORSA) or the reprojection errors under the H.  The
+are drawings of the matches, in the format their extension names (PNG,
+PNM or BMP): the correspondences, and the epipolar lines (LORANSACF,
+ORSA) or the reprojection errors under the H.  The
 exporters describe the image with every detector of the ladder's first
 iteration: ``extract`` writes one keypoint file of every store (or the
 Michal per-descriptor files), the others one file per (detector,
@@ -33,7 +34,8 @@ skip the images already done; launched by ``torchrun`` on several
 processes (``WORLD_SIZE`` > 1), it shards the gallery over them and rank
 0 alone writes.  Each command runs on the card; ``--device cpu`` runs
 the plain versions on the CPU instead (the tests' mode).  Images are
-8-bit PNGs.
+read as the JAX commands read them with PIL (``io/image.py``): PNG,
+JPEG (baseline and progressive), PNM and BMP.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from mods_tpu_torch import viz
 from mods_tpu_torch.config import IterationParams, as_rungs, replace
 from mods_tpu_torch.io import ini as ini_mod
 from mods_tpu_torch.io.oxford import write_descriptors_benchmark, write_oxford
-from mods_tpu_torch.io.png import png_size, read_png
+from mods_tpu_torch.io.image import image_size, read_image
 from mods_tpu_torch.io.regions_io import (RegionSet, save_regions,
                                           save_regions_michal, write_h,
                                           write_matches)
@@ -117,7 +119,7 @@ def cmd_match(argv: list[str], device: str = "cuda") -> int:
                              device=device)
     # the images as loaded: the drawings are made on them, the matcher
     # converts them to gray
-    img1, img2 = read_png(img1p), read_png(img2p)
+    img1, img2 = read_image(img1p), read_image(img2p)
     try:
         res = matcher.match(img1, img2, gt_h=gt_h)
     finally:
@@ -153,7 +155,7 @@ def _extract_stores(imgp: str, config, iters, device: str) -> dict:
     cfg, ladder = _build_engine(config, iters)
     matcher = TwoViewMatcher(ladder or [IterationParams()], cfg,
                              device=device)
-    g = to_gray_np(read_png(imgp))
+    g = to_gray_np(read_image(imgp))
     img = torch.as_tensor(g, device=matcher.device)
     stores: dict = {}
     log = TimeLog()
@@ -174,7 +176,7 @@ def cmd_extract(argv: list[str], device: str = "cuda") -> int:
     in the MODS hierarchical format, or with a trailing ``michal`` /
     ``michal-text`` the Michal per-descriptor files (SaveRegionsMichal,
     imagerepresentation.cpp:2049-2146), whose header takes the image size
-    from the PNG header."""
+    from the image's header."""
     imgp, outp = argv[0], argv[1]
     config = argv[2] if len(argv) > 2 else None
     iters = argv[3] if len(argv) > 3 else None
@@ -190,7 +192,7 @@ def cmd_extract(argv: list[str], device: str = "cuda") -> int:
         out.setdefault(det, {})[name] = rs
         flat[(det, name)] = rs
     if fmt.startswith("michal"):
-        w0, h0 = png_size(imgp)
+        w0, h0 = image_size(imgp)
         files = save_regions_michal(outp, flat, w0, h0,
                                     binary=(fmt == "michal"))
         print(f"Saved Michal files: {files}")
@@ -270,7 +272,7 @@ def cmd_match_multi(argv: list[str], device: str = "cuda") -> int:
     manifest_path = argv[6] if len(argv) > 6 else ""
     with open(list_file) as f:
         paths = [ln.strip() for ln in f if ln.strip()]
-    qimg = read_png(query)
+    qimg = read_image(query)
     mesh = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         dev_type = torch.device(device).type
@@ -290,7 +292,7 @@ def cmd_match_multi(argv: list[str], device: str = "cuda") -> int:
         if len(todo) < len(paths):
             say(f"manifest: {len(paths) - len(todo)}/{len(paths)} "
                 f"gallery images already done, resuming")
-    imgs = {p: read_png(p) for p in todo}
+    imgs = {p: read_image(p) for p in todo}
 
     results: dict = {}          # path -> (n, tents, steps, xy1, xy2)
     total_time = 0.0

@@ -40,11 +40,12 @@ MSER_MIN = 20
 
 def build_native(src_name: str, so_name: str,
                  extra_flags: tuple = ()) -> str:
-    """Compile ``native/<src_name>`` with g++ into the port's build
-    directory and return the library's path; rebuilt when the source is
-    newer.  The library is written under a temporary name and renamed, so
-    processes that build at once never load a half-written file.  A
-    failed build raises with the compiler's output."""
+    """Compile ``native/<src_name>`` (or the source at the absolute path
+    ``src_name``) with g++ into the port's build directory and return the
+    library's path; rebuilt when the source is newer.  The library is
+    written under a temporary name and renamed, so processes that build
+    at once never load a half-written file.  A failed build raises with
+    the compiler's output."""
     src = os.path.join(NATIVE_DIR, src_name)
     so = os.path.join(BUILD_DIR, so_name)
     if (os.path.exists(so)

@@ -7,7 +7,8 @@ overlays, ``DrawMatchesWithError`` error-colored lines), invoked from
 mods.cpp:480-527.  Host-side numpy: drawing is I/O, not compute.  The
 rasterisation is the JAX package's, call for call (float64 sampling,
 ``np.round``), so both packages draw the same pixels; ``save_image``
-writes with ``io/png.py`` (the card machine has no PIL).
+writes the format the file's extension names with ``io/image.py`` (the
+card machine has no PIL).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mods_tpu_torch.io.png import write_png
+from mods_tpu_torch.io import image as image_io
 from mods_tpu_torch.ransac.errors import h_transfer
 
 
@@ -165,4 +166,4 @@ def draw_epipolar(img1, img2, xy1, xy2, F: np.ndarray,
 
 
 def save_image(path: str, canvas: np.ndarray) -> None:
-    write_png(path, canvas)
+    image_io.save_image(path, canvas)

@@ -16,6 +16,10 @@ Tolerances.
   on the same side of ``min_matches`` and within max(6, 0.4 n); and
   against the port's own serial matcher, ``tests/test_torch_batch.py``'s
   bounds of the blurs' batch rounding.
+* ``chip_smoke.py``'s round-by-round witness of ORSA (``orsa_trace``,
+  ``orsa_rounds``, ``orsa_parting``, ``orsa_ops_alone``), which on the
+  card finds where a batch parts from its pairs alone: on the CPU
+  nothing parts, and a pair moved by 2e-3 px parts where it should.
 """
 
 import dataclasses
@@ -30,6 +34,8 @@ if REPO not in sys.path:
 
 import pytest  # noqa: E402
 import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
 
 from mods_tpu import config as jc  # noqa: E402
 from mods_tpu import pipeline as jp  # noqa: E402
@@ -101,6 +107,61 @@ def test_batched_orsa_f_equals_serial_calls():
         assert torch.equal(F[p], Fp) and torch.equal(inl[p], ip)
         assert int(n[p]) == int(np_) and float(nfa[p]) == float(nfp)
         assert float(nfa[p]) < pars.max_log_nfa
+
+
+def _orsa_traces(xy1, xy2, mask, nudge=None):
+    """``chip_smoke.orsa_trace`` of ``pipeline._verify_core``'s ORSA on a
+    pair batch (a generator a pair, all seeded 0) and on each pair alone
+    from the same seed, cut into rounds; ``nudge(p, xy2_p)`` changes a
+    pair's points in its run alone."""
+    P, N = mask.shape
+    cfg = tp.EngineConfig(ver_type="ORSA")
+    A = torch.eye(2).expand(P, N, 2, 2).contiguous()
+    s = torch.ones(P, N)
+    prio = torch.arange(N, dtype=torch.float32).expand(P, N).contiguous()
+    rows = [xy1, A, s, xy2, A, s, prio, mask]
+    gens = [torch.Generator().manual_seed(0) for _ in range(P)]
+    batch = chip_smoke.orsa_rounds(chip_smoke.orsa_trace(
+        lambda: tp._verify_core(cfg, 300, 300, *rows, gens))[1], gens)
+    alone = []
+    for p in range(P):
+        r = [x[p] for x in rows]
+        if nudge:
+            r[3] = nudge(p, r[3])
+        g = [torch.Generator().manual_seed(0)]
+        alone.append(chip_smoke.orsa_rounds(chip_smoke.orsa_trace(
+            lambda: tp._verify_core(cfg, 300, 300, *r, g[0]))[1], g))
+    return batch, alone
+
+
+def test_orsa_round_by_round_witness_batched_against_alone():
+    """``chip_smoke.py --probe-batched-f``'s round-by-round comparison on
+    the CPU, where a batch and each pair alone are bit-equal: nothing
+    parts, and every op of a round gives a pair's row alone as in the
+    batch.  A pair's points moved by 2e-3 px in its run alone part first
+    in the prologue's normalization, from unequal inputs, and its best
+    model then parts in round 0."""
+    xy1, xy2, mask = _two_views(seed=7)
+    batch, alone = _orsa_traces(xy1, xy2, mask)
+    assert [len(a["rounds"]) for a in alone] == [
+        sum(p in act for act in batch["acts"]) for p in range(3)]
+    for rec in chip_smoke.orsa_parting(batch, alone)["pairs"]:
+        assert rec["first_op"] is None and rec["first_state"] is None \
+            and rec["first_draw"] is None, rec
+    assert all(v is None for v in chip_smoke.orsa_ops_alone(
+        batch, 0, 1, "cpu").values())
+    assert all(v is None for v in chip_smoke.orsa_ops_alone(
+        batch, None, 2, "cpu").values())
+
+    def nudge(p, xy):
+        return xy + torch.tensor([2e-3, 0.0]) if p == 1 else xy
+    _, moved = _orsa_traces(xy1, xy2, mask, nudge)
+    recs = chip_smoke.orsa_parting(batch, moved)["pairs"]
+    assert recs[0]["first_op"] is None and recs[2]["first_op"] is None
+    first = recs[1]["first_op"]
+    assert first["part"] == "prologue" and first["op"] == "_normalization"
+    assert first["inputs"]["max_abs_diff"] > 0
+    assert recs[1]["first_state"]["round"] == 0
 
 
 # tests/test_torch_batch.py's pairs (a shift, two unrelated textures, the

@@ -296,8 +296,8 @@ def test_cli_runs_as_a_module(png_pair):
 
 @pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "I;16"])
 def test_read_png_gray_against_pil(tmp_path, mode):
-    """8-bit gray, RGB and RGBA read as the JAX command reads them (PIL,
-    then ``to_gray_np``); any other format raises."""
+    """8-bit gray, RGB and RGBA and 16-bit gray read as the JAX command
+    reads them (PIL, then ``to_gray_np``)."""
     from mods_tpu.ops.image import to_gray_np
     from mods_tpu_torch.io.png import read_png_gray
     rng = np.random.default_rng(0)
@@ -308,13 +308,13 @@ def test_read_png_gray_against_pil(tmp_path, mode):
     path = tmp_path / "x.png"
     if mode == "I;16":
         Image.fromarray(a.astype(np.uint16) * 200).save(path)
-        with pytest.raises(ValueError, match="8-bit"):
-            read_png_gray(path)
-        return
-    Image.fromarray(a, mode).save(path, optimize=True)
-    np.testing.assert_array_equal(
-        to_gray_np(read_png_gray(path)),
-        to_gray_np(np.asarray(Image.open(path))))
+    else:
+        Image.fromarray(a, mode).save(path, optimize=True)
+    got, want = read_png_gray(path), np.asarray(Image.open(path))
+    np.testing.assert_array_equal(to_gray_np(got), to_gray_np(want))
+    if want.ndim == 2:                       # a one-sample file as loaded
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("det", chip_smoke.OTHER_DETECTORS)

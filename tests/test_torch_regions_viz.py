@@ -259,10 +259,17 @@ def test_save_image_writes_a_drawing(tmp_path):
 
 
 def test_write_png_rejects_what_it_cannot_write(tmp_path):
+    """Float pixels and five samples a pixel raise; two samples a pixel
+    are gray+alpha, as PIL writes them."""
     with pytest.raises(ValueError, match="uint8"):
         write_png(tmp_path / "f.png", np.zeros((4, 4), np.float32))
     with pytest.raises(ValueError, match="pixels"):
-        write_png(tmp_path / "f.png", np.zeros((4, 4, 2), np.uint8))
+        write_png(tmp_path / "f.png", np.zeros((4, 4, 5), np.uint8))
+    la = np.random.default_rng(6).integers(0, 256, (4, 4, 2)).astype(np.uint8)
+    write_png(tmp_path / "f.png", la)
+    with Image.open(tmp_path / "f.png") as im:
+        assert im.mode == "LA"
+        np.testing.assert_array_equal(np.asarray(im), la)
 
 
 @pytest.mark.parametrize("kind", sorted(SHAPES))
