@@ -164,7 +164,22 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    with the CVIU-shaped INI files, its launches held to the plan and its
    figures to ``JAX_JPEG_REFERENCE`` by phase 6's rule; (d) that
    command's drawings, named .ppm and .bmp, decoded to ``viz``'s
-   canvases.
+   canvases; (e) the TIFF, GIF, PFM, RLE/16-bit BMP and CMYK JPEG
+   fixtures of ``tests/data/image_io``, each array's shape, mode and
+   SHA-256 held to PIL's (``FORMAT_FIXTURE_SHA256``), the decode ms
+   printed; (f) zoom2x_1 as L and an RGB canvas of zoom2x_1, zoom2x_2 and
+   tilt4_1 encoded by ``csrc/jpeg_encode.cpp``, the bytes' SHA-256 held
+   to PIL's file's (``JPEG_ENCODE_SHA256``), the encode ms printed; (g)
+   ``cli match`` on zoom2x's pair written as .tif by ``save_image`` (the
+   bytes held to PIL's, ``TIFF_PAIR_SHA256``), its drawings named .jpg:
+   its launches held to the plan, its figures to ``JAX_TIFF_REFERENCE``
+   by phase 6's rule, each drawing's bytes to the encoder's of ``viz``'s
+   canvas and its decode to the canvas within ``JPEG_DRAWING_BOUND``;
+   (h) the JAX package's last ported names on the card against their CPU
+   runs within ``ITEM24_BOUNDS``: ``affine_warp`` and ``render_group`` of
+   a tilt-4 group of zoom2x_1 at full size, ``extract_descriptor_patches``
+   of 1024 keypoints at P = 41, ``brief_descriptors``, ``double_image``
+   and ``pad_to``.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1756,7 +1771,8 @@ def _profile_ladder() -> None:
 
 def _build_native() -> None:
     """Phase 1, host side: the port's own builds of ``native/mser.cpp``,
-    ``native/render.cpp`` and the JPEG decoder ``csrc/jpeg_decode.cpp``
+    ``native/render.cpp``, the JPEG decoder ``csrc/jpeg_decode.cpp`` and
+    the JPEG encoder ``csrc/jpeg_encode.cpp``
     (g++, into ``mods_tpu_torch/_build/native``); raises when g++ or
     OpenMP is missing."""
     import os
@@ -1771,9 +1787,10 @@ def _build_native() -> None:
     mser._lib()
     host_render._lib()
     image._jpeg_lib()
+    image._jpeg_encoder()
     print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
-          f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp "
-          f"built into {mser.BUILD_DIR} in "
+          f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
+          f"jpeg_encode.cpp built into {mser.BUILD_DIR} in "
           f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}, "
           f"OpenMP threads {host_render.omp_max_threads()}", flush=True)
 
@@ -4420,6 +4437,66 @@ JPEG_FIXTURE_SHA256 = {
 # ``JAX_PLATFORMS=cpu python tests/test_torch_image_io.py --jax-jpeg``
 JAX_JPEG_REFERENCE = dict(steps=1, tentatives=117, matches=32,
                           gt_consistent=32, corner_error_px=9.639)
+# PIL 12.1.0 on the fixtures of tests/data/image_io that
+# tests/test_torch_image_formats.py::write_fixtures wrote: the shape, the
+# mode and the SHA-256 of np.asarray(Image.open(path)).tobytes()
+# (test_format_fixture_hashes_are_pils)
+FORMAT_FIXTURE_SHA256 = {
+    "lzw_predictor.tif": ((96, 128, 3), "RGB", "a8946fb56af681629f15b9af96"
+                          "49cfa8a3730f41c165315f366dfd6221eacb3d"),
+    "packbits_16bit.tif": ((48, 64), "I;16", "1512747d0b66ccbb76d4942c9560f"
+                           "9b9208e5d4f829eb46a23cb46e4d1cc70b8"),
+    "tiles_deflate.tif": ((96, 128, 3), "RGB", "a8946fb56af681629f15b9af96"
+                          "49cfa8a3730f41c165315f366dfd6221eacb3d"),
+    "planar2_rgb_mm.tif": ((48, 64, 3), "RGB", "76d463c2aa2c3cb8e398504399"
+                           "104a9888a6ab8f59e89d8ca4308438d12a505b"),
+    "float_mm.tif": ((48, 64), "F", "c7f88e5870323f66b6298d50a4c9b5d392dc8cd"
+                     "f9bf5d08634ab08d14a762932"),
+    "gray_interlaced.gif": ((96, 128), "L", "56d2651f2c6ecdc9c931cc08f5071e"
+                            "0578f6259374e329b8069b0948f396fd4b"),
+    "palette.gif": ((96, 128), "P", "5bac9ab8f04bd3e8b6d7c4f27fbde7bafafb68"
+                    "173b37e8050c9439284769accd"),
+    "float.pfm": ((48, 64), "F", "d22cc239f2a68d7ca27b2adeb2b455b5400246f88"
+                  "a310adde2dc6322b18586af"),
+    "rle8.bmp": ((96, 128), "P", "c498d149e4addefdb5fe894369a0ae18919b27b4b"
+                 "743a59e66a0c3073222d51e"),
+    "rle4.bmp": ((96, 128), "P", "2582d00c4a66d9f09bf803b320ffcaf21b0faefb9"
+                 "63ba44e753d06e76125e6e2"),
+    "rgb565.bmp": ((48, 64, 3), "RGB", "6829566b8ee3c3971e800a30d1db4776ed7"
+                   "aa56681aec1682ded2542c349ee66"),
+    "cmyk.jpg": ((96, 128, 4), "CMYK", "1865c5dad152bb2d7f2b75c94fc2abeda79"
+                 "de0c19621b187c885724e5097ef53"),
+}
+# SHA-256 of Image.fromarray(canvas).save(f, "JPEG") (PIL 12.1.0,
+# libjpeg-turbo 3.1.3) of 14f's canvases, and of Image.fromarray(view)
+# .save(f, "TIFF") of zoom2x's views (14g)
+JPEG_ENCODE_SHA256 = {
+    "zoom2x_1 L": "66543e2abbdfc03c41aebbaaac90cd731e864ed2d89f388437b204f3"
+                  "ee38ad1e",
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": "863b921f636dda580a11e6d1a1191488e64"
+                                       "767e005c58e81af0e355a9288fab2"}
+TIFF_PAIR_SHA256 = (
+    "c9b21dc28b612ee03582a7a440af2060ea5e982b5122a533b7a7af18fb3b19f0",
+    "db30ecf075d3ffa664280ed714d35b21eeca4b8f8819af368b5b30fb2e89a963")
+# The JAX command (``mods_tpu.cli.cmd_match``, LORANSACH, this script's
+# CVIU-shaped INI files) on 14g's TIFF pair, on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_image_formats.py --jax-tiff``
+JAX_TIFF_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                          gt_consistent=37, corner_error_px=4.040)
+# what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
+# views): at most this mean absolute error a channel, and at least this
+# PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
+# of zoom2x's pair loses 4.3 levels and keeps 25.9 dB:
+# tests/test_torch_image_formats.py::test_jpeg_drawing_loss)
+JPEG_DRAWING_BOUND = dict(mean_abs=8.0, psnr_db=22.0)
+# 14h: the largest |card - CPU| allowed on 0..255 values, and the share
+# of BRIEF bits allowed to differ (a sample point's coordinate rounds
+# otherwise on the card: an ulp of a 1000 px coordinate moves a bilinear
+# sample by up to 6e-5 x its gradient; a bit flips where its two values
+# tie within that)
+ITEM24_BOUNDS = dict(affine_warp=0.05, render_group=0.05,
+                     extract_descriptor_patches=0.05, brief_bits=0.005,
+                     double_image=0.0, pad_to=0.0)
 MATCH_LINE = re.compile(r"Matches: (\d+) \(tentatives (\d+), steps (\d+)\)")
 
 
@@ -4491,12 +4568,13 @@ def _round_trips(work: Path) -> list:
     return failures
 
 
-def _match_jpeg_pair(held, work: Path) -> list:
-    """14c and 14d: ``cli match`` (LORANSACH, the CVIU-shaped INI files) on
-    the JPEG zoom2x pair, its launches held to the plan and its figures to
-    ``JAX_JPEG_REFERENCE`` by phase 6's rule, its drawn outputs named
-    ``.ppm`` and ``.bmp`` decoded to ``viz``'s canvases of the written
-    matches and H over the images as loaded."""
+def _held_cli_match(held, work: Path, label: str, images: list,
+                    outputs: tuple, ref: dict) -> tuple:
+    """``cli match`` (LORANSACH, the CVIU-shaped INI files) on zoom2x's
+    pair read from ``images``, drawn to ``outputs``: its launches held to
+    the plan and its figures to ``ref`` by phase 6's rule -> (figures,
+    failures, [(output, ``viz``'s canvas of the written matches and H
+    over the images as loaded)])."""
     import numpy as np
     from mods_tpu_torch import viz
     from mods_tpu_torch.io.image import read_image
@@ -4504,32 +4582,41 @@ def _match_jpeg_pair(held, work: Path) -> list:
     config, iters = str(work / "config.ini"), str(work / "iters.ini")
     (work / "config.ini").write_text(CVIU_CONFIG_INI)
     (work / "iters.ini").write_text(cviu_iters_ini())
-    jpgs = [str(IMAGE_FIXTURES / f"zoom2x_{i}.jpg") for i in (1, 2)]
-    loaded = [read_image(p) for p in jpgs]
-    o1, o2, m = work / "o1.ppm", work / "o2.bmp", work / "m.txt"
+    loaded = [read_image(p) for p in images]
+    o1, o2 = outputs
+    m = work / "m.txt"
     matcher = _cli_matcher(config, iters, "LORANSACH")
-    (_, text), res = held("14c cli match on the JPEG pair", lambda: _run_cli(
-        ["match", *jpgs, str(o1), str(o2), "k1", "k2", str(m), "0",
-         "LORANSACH", config, iters]), lambda out: _planned_launches(
+    (_, text), res = held(f"cli match on the {label} pair", lambda: _run_cli(
+        ["match", *map(str, images), str(o1), str(o2), "k1", "k2", str(m),
+         "0", "LORANSACH", config, iters]), lambda out: _planned_launches(
             matcher, [a.shape[:2] for a in loaded],
             int(MATCH_LINE.search(out[1]).group(3))))
     matcher.close()
     H_gt = np.loadtxt(PAIRS / "zoom2x_H.txt")
     h, w = loaded[0].shape[:2]
-    res.update(match_figures(text, str(m), H_gt, w, h),
-               jax=JAX_JPEG_REFERENCE)
-    failures = []
-    failure = _rule_failure("zoom2x JPEG", res["steps"], res["matches"],
+    res.update(match_figures(text, str(m), H_gt, w, h), jax=ref)
+    failure = _rule_failure(label, res["steps"], res["matches"],
                             res["gt_consistent"], res["corner_error_px"],
-                            JAX_JPEG_REFERENCE, 10)
-    if failure:
-        failures.append(failure)
+                            ref, 10)
     n = res["matches"]
     xy1, xy2 = read_matches(str(m)) if n else (np.zeros((0, 2)),) * 2
     H = read_h(f"{m}.H")
-    for path, magic, want in (
-            (o1, b"P6", viz.draw_matches(*loaded, xy1, xy2)),
-            (o2, b"BM", viz.draw_matches_with_error(*loaded, xy1, xy2, H))):
+    return res, [failure] if failure else [], [
+        (o1, viz.draw_matches(*loaded, xy1, xy2)),
+        (o2, viz.draw_matches_with_error(*loaded, xy1, xy2, H))]
+
+
+def _match_jpeg_pair(held, work: Path) -> list:
+    """14c and 14d: ``cli match`` on the JPEG zoom2x pair against
+    ``JAX_JPEG_REFERENCE`` (``_held_cli_match``), its drawn outputs named
+    ``.ppm`` and ``.bmp`` decoded to ``viz``'s canvases."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x JPEG",
+        [IMAGE_FIXTURES / f"zoom2x_{i}.jpg" for i in (1, 2)],
+        (work / "o1.ppm", work / "o2.bmp"), JAX_JPEG_REFERENCE)
+    for (path, want), magic in zip(drawings, (b"P6", b"BM")):
         got = read_image(path)
         ok = path.read_bytes()[:2] == magic and got.shape == want.shape \
             and np.array_equal(got, want)
@@ -4541,16 +4628,184 @@ def _match_jpeg_pair(held, work: Path) -> list:
     return failures
 
 
+def _decode_format_fixtures() -> list:
+    """14e: each TIFF, GIF, PFM, BMP and CMYK JPEG fixture decoded on the
+    host, its array's shape, mode and SHA-256 against PIL's, and the
+    median decode ms of three."""
+    import hashlib
+    from mods_tpu_torch.io.image import _read
+    out, failures = {}, []
+    for name, (shape, mode, sha) in FORMAT_FIXTURE_SHA256.items():
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a, got_mode = _read(IMAGE_FIXTURES / name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = hashlib.sha256(a.tobytes()).hexdigest()
+        equal = a.shape == tuple(shape) and got_mode == mode and got == sha
+        out[name] = dict(shape=list(a.shape), mode=got_mode,
+                         decode_ms=statistics.median(ms),
+                         sha256_equal_to_pil=equal)
+        if not equal:
+            failures.append(f"{name}: decoded {a.dtype} {a.shape} {got_mode} "
+                            f"with SHA-256 {got}; PIL's {shape} {mode} {sha}")
+    print(f"[14] e, TIFF/GIF/PFM/BMP/CMYK decode on the host: "
+          f"{json.dumps(out)}", flush=True)
+    return failures
+
+
+def _encode_jpegs() -> list:
+    """14f: zoom2x_1 as L, and zoom2x_1, zoom2x_2 and tilt4_1 as the R,
+    G and B of one canvas, each encoded by ``csrc/jpeg_encode.cpp``: the
+    bytes' SHA-256 against PIL's file's, the median encode ms of three."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import _jpeg_bytes, _mode, read_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    canvases = {"zoom2x_1 L": views[0],
+                "zoom2x_1, zoom2x_2, tilt4_1 RGB": np.stack(views, -1)}
+    out, failures = {}, []
+    for name, canvas in canvases.items():
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            data = _jpeg_bytes(canvas, _mode(canvas))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        equal = hashlib.sha256(data).hexdigest() == JPEG_ENCODE_SHA256[name]
+        out[name] = dict(shape=list(canvas.shape), bytes=len(data),
+                         encode_ms=statistics.median(ms),
+                         sha256_equal_to_pil=equal)
+        if not equal:
+            failures.append(f"14f {name}: the JPEG's bytes are not PIL's")
+    print(f"[14] f, JPEG encode on the host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def _match_tiff_pair(held, work: Path) -> list:
+    """14g: zoom2x's pair written as .tif by ``save_image``, the bytes
+    against PIL's, then ``cli match`` on it against
+    ``JAX_TIFF_REFERENCE`` (``_held_cli_match``), its drawings named
+    .jpg: each file's bytes the encoder's of ``viz``'s canvas, its decode
+    that canvas within ``JPEG_DRAWING_BOUND``."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import _jpeg_bytes, read_image, save_image
+    failures, tifs = [], []
+    for i in (1, 2):
+        view = read_image(PAIRS / f"zoom2x_{i}.png")
+        tifs.append(work / f"zoom2x_{i}.tif")
+        save_image(tifs[-1], view)
+        if hashlib.sha256(tifs[-1].read_bytes()).hexdigest() != \
+                TIFF_PAIR_SHA256[i - 1] or not np.array_equal(
+                    read_image(tifs[-1]), view):
+            failures.append(f"14g {tifs[-1].name}: not PIL's bytes, or not "
+                            f"read back to the view")
+    res, fails, drawings = _held_cli_match(
+        held, work, "zoom2x TIFF", tifs, (work / "o1.jpg", work / "o2.jpg"),
+        JAX_TIFF_REFERENCE)
+    failures += fails
+    for path, want in drawings:
+        got = read_image(path)
+        d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+        mse = float((d ** 2).mean())
+        loss = dict(mean_abs=float(d.mean()), psnr_db=float(
+            10 * np.log10(255.0 ** 2 / max(mse, 1e-12))))
+        same = path.read_bytes() == _jpeg_bytes(want, "RGB")
+        ok = bool(same and got.shape == want.shape
+                  and loss["mean_abs"] <= JPEG_DRAWING_BOUND["mean_abs"]
+                  and loss["psnr_db"] >= JPEG_DRAWING_BOUND["psnr_db"])
+        res[path.name] = dict(loss, bytes_are_the_encoders=same,
+                              within_bound=ok)
+        if not ok:
+            failures.append(f"14g {path.name}: {res[path.name]}, bound "
+                            f"{JPEG_DRAWING_BOUND}")
+    print(f"[14] g, cli match on the TIFF pair, .jpg drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
+def _item24_card_vs_cpu() -> list:
+    """14h: the JAX package's last ported names on the card against their
+    CPU runs on the same inputs, within ``ITEM24_BOUNDS``."""
+    import math
+    import numpy as np
+    import torch
+    from mods_tpu_torch import config, synthesis
+    from mods_tpu_torch.descriptors.describe import \
+        extract_descriptor_patches
+    from mods_tpu_torch.detectors.orb import brief_descriptors
+    from mods_tpu_torch.io.image import read_image
+    from mods_tpu_torch.ops.image import double_image, pad_to
+    from mods_tpu_torch.ops.warp import affine_warp
+    img = read_image(PAIRS / "zoom2x_1.png").astype(np.float32)
+    h, w = img.shape
+    it = config.IterationParams(tilt_set=(4.0,), scale_set=(1.0,),
+                                phi_base=72.0, init_sigma=0.8)
+    views, _ = synthesis.expand_views(it, [])
+    group = synthesis.group_views([synthesis.plan_view(v, w, h)
+                                   for v in views])[0]
+    rng = np.random.default_rng(24)
+    k = 1024
+    xy = np.stack([rng.uniform(40, w - 40, k), rng.uniform(40, h - 40, k)],
+                  -1).astype(np.float32)
+    th = rng.uniform(-math.pi, math.pi, k)
+    A = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                  np.stack([np.sin(th), np.cos(th)], -1)],
+                 -2).astype(np.float32)
+    s = rng.uniform(1.0, 6.0, k).astype(np.float32)
+    c, sn = math.cos(0.6) * 0.9, math.sin(0.6) * 0.9
+    warp = np.array([[c, sn, 40.0], [-sn, c, 300.0]], np.float32)
+    mr = 3.0 * math.sqrt(3.0)
+    fns = {
+        "affine_warp": lambda t: affine_warp(t[0], t[1], 1100, 900),
+        "render_group": lambda t: synthesis.render_group(t[0], group)[0],
+        "extract_descriptor_patches": lambda t: extract_descriptor_patches(
+            t[0], t[2], t[3], t[4], mr, 41),
+        "brief_bits": lambda t: brief_descriptors(t[0], t[2], t[3], t[4]),
+        "double_image": lambda t: double_image(t[0]),
+        "pad_to": lambda t: pad_to(t[0], 1024, 640, 128.0)}
+    host = [torch.from_numpy(a) for a in (img, warp, xy, A, s)]
+    card = [a.cuda() for a in host]
+    out, failures = {}, []
+    for name, fn in fns.items():
+        want = fn(host).numpy()
+        t0 = time.perf_counter()
+        got = fn(card)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = got.cpu().numpy()
+        err = float((got != want).mean()) if name == "brief_bits" \
+            else float(np.abs(got - want).max())
+        ok = bool(got.shape == want.shape and err <= ITEM24_BOUNDS[name])
+        out[name] = dict(shape=list(got.shape), card_vs_cpu=err,
+                         bound=ITEM24_BOUNDS[name], card_ms=ms, ok=ok)
+        if not ok:
+            failures.append(f"14h {name}: card vs CPU {err} > "
+                            f"{ITEM24_BOUNDS[name]} or shape {got.shape} != "
+                            f"{want.shape}")
+    print(f"[14] h, item 24's functions, card vs CPU: {json.dumps(out)}",
+          flush=True)
+    return failures
+
+
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14d), on the card machine without PIL.  Raises with
-    every failure of its parts; returns each kernel's launches in 14c."""
+    """Phase 14 (14a-14h), on the card machine without PIL.  Raises with
+    every failure of its parts; returns each kernel's launches in 14c and
+    14g."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
+    held = _held_runs(wrappers, total)
     failures = _decode_fixtures()
     with tempfile.TemporaryDirectory() as d:
         failures += _round_trips(Path(d))
-        failures += _match_jpeg_pair(_held_runs(wrappers, total), Path(d))
+        failures += _match_jpeg_pair(held, Path(d))
+    failures += _decode_format_fixtures()
+    failures += _encode_jpegs()
+    with tempfile.TemporaryDirectory() as d:
+        failures += _match_tiff_pair(held, Path(d))
+    failures += _item24_card_vs_cpu()
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -4734,7 +4989,7 @@ def main() -> int:
                                "paths")
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
-    print(f"[14] kernel launches on the JPEG pair's command: "
+    print(f"[14] kernel launches on the JPEG and TIFF pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

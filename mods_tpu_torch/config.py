@@ -244,6 +244,14 @@ class PixelsParams:
 
 
 @dataclass(frozen=True)
+class DetectorParams:
+    """One scale-space detector slot = pyramid + affine shape params."""
+    pyramid: PyramidParams = field(default_factory=PyramidParams)
+    affine: AffineShapeParams = field(default_factory=AffineShapeParams)
+    do_baumberg: bool = True
+
+
+@dataclass(frozen=True)
 class MatchParams:
     """reference matching.hpp:97-146."""
     ratio_threshold: float = 0.8

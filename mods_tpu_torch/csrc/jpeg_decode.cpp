@@ -1,5 +1,5 @@
 // JPEG decoder for io/image.py::read_image: Huffman sequential (SOF0,
-// SOF1) and progressive (SOF2) files of 8-bit precision with 1 or 3
+// SOF1) and progressive (SOF2) files of 8-bit precision with 1, 3 or 4
 // components, bound with ctypes.
 //
 // It reproduces libjpeg-turbo's default decompression, the one PIL runs
@@ -13,18 +13,22 @@
 //     integral ratio (or a component 2 samples wide or less);
 //   - the fixed-point YCbCr -> RGB of jdcolor.c (ycc_rgb_convert, 16
 //     fraction bits), or no conversion where an Adobe marker (transform
-//     0) or the component ids 'R', 'G', 'B' say the file is RGB.
+//     0) or the component ids 'R', 'G', 'B' say the file is RGB;
+//   - 4 components as CMYK (an Adobe marker with transform 0, or none:
+//     jdapimin.c), each sample inverted as PIL's "CMYK;I" raw mode
+//     inverts the Adobe convention.
 // A progressive file is decoded as jdphuff.c decodes it (DC first and
 // refinement, AC first and refinement with end-of-band runs); its
 // coefficients are complete after the last scan, so libjpeg's block
 // smoothing, which only runs on incomplete coefficients, never applies.
 // Restart intervals (DRI, RSTn) are honoured.  Arithmetic coding,
-// lossless and hierarchical files, 12-bit precision, and 2 or 4
-// components (CMYK, YCCK) are refused with a message naming the case.
+// lossless and hierarchical files, 12-bit precision, 2 components and
+// YCCK (4 components, Adobe transform other than 0) are refused with a
+// message naming the case.
 //
 // Interface: mods_jpeg_info(data, n, info[4], err, errlen) fills width,
 // height, channels; mods_jpeg_decode(data, n, out, cap, err, errlen)
-// writes (height, width[, 3]) uint8 pixels.  Both return 0, or -1 with a
+// writes (height, width[, channels]) uint8 pixels.  Both return 0, or -1 with a
 // message in err.
 
 #include <algorithm>
@@ -84,7 +88,7 @@ class Decoder {
   uint16_t qt_[4][64] = {};
   bool qt_present_[4] = {};
   Huffman dc_[4], ac_[4];
-  Component comp_[3];
+  Component comp_[4];
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   bool sof_seen_ = false, progressive_ = false;
   bool jfif_ = false, adobe_ = false;
@@ -214,11 +218,9 @@ void Decoder::read_sof(int marker) {
   if (precision != 8)
     throw Error{"JPEG: " + std::to_string(precision) +
                 "-bit precision is not supported (8-bit only)"};
-  if (ncomp == 4)
-    throw Error{"JPEG: 4-component (CMYK/YCCK) files are not supported"};
-  if (ncomp != 1 && ncomp != 3)
+  if (ncomp != 1 && ncomp != 3 && ncomp != 4)
     throw Error{"JPEG: " + std::to_string(ncomp) +
-                " components are not supported (1 or 3)"};
+                " components are not supported (1, 3 or 4)"};
   if (len != 8 + 3 * ncomp) throw Error{"JPEG: bad frame header length"};
   if (width <= 0 || height <= 0)
     throw Error{"JPEG: zero image size (a DNL marker is not supported)"};
@@ -792,8 +794,11 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
 }
 
 void Decoder::output(uint8_t *out) {
-  std::vector<uint8_t> planes[3];
-  int widths[3];
+  if (ncomp == 4 && adobe_ && adobe_transform_ != 0)
+    throw Error{"JPEG: YCCK (4 components, Adobe transform " +
+                std::to_string(adobe_transform_) + ") is not supported"};
+  std::vector<uint8_t> planes[4];
+  int widths[4];
   for (int i = 0; i < ncomp; i++) {
     Component &c = comp_[i];
     std::vector<uint8_t> plane;
@@ -805,6 +810,17 @@ void Decoder::output(uint8_t *out) {
     for (int y = 0; y < height; y++)
       memcpy(out + static_cast<size_t>(y) * width,
              &planes[0][static_cast<size_t>(y) * widths[0]], width);
+    return;
+  }
+  if (ncomp == 4) {
+    for (int y = 0; y < height; y++) {
+      uint8_t *o = out + static_cast<size_t>(y) * width * 4;
+      for (int k = 0; k < 4; k++) {
+        const uint8_t *p = &planes[k][static_cast<size_t>(y) * widths[k]];
+        for (int x = 0; x < width; x++)
+          o[4 * x + k] = static_cast<uint8_t>(255 - p[x]);
+      }
+    }
     return;
   }
   bool rgb;  // jdapimin.c default_decompress_parms

@@ -34,8 +34,9 @@ from mods_tpu_torch.detectors.scale_space import harris_response
 from mods_tpu_torch.ops.gaussian import blur_band_matrix
 from mods_tpu_torch.ops.image import const
 from mods_tpu_torch.ops.select import top_k
-from mods_tpu_torch.ops.warp import (_bilinear_combine4, gather_4plane_level,
-                                     patch_grid, to_index)
+from mods_tpu_torch.ops.warp import (_bilinear_combine4, extract_patches,
+                                     gather_4plane_level, patch_grid,
+                                     to_index)
 from mods_tpu_torch.regions import Regions, compact_topk, concat_regions
 
 # FAST circle of radius 3 (dx, dy), standard Bresenham ring order
@@ -233,6 +234,17 @@ def detect_orb(imgs: torch.Tensor, valid_hw: torch.Tensor,
             mask=m))
     regs = concat_regions(level_out)
     return compact_topk(regs, caps.per_view, by="response")
+
+
+def brief_descriptors(img: torch.Tensor, xy: torch.Tensor, A: torch.Tensor,
+                      s: torch.Tensor, mr_size: float = 5.1962,
+                      n_bits: int = 256) -> torch.Tensor:
+    """rBRIEF bits as float 0/1 of (K,) regions on an (H, W) image: the
+    31 px pattern frame scaled to the region (s * mr_size / 31) and
+    turned by A, sampled through ``ops/warp.py::extract_patches``."""
+    scale = (s * mr_size / 31)[:, None, None]
+    return brief_from_patches(extract_patches(img, xy, A * scale, 31),
+                              n_bits)
 
 
 def brief_from_patches(p: torch.Tensor, n_bits: int = 256) -> torch.Tensor:

@@ -8,34 +8,52 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
 
 * ``read_image(path)``: the array of ``np.asarray(Image.open(path))``,
   the same dtype, shape and values, the format picked from the file's
-  magic bytes as PIL picks it:
+  magic bytes as PIL picks it (``_read`` also gives PIL's mode):
   - PNG, every colour type, bit depth and Adam7 (``io/png.py``);
   - PNM (PIL's PpmImagePlugin): P1/P4 as bool with a set bit (black)
     False; P2/P5 as uint8, rescaled as value / maxval * 255 rounded half
     to even where maxval is not 255, and as int32 (PIL's "I", rescaled
     to 65535) where maxval > 255; P3/P6 as (H, W, 3) uint8, rescaled to
-    255;
-  - BMP (PIL's BmpImagePlugin), uncompressed or with the 24- and 32-bit
+    255; PFM ("Pf") as float32 ("F"), rows bottom-up, little-endian
+    where the scale is negative;
+  - BMP (PIL's BmpImagePlugin), uncompressed, RLE8, RLE4 or with the
     bitfield masks PIL reads: 1-, 4- and 8-bit palettes as indices
     ("P"), as bool ("1") or gray ("L") where the palette is black and
-    white or the gray ramp; 24-bit and 32-bit (its fourth byte dropped
-    unless a mask names alpha);
-  - JPEG, baseline and progressive, by ``csrc/jpeg_decode.cpp``
+    white or the gray ramp; 16-bit 5-5-5 and 5-6-5 as RGB (each field
+    scaled by 255 / its maximum, truncated); 24-bit and 32-bit (its
+    fourth byte dropped unless a mask names alpha);
+  - JPEG, baseline and progressive, gray, YCbCr, RGB and CMYK (Adobe
+    transform 0, inverted as PIL inverts it), by ``csrc/jpeg_decode.cpp``
     (libjpeg-turbo's default decode, which PIL runs), built with g++ at
-    first use into ``mods_tpu_torch/_build/native/<machine>/``.
-  Anything else (TIFF, GIF, WebP, ...) raises a ``ValueError`` naming
-  the format, as do the JPEG and BMP variants the readers leave out.
+    first use into ``mods_tpu_torch/_build/native/<machine>/``;
+  - TIFF (PIL's TiffImagePlugin, libtiff for the compressed files), the
+    first page: byte orders II and MM, strips or tiles, planar
+    configuration 1 (or 2 with 8-bit or narrower samples: PIL misreads
+    wider ones), no compression, PackBits, LZW and Deflate,
+    horizontal predictor 2 (which libtiff undoes for LZW and Deflate
+    only); bilevel ("1"), gray ("L"), 16-bit gray
+    ("I;16", big-endian "I;16B" in an MM file), int16/int32 ("I"),
+    float32 ("F"), gray+alpha, RGB, RGBA and palette indices ("P");
+  - GIF (PIL's GifImagePlugin), the first frame: its palette indices
+    ("P"), or "L" where the frame's palette is the identity gray ramp
+    or missing; LZW, interlaced or not, global or local palette.
+  Anything else (WebP, ...) raises a ``ValueError`` naming the format,
+  as do the variants the readers leave out.
 * ``image_size(path)``: ``Image.open(path).size``, (width, height), from
   the header.
 * ``save_image(path, array)``: the format that the extension names, as
   ``Image.fromarray(array).save(path)`` writes it: ``.png`` (bool as
-  1-bit, uint8 gray, gray+alpha, RGB, RGBA, uint16 as 16-bit gray),
-  ``.pbm``/``.pgm``/``.ppm``/``.pnm`` (P4 for bool, P5 for uint8, P5
-  with maxval 65535 for uint16, P6 for RGB and RGBA), ``.bmp`` (bool,
-  gray, RGB, RGBA).  Every other extension (``.jpg``, ``.tif``, ...),
-  every array that PIL refuses to write in that format, and int32 or
-  float arrays (PIL's "I" and "F", which it writes clipped to 16 bits or
-  as PFM) raise a ``ValueError`` naming them.
+  1-bit, uint8 gray, gray+alpha, RGB, RGBA, uint16 as 16-bit gray, int32
+  clipped to 0..65535 as 16-bit gray); ``.pbm``/``.pgm``/``.ppm``/
+  ``.pnm``/``.pfm`` (P4 for bool, P5 for uint8, P5 with maxval 65535 for
+  uint16 and for int32 clipped to 0..65535, P6 for RGB and RGBA, PFM
+  "Pf" for float); ``.bmp`` (bool, gray, RGB, RGBA); ``.jpg``/``.jpeg``/
+  ``.jpe``/``.jfif`` (bool and gray as one component, RGB as 4:2:0 YCbCr,
+  quality 75, by ``csrc/jpeg_encode.cpp``, byte for byte PIL's);
+  ``.tif``/``.tiff`` (PIL's uncompressed file, byte for byte: bool, gray,
+  gray+alpha, RGB, RGBA, uint16, int32, float).  Every other extension
+  (``.gif``, ``.webp``, ...) and every array that PIL refuses to write
+  in that format raise a ``ValueError`` naming them.
 """
 
 from __future__ import annotations
@@ -43,6 +61,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -50,16 +70,15 @@ from mods_tpu_torch.io import png
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
+JPEG_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_encode.cpp")
 
 # magic bytes of formats that PIL opens and this module does not
-_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                  (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                  (b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
+_OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
                   (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
                   (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"qoif", "QOI"),
                   (b"DDS ", "DDS"), (b"icns", "ICNS"),
                   (b"\x0a", "PCX"), (b"#?RADIANCE", "HDR"),
-                  (b"Pf", "PFM"))
+                  (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"))
 
 
 def _format(head: bytes, path) -> str:
@@ -70,8 +89,12 @@ def _format(head: bytes, path) -> str:
     if head.startswith(b"BM"):
         return "BMP"
     if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5",
-                                          b"6"):
+                                          b"6", b"f"):
         return "PNM"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if head[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
     if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
         name = "WebP"
     else:
@@ -79,23 +102,48 @@ def _format(head: bytes, path) -> str:
                     None)
     if name:
         raise ValueError(f"{path}: {name} images are not supported (PNG, "
-                         f"JPEG, PNM and BMP are)")
+                         f"JPEG, PNM, PFM, BMP, TIFF and GIF are)")
     raise ValueError(f"{path}: not an image format this reader knows (PNG, "
-                     f"JPEG, PNM, BMP)")
+                     f"JPEG, PNM, PFM, BMP, TIFF, GIF)")
 
 
-def read_image(path) -> np.ndarray:
-    """``np.asarray(Image.open(path))`` (module docstring)."""
+def _array_mode(a: np.ndarray) -> str:
+    """PIL's mode of an array that a reader returns, where the array alone
+    tells it."""
+    if a.ndim == 3:
+        return {2: "LA", 3: "RGB", 4: "RGBA"}[a.shape[2]]
+    return {"b": "1", "u1": "L", "<u2": "I;16", ">u2": "I;16B",
+            "<i4": "I", "<f4": "F"}.get(
+        "b" if a.dtype == np.bool_ else a.dtype.str.lstrip("|="),
+        str(a.dtype))
+
+
+def _read(path) -> tuple[np.ndarray, str]:
+    """``np.asarray(Image.open(path))`` and ``Image.open(path).mode``."""
     with open(path, "rb") as f:
         data = f.read()
     fmt = _format(data[:16], path)
     if fmt == "PNG":
-        return png.read_png(path)
+        a = png.read_png(path)
+        palette = data[25:26] == b"\x03"           # IHDR colour type 3
+        return a, "P" if palette else _array_mode(a)
     if fmt == "JPEG":
-        return _read_jpeg(data, path)
+        a = _read_jpeg(data, path)
+        return a, "CMYK" if a.ndim == 3 and a.shape[2] == 4 \
+            else _array_mode(a)
     if fmt == "BMP":
         return _read_bmp(data, path)
-    return _read_pnm(data, path)
+    if fmt == "TIFF":
+        return _read_tiff(data, path)
+    if fmt == "GIF":
+        return _read_gif(data, path)
+    a = _read_pnm(data, path)
+    return a, _array_mode(a)
+
+
+def read_image(path) -> np.ndarray:
+    """``np.asarray(Image.open(path))`` (module docstring)."""
+    return _read(path)[0]
 
 
 def image_size(path) -> tuple[int, int]:
@@ -109,6 +157,13 @@ def image_size(path) -> tuple[int, int]:
         return _jpeg_size(path)
     if fmt == "BMP":
         return _bmp_header(data, path)["size"]
+    if fmt == "TIFF":
+        with open(path, "rb") as f:
+            tags = _tiff_ifd(f.read(), path)[1]
+        return tags[256][0], tags[257][0]
+    if fmt == "GIF":
+        with open(path, "rb") as f:
+            return _gif_frame(f.read(), path)["size"]
     return _pnm_header(data, path)["size"]
 
 
@@ -129,7 +184,7 @@ def _pnm_header(data: bytes, path) -> dict:
         if c in _PNM_SPACE:
             break
         magic += c
-    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"Pf"):
         raise ValueError(f"{path}: PNM variant {magic!r} is not supported")
 
     def token():
@@ -156,7 +211,12 @@ def _pnm_header(data: bytes, path) -> dict:
 
     w, h = int(token()), int(token())
     out = dict(magic=magic, size=(w, h))
-    if magic not in (b"P1", b"P4"):
+    if magic == b"Pf":
+        out["scale"] = float(token())
+        if out["scale"] == 0.0 or not np.isfinite(out["scale"]):
+            raise ValueError(f"{path}: PFM scale must be finite and "
+                             f"non-zero")
+    elif magic not in (b"P1", b"P4"):
         out["maxval"] = int(token())
         if not 0 < out["maxval"] < 65536:
             raise ValueError(f"{path}: PNM maxval must be 1..65535")
@@ -183,6 +243,12 @@ def _strip_comments(body: bytes) -> bytes:
 def _read_pnm(data: bytes, path) -> np.ndarray:
     hd = _pnm_header(data, path)
     magic, (w, h), body = hd["magic"], hd["size"], data[hd["offset"]:]
+    if magic == b"Pf":
+        if len(body) < 4 * w * h:
+            raise ValueError(f"{path}: PFM image data is truncated")
+        v = np.frombuffer(body[:4 * w * h], "<f4" if hd["scale"] < 0
+                          else ">f4").reshape(h, w)
+        return v[::-1].astype(np.float32)
     if magic == b"P4":
         stride = (w + 7) // 8
         if len(body) < stride * h:
@@ -240,6 +306,12 @@ _BMP_MASKS = {
     (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): (3, 1, 0, 2),    # BGAR
     (32, (0x0, 0x0, 0x0, 0x0)): (2, 1, 0, 3),                    # BGRA
     (24, (0xFF0000, 0xFF00, 0xFF)): (2, 1, 0),                   # BGR
+    (24, ()): (2, 1, 0),                                         # BGR
+    (32, ()): (2, 1, 0),                                         # BGRX
+    # 16-bit: (shift, field maximum) of R, G, B
+    (16, (0xF800, 0x7E0, 0x1F)): ((11, 31), (5, 63), (0, 31)),   # BGR;16
+    (16, (0x7C00, 0x3E0, 0x1F)): ((10, 31), (5, 31), (0, 31)),   # BGR;15
+    (16, ()): ((10, 31), (5, 31), (0, 31)),                      # BGR;15
 }
 
 
@@ -284,10 +356,57 @@ def _bmp_header(data: bytes, path) -> dict:
     return out
 
 
-def _read_bmp(data: bytes, path) -> np.ndarray:
+def _bmp_rle(data: bytes, at: int, w: int, h: int, rle4: bool) -> bytes:
+    """PIL's BmpRleDecoder: the indices of an RLE8 or RLE4 bitmap in file
+    row order, from the data at byte ``at`` of the file (its 16-bit
+    alignment of absolute runs is the file offset's, and its delta
+    escape skips two bytes before the two it reads)."""
+    out = bytearray()
+    x, pos, n = 0, at, w * h
+    while len(out) < n:
+        if pos + 2 > len(data):
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:                                   # encoded run
+            count = max(0, min(count, w - x))
+            if rle4:
+                out += bytes([byte >> 4, byte & 15]) * (count // 2) \
+                    + bytes([byte >> 4]) * (count % 2)
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:                             # end of line
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:                             # end of bitmap
+            break
+        elif byte == 2:                             # delta
+            if pos + 2 > len(data):
+                break
+            right, up = data[pos + 2], data[pos + 3]
+            pos += 4
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:                                       # absolute run
+            nbytes = byte // 2 if rle4 else byte
+            run = data[pos:pos + nbytes]
+            pos += len(run)
+            out += bytes(v for b in run for v in (b >> 4, b & 15)) \
+                if rle4 else run
+            if len(run) < nbytes:
+                break
+            x += byte
+            pos += pos % 2
+    if len(out) < n:
+        raise ValueError("not enough image data in the RLE-compressed BMP")
+    return bytes(out[:n])
+
+
+def _read_bmp(data: bytes, path) -> tuple[np.ndarray, str]:
     hd = _bmp_header(data, path)
     (w, h), bits, comp = hd["size"], hd["bits"], hd["comp"]
-    if bits not in (1, 4, 8, 24, 32):
+    if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"{path}: BMP pixel depth {bits} is not supported")
     layout = None
     if comp == 3:
@@ -297,18 +416,26 @@ def _read_bmp(data: bytes, path) -> np.ndarray:
             raise ValueError(f"{path}: BMP bitfields layout {bits}-bit "
                              f"{[hex(m) for m in masks]} is not supported")
     elif comp == 0:
-        layout = None if bits <= 8 else (2, 1, 0)
+        layout = None if bits <= 8 else _BMP_MASKS[(bits, ())]
     elif comp in (1, 2):
-        raise ValueError(f"{path}: RLE-compressed BMPs are not supported")
+        if bits != (8 if comp == 1 else 4):
+            raise ValueError(f"{path}: an RLE{8 if comp == 1 else 4} BMP "
+                             f"of {bits}-bit pixels is not supported")
     else:
         raise ValueError(f"{path}: BMP compression {comp} is not supported")
-    stride = ((w * bits + 31) >> 3) & ~3
-    at = hd["offset"]
-    if len(data) < at + stride * h:
-        raise ValueError(f"{path}: BMP image data is truncated")
-    rows = np.frombuffer(data[at:at + stride * h], np.uint8).reshape(h, stride)
-    if hd["bottom_up"]:
-        rows = rows[::-1]
+    if comp in (1, 2):
+        try:
+            idx = np.frombuffer(_bmp_rle(data, hd["offset"], w, h, comp == 2),
+                                np.uint8).reshape(h, w)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        at = hd["offset"]
+        if len(data) < at + stride * h:
+            raise ValueError(f"{path}: BMP image data is truncated")
+        rows = np.frombuffer(data[at:at + stride * h],
+                             np.uint8).reshape(h, stride)
     if bits <= 8:
         colors, pad = hd["colors"], hd["pad"]
         if not 0 < colors <= 65536:
@@ -318,22 +445,34 @@ def _read_bmp(data: bytes, path) -> np.ndarray:
         ramp = (0, 255) if colors == 2 else range(colors)
         gray = all(pal[i * pad:i * pad + 3] == bytes([v & 0xFF]) * 3
                    for i, v in enumerate(ramp))
-        per = 8 // bits
-        shifts = (8 - bits * (np.arange(per) + 1)).astype(np.uint8)
-        idx = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)) \
-            .reshape(h, -1)[:, :w].astype(np.uint8)
+        if comp not in (1, 2):
+            per = 8 // bits
+            shifts = (8 - bits * (np.arange(per) + 1)).astype(np.uint8)
+            idx = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)) \
+                .reshape(h, -1)[:, :w].astype(np.uint8)
+        if hd["bottom_up"]:
+            idx = idx[::-1]
         if gray and colors == 2:
             if bits != 1:
                 raise ValueError(f"{path}: a {bits}-bit BMP with a "
                                  f"black-and-white palette is not supported")
-            return idx != 0
+            return idx != 0, "1"
         if gray and bits != 8:
             raise ValueError(f"{path}: a {bits}-bit BMP with a gray-ramp "
                              f"palette is not supported")
-        return idx
+        return np.ascontiguousarray(idx), "L" if gray else "P"
+    if hd["bottom_up"]:
+        rows = rows[::-1]
+    if bits == 16:
+        # PIL's BGR;15 / BGR;16 unpackers: each field * 255 // its maximum
+        v = rows[:, :2 * w].reshape(h, w, 2).astype(np.uint32)
+        v = v[..., 0] | v[..., 1] << 8
+        out = np.stack([(v >> sh & m) * 255 // m for sh, m in layout], -1)
+        return out.astype(np.uint8), "RGB"
     step = bits // 8
     px = rows[:, :step * w].reshape(h, w, step)
-    return np.ascontiguousarray(px[..., list(layout)])
+    out = np.ascontiguousarray(px[..., list(layout)])
+    return out, "RGBA" if len(layout) == 4 else "RGB"
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +501,7 @@ def _read_jpeg(data: bytes, path) -> np.ndarray:
     if lib.mods_jpeg_info(data, len(data), info, err, len(err)):
         raise ValueError(f"{path}: {err.value.decode()}")
     w, h, c = info[0], info[1], info[2]
-    out = np.empty((h, w, 3) if c == 3 else (h, w), np.uint8)
+    out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
     if lib.mods_jpeg_decode(data, len(data), out.ctypes.data, out.size, err,
                             len(err)):
         raise ValueError(f"{path}: {err.value.decode()}")
@@ -391,15 +530,332 @@ def _jpeg_size(path) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# TIFF (PIL's TiffImagePlugin; libtiff decodes the compressed files)
+
+# field type -> struct code (rationals are read as two integers)
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B",
+               8: "h", 9: "i", 10: "i", 11: "f", 12: "d", 13: "I"}
+_TIFF_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3 fax",
+                      4: "CCITT Group 4 fax", 6: "old-style JPEG",
+                      7: "JPEG", 32809: "ThunderScan", 34661: "JBIG",
+                      34676: "SGI LogLuv", 34712: "JPEG 2000",
+                      34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
+# (photometric, sample format, bits per sample, extra samples) -> PIL's
+# mode, from TiffImagePlugin.OPEN_INFO (fill order 1)
+_TIFF_MODES = {
+    (0, (1,), (1,), ()): "1", (1, (1,), (1,), ()): "1",
+    (0, (1,), (8,), ()): "L", (1, (1,), (8,), ()): "L",
+    (1, (2,), (8,), ()): "L",
+    (1, (1,), (16,), ()): "I;16", (1, (2,), (16,), ()): "I",
+    (1, (2,), (32,), ()): "I",
+    (0, (3,), (32,), ()): "F", (1, (3,), (32,), ()): "F",
+    (1, (1,), (8, 8), (2,)): "LA",
+    (2, (1,), (8, 8, 8), ()): "RGB",
+    (2, (1,), (8, 8, 8, 8), ()): "RGBA",
+    (2, (1,), (8, 8, 8, 8), (0,)): "RGB",
+    (2, (1,), (8, 8, 8, 8), (2,)): "RGBA",
+    (2, (1,), (8, 8, 8, 8), (999,)): "RGBA",
+    (3, (1,), (1,), ()): "P", (3, (1,), (2,), ()): "P",
+    (3, (1,), (4,), ()): "P", (3, (1,), (8,), ()): "P",
+}
+
+
+def _tiff_ifd(data: bytes, path) -> tuple[str, dict]:
+    """The byte order and the first IFD's tags (tag -> tuple of values)."""
+    bo = "<" if data[:2] == b"II" else ">"
+    off = struct.unpack_from(bo + "I", data, 4)[0]
+    if off + 2 > len(data):
+        raise ValueError(f"{path}: TIFF without an image file directory")
+    tags = {}
+    for i in range(struct.unpack_from(bo + "H", data, off)[0]):
+        e = off + 2 + 12 * i
+        if e + 12 > len(data):
+            raise ValueError(f"{path}: TIFF directory is truncated")
+        tag, typ, cnt = struct.unpack_from(bo + "HHI", data, e)
+        code = _TIFF_TYPES.get(typ)
+        if code is None:
+            continue
+        n = cnt * (2 if typ in (5, 10) else 1)
+        size = struct.calcsize(code) * n
+        at = e + 8 if size <= 4 else struct.unpack_from(bo + "I", data,
+                                                        e + 8)[0]
+        if at + size <= len(data):
+            tags[tag] = struct.unpack_from(f"{bo}{n}{code}", data, at)
+    if 256 not in tags or 257 not in tags:
+        raise ValueError(f"{path}: TIFF without an image size")
+    return bo, tags
+
+
+def _packbits(b: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(b):
+        c = b[i]
+        i += 1
+        if c < 128:
+            out += b[i:i + c + 1]
+            i += c + 1
+        elif c > 128 and i < len(b):
+            out += b[i:i + 1] * (257 - c)
+            i += 1
+    return bytes(out)
+
+
+def _lzw(b: bytes, min_bits: int, tiff: bool, limit: int = -1) -> bytes:
+    """LZW as TIFF (codes MSB first, widened one code early) or GIF
+    (codes LSB first, widened when the table fills their width) packs
+    it; ``limit`` stops after that many bytes."""
+    data = b + b"\0\0\0"
+    total = 8 * len(b)
+    clear = 1 << min_bits
+    base = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table, width, prev = list(base), min_bits + 1, None
+    out, pos, early = bytearray(), 0, 1 if tiff else 0
+    while pos + width <= total and len(out) != limit:
+        k = pos >> 3
+        if tiff:
+            code = ((data[k] << 16 | data[k + 1] << 8 | data[k + 2])
+                    >> (24 - (pos & 7) - width)) & ((1 << width) - 1)
+        else:
+            code = ((data[k] | data[k + 1] << 8 | data[k + 2] << 16)
+                    >> (pos & 7)) & ((1 << width) - 1)
+        pos += width
+        if code == clear:
+            table, width, prev = list(base), min_bits + 1, None
+            continue
+        if code == clear + 1:
+            break
+        if prev is None:
+            if code >= clear:
+                break
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+        elif code == len(table):
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            break
+        out += entry
+        prev = entry
+        if len(table) + early >= 1 << width and width < 12:
+            width += 1
+    return bytes(out) if limit < 0 else bytes(out[:limit])
+
+
+def _tiff_chunk(raw: bytes, comp: int, path) -> bytes:
+    if comp == 1:
+        return raw
+    if comp == 32773:
+        return _packbits(raw)
+    if comp == 5:
+        if raw[:2] == b"\x00\x01":
+            raise ValueError(f"{path}: old-style (LSB-first) TIFF LZW is not "
+                             f"supported")
+        return _lzw(raw, 8, True)
+    if comp in (8, 32946):
+        return zlib.decompressobj().decompress(raw)
+    raise ValueError(f"{path}: TIFF compression "
+                     f"{_TIFF_COMPRESSIONS.get(comp, comp)} is not supported "
+                     f"(none, PackBits, LZW and Deflate are)")
+
+
+def _read_tiff(data: bytes, path) -> tuple[np.ndarray, str]:
+    bo, tags = _tiff_ifd(data, path)
+    w, h = tags[256][0], tags[257][0]
+    photo = tags.get(262, (0,))[0]
+    comp = tags.get(259, (1,))[0]
+    planar = tags.get(284, (1,))[0]
+    # libtiff undoes a predictor in its LZW and Deflate codecs only
+    predictor = tags.get(317, (1,))[0] if comp in (5, 8, 32946) else 1
+    sf = tags.get(339, (1,))
+    if len(sf) > 1 and max(sf) == min(sf) == 1:
+        sf = (1,)
+    # TiffImageFile._setup's bits-per-sample rules
+    bps, extra = tags.get(258, (1,)), tags.get(338, ())
+    spp = tags.get(277, (1,))[0]
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    mode = _TIFF_MODES.get((photo, sf, bps, extra))
+    if mode is None or len(bps) != spp:
+        raise ValueError(f"{path}: TIFF of photometric interpretation "
+                         f"{photo}, sample format {sf}, bits {bps}, extra "
+                         f"samples {extra} is not supported")
+    if tags.get(266, (1,))[0] != 1:
+        raise ValueError(f"{path}: TIFF fill order 2 is not supported")
+    if predictor not in (1, 2) or (predictor == 2 and bps[0] < 8):
+        raise ValueError(f"{path}: TIFF predictor {predictor} on "
+                         f"{bps[0]}-bit samples is not supported")
+    bits = bps[0]
+    if planar == 2 and bits > 8:
+        # TiffImagePlugin reads each plane with one character of the raw
+        # mode ("F;32BF"[0] is "F"): PIL misreads these files
+        raise ValueError(f"{path}: TIFF planar configuration 2 with "
+                         f"{bits}-bit samples is not supported")
+    if 322 in tags:                                  # tiles
+        tw, th = tags[322][0], tags[323][0]
+        offsets, counts = tags.get(324), tags.get(325)
+        across, down = -(-w // tw), -(-h // th)
+        chunks = [(ty * th, tx * tw, th, tw) for ty in range(down)
+                  for tx in range(across)]
+        full_h, full_w = down * th, across * tw
+    else:
+        rps = max(1, min(tags.get(278, (h,))[0], h))
+        offsets, counts = tags.get(273), tags.get(279)
+        chunks = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
+        full_h, full_w = h, w
+    if offsets is None or counts is None:
+        raise ValueError(f"{path}: TIFF without strip or tile offsets and "
+                         f"byte counts")
+    per = spp if planar == 1 else 1
+    unsigned = np.dtype(f"{bo}u{max(1, bits // 8)}")
+    full = np.zeros((full_h, full_w, spp), unsigned.newbyteorder("="))
+    for plane in range(spp if planar == 2 else 1):
+        for j, (y0, x0, rows, cols) in enumerate(chunks):
+            k = plane * len(chunks) + j
+            if k >= len(offsets):
+                raise ValueError(f"{path}: TIFF has fewer strips or tiles "
+                                 f"than its image needs")
+            buf = _tiff_chunk(data[offsets[k]:offsets[k] + counts[k]], comp,
+                              path)
+            row_bytes = -(-cols * per * bits // 8)
+            need = rows * row_bytes
+            if len(buf) < need:
+                raise ValueError(f"{path}: a TIFF strip or tile holds "
+                                 f"{len(buf)} bytes of {need}")
+            if bits < 8:
+                r = np.frombuffer(buf[:need], np.uint8).reshape(rows,
+                                                                row_bytes)
+                shifts = (8 - bits * (np.arange(8 // bits) + 1)).astype(
+                    np.uint8)
+                v = ((r[:, :, None] >> shifts) & ((1 << bits) - 1)) \
+                    .reshape(rows, -1)[:, :cols * per]
+            else:
+                v = np.frombuffer(buf[:need], unsigned).reshape(
+                    rows, cols * per).astype(full.dtype)
+            v = v.reshape(rows, cols, per)
+            if predictor == 2:
+                v = np.cumsum(v, axis=1, dtype=full.dtype)
+            ch = slice(None) if planar == 1 else slice(plane, plane + 1)
+            full[y0:y0 + rows, x0:x0 + cols, ch] = v
+    full = full[:h, :w]
+    if mode == "1":
+        a = full[..., 0] != 0
+        return (~a if photo == 0 else a), mode
+    if mode == "P":
+        return full[..., 0].astype(np.uint8), mode
+    if mode == "L":
+        a = full[..., 0].astype(np.uint8)
+        return (255 - a if photo == 0 else a), mode
+    if mode == "I;16":
+        return (full[..., 0].astype(unsigned),
+                "I;16" if bo == "<" else "I;16B")
+    if mode == "I":
+        signed = np.int16 if bits == 16 else np.int32
+        return full[..., 0].view(signed).astype(np.int32), mode
+    if mode == "F":
+        return full[..., 0].view(np.float32).copy(), mode
+    n = {"LA": 2, "RGB": 3, "RGBA": 4}[mode]
+    return np.ascontiguousarray(full[..., :n].astype(np.uint8)), mode
+
+
+# ---------------------------------------------------------------------------
+# GIF (PIL's GifImagePlugin: the first frame)
+
+def _gif_palette_needed(p: bytes) -> bool:
+    """GifImageFile._is_palette_needed: False for the identity gray
+    ramp."""
+    return any(not (i // 3 == p[i] == p[i + 1] == p[i + 2])
+               for i in range(0, len(p) - 2, 3))
+
+
+def _gif_frame(data: bytes, path) -> dict:
+    """What GifImageFile._open and _seek(0) read up to the first frame's
+    image data: its extent, mode, interlace, transparency and LZW code
+    size, and the image size."""
+    w, h = _u16(data, 6), _u16(data, 8)
+    flags, pos = data[10], 13
+    global_palette = False
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        global_palette = _gif_palette_needed(data[pos:pos + n])
+        pos += n
+
+    def sub_block():
+        nonlocal pos
+        if pos >= len(data) or not data[pos]:
+            pos += 1
+            return None
+        size = data[pos]
+        pos += 1 + size
+        return data[pos - size:pos]
+
+    transparency = None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError(f"{path}: GIF without an image")
+        b = data[pos]
+        pos += 1
+        if b == 0x21:
+            label = data[pos]
+            pos += 1
+            block = sub_block()
+            if label == 0xF9 and block is not None and block[0] & 1:
+                transparency = block[3]
+            while block is not None:
+                block = sub_block()
+        elif b == 0x2C:
+            x0, y0, fw, fh = struct.unpack_from("<4H", data, pos)
+            flags = data[pos + 8]
+            pos += 9
+            palette = None
+            if flags & 0x80:
+                n = 3 << ((flags & 7) + 1)
+                palette = _gif_palette_needed(data[pos:pos + n])
+                pos += n
+            break
+    needed = palette if palette is not None else global_palette
+    return dict(size=(max(w, x0 + fw), max(h, y0 + fh)),
+                extent=(x0, y0, fw, fh), interlace=bool(flags & 0x40),
+                mode="P" if needed else "L", transparency=transparency,
+                bits=data[pos], data_at=pos + 1)
+
+
+def _read_gif(data: bytes, path) -> tuple[np.ndarray, str]:
+    fr = _gif_frame(data, path)
+    (w, h), (x0, y0, fw, fh) = fr["size"], fr["extent"]
+    if not 1 <= fr["bits"] <= 11:
+        raise ValueError(f"{path}: GIF LZW code size {fr['bits']} is not "
+                         f"supported")
+    blocks, pos = [], fr["data_at"]
+    while pos < len(data) and data[pos]:
+        blocks.append(data[pos + 1:pos + 1 + data[pos]])
+        pos += 1 + data[pos]
+    pixels = _lzw(b"".join(blocks), fr["bits"], False, fw * fh)
+    if len(pixels) < fw * fh:
+        raise ValueError(f"{path}: GIF image data is truncated")
+    frame = np.frombuffer(pixels, np.uint8).reshape(fh, fw)
+    if fr["interlace"]:
+        order = [y for y0_, step in ((0, 8), (4, 8), (2, 4), (1, 2))
+                 for y in range(y0_, fh, step)]
+        frame = frame[np.argsort(order)]
+    canvas = np.full((h, w), fr["transparency"] or 0, np.uint8)
+    canvas[y0:y0 + fh, x0:x0 + fw] = frame
+    return canvas, fr["mode"]
+
+
+# ---------------------------------------------------------------------------
 # writers
 
 _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
-                 ".ppm": "PNM", ".pnm": "PNM", ".bmp": "BMP"}
-_NOT_WRITTEN = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-                ".jfif": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
-                ".gif": "GIF", ".webp": "WebP", ".dib": "DIB",
-                ".ico": "ICO", ".j2k": "JPEG 2000", ".jp2": "JPEG 2000",
-                ".pfm": "PFM"}
+                 ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PNM", ".bmp": "BMP",
+                 ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
+                 ".jfif": "JPEG", ".tif": "TIFF", ".tiff": "TIFF"}
+_NOT_WRITTEN = {".gif": "GIF", ".webp": "WebP", ".dib": "DIB",
+                ".ico": "ICO", ".j2k": "JPEG 2000", ".jp2": "JPEG 2000"}
 
 
 def _mode(a: np.ndarray) -> str:
@@ -427,11 +883,15 @@ def _pnm_bytes(a: np.ndarray, mode: str) -> bytes:
         return b"P4\n%d %d\n" % (w, h) + np.packbits(~a, axis=1).tobytes()
     if mode == "L":
         return b"P5\n%d %d\n255\n" % (w, h) + a.tobytes()
-    if mode == "I;16":
-        return b"P5\n%d %d\n65535\n" % (w, h) + a.astype(">u2").tobytes()
+    if mode in ("I;16", "I"):                        # PIL's "I;16B" packer
+        return b"P5\n%d %d\n65535\n" % (w, h) + \
+            np.clip(a, 0, 65535).astype(">u2").tobytes()
     if mode in ("RGB", "RGBA"):
         return b"P6\n%d %d\n255\n" % (w, h) + \
             np.ascontiguousarray(a[..., :3]).tobytes()
+    if mode == "F":                                  # PFM, rows bottom-up
+        return b"Pf\n%d %d\n-1.0\n" % (w, h) + \
+            a[::-1].astype("<f4").tobytes()
     raise ValueError(f"cannot write mode {mode} as PPM")
 
 
@@ -463,6 +923,94 @@ def _bmp_bytes(a: np.ndarray, mode: str) -> bytes:
     return b"BM" + head.tobytes() + pal + body[::-1].tobytes()
 
 
+# TiffImagePlugin.SAVE_INFO: mode -> (photometric, sample format, bits per
+# sample, extra samples, little-endian sample type)
+_TIFF_SAVE = {"1": (1, 1, (1,), None, None), "L": (1, 1, (8,), None, "u1"),
+              "LA": (1, 1, (8, 8), 2, "u1"), "I;16": (1, 1, (16,), None,
+                                                      "<u2"),
+              "I": (1, 2, (32,), None, "<i4"), "F": (1, 3, (32,), None, "<f4"),
+              "RGB": (2, 1, (8, 8, 8), None, "u1"),
+              "RGBA": (2, 1, (8, 8, 8, 8), 2, "u1")}
+
+
+def _tiff_bytes(a: np.ndarray, mode: str) -> bytes:
+    """PIL's uncompressed TIFF: II, one IFD at byte 8 with its tags in
+    order (LONG size, strip offset, rows per strip and byte count, SHORT
+    the rest; BitsPerSample left out for 1-bit, SamplesPerPixel for one
+    sample, SampleFormat for unsigned), the values that do not fit in
+    their entry after it, each padded to an even length, then one strip
+    of every row."""
+    if mode not in _TIFF_SAVE:
+        raise ValueError(f"cannot write mode {mode} as TIFF")
+    h, w = a.shape[:2]
+    photo, fmt, bits, extra, dtype = _TIFF_SAVE[mode]
+    body = (np.packbits(a, axis=1) if mode == "1"
+            else a.astype(dtype)).tobytes()
+    entries = [(256, 4, (w,)), (257, 4, (h,))]
+    if bits != (1,):
+        entries.append((258, 3, bits))
+    entries += [(259, 3, (1,)), (262, 3, (photo,)), (273, 4, (0,))]
+    if len(bits) != 1:
+        entries.append((277, 3, (len(bits),)))
+    entries += [(278, 4, (h,)), (279, 4, (len(body),)), (284, 3, (1,))]
+    if extra is not None:
+        entries.append((338, 3, (extra,)))
+    if fmt != 1:
+        entries.append((339, 3, (fmt,)))
+    end = 8 + 2 + 12 * len(entries) + 4
+    extras = b"".join(
+        v + bytes(len(v) % 2) for v in
+        (struct.pack(f"<{len(vals)}{'H' if t == 3 else 'I'}", *vals)
+         for _, t, vals in entries) if len(v) > 4)
+    at = end + len(extras)
+    ifd, pos = [], end
+    for tag, t, vals in entries:
+        if tag == 273:
+            vals = (at,)
+        v = struct.pack(f"<{len(vals)}{'H' if t == 3 else 'I'}", *vals)
+        if len(v) > 4:
+            ifd.append(struct.pack("<HHII", tag, t, len(vals), pos))
+            pos += len(v) + len(v) % 2
+        else:
+            ifd.append(struct.pack("<HHI", tag, t, len(vals))
+                       + v + bytes(4 - len(v)))
+    return (b"II*\x00" + struct.pack("<IH", 8, len(entries)) + b"".join(ifd)
+            + bytes(4) + extras + body)
+
+
+@functools.lru_cache(maxsize=1)
+def _jpeg_encoder():
+    from mods_tpu_torch.detectors.mser import build_native
+    lib = ctypes.CDLL(build_native(JPEG_ENCODER_SOURCE,
+                                   "libmods_jpeg_encode.so"))
+    lib.mods_jpeg_encode.restype = ctypes.c_int64
+    lib.mods_jpeg_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+    return lib
+
+
+def _jpeg_bytes(a: np.ndarray, mode: str) -> bytes:
+    """PIL's JPEG (``csrc/jpeg_encode.cpp``): bool as gray 0/255 (PIL
+    packs mode "1" as "L"), gray, or RGB."""
+    if mode not in ("1", "L", "RGB"):
+        raise ValueError(f"cannot write mode {mode} as JPEG")
+    a = np.ascontiguousarray(a.astype(np.uint8) * 255 if mode == "1" else a)
+    h, w = a.shape[:2]
+    channels = 3 if mode == "RGB" else 1
+    # a block codes in at most 64 x 27 bits, doubled by 0xFF stuffing
+    blocks = (-(-h // 16) * -(-w // 16) * 6 if channels == 3
+              else -(-h // 8) * -(-w // 8))
+    out = np.empty(blocks * 432 + 1024, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    n = _jpeg_encoder().mods_jpeg_encode(a.ctypes.data, w, h, channels,
+                                         out.ctypes.data, out.size, err,
+                                         len(err))
+    if n < 0:
+        raise ValueError(err.value.decode())
+    return out[:n].tobytes()
+
+
 def save_image(path, array) -> None:
     """``Image.fromarray(array).save(path)`` (module docstring)."""
     ext = os.path.splitext(str(path))[1].lower()
@@ -471,18 +1019,23 @@ def save_image(path, array) -> None:
         name = _NOT_WRITTEN.get(ext)
         raise ValueError(
             f"{path}: writing {name} images is not supported (.png, .pbm, "
-            f".pgm, .ppm, .pnm and .bmp are)" if name else
+            f".pgm, .ppm, .pnm, .pfm, .bmp, .jpg, .jpeg, .jpe, .jfif, .tif "
+            f"and .tiff are)" if name else
             f"{path}: unknown image file extension {ext!r}")
     a = np.asarray(array)
     mode = _mode(a)
-    if mode in ("I", "F"):
-        raise ValueError(f"{path}: writing mode {mode} ({a.dtype} pixels) "
-                         f"is not supported")
+    if mode == "I":                      # PIL reads int8 as "I;8": unsigned
+        a = (a.view(np.uint8) if a.dtype == np.int8 else a).astype(np.int32)
     if fmt == "PNG":
-        png.write_png(path, a)
+        if mode == "F":
+            raise ValueError(f"{path}: cannot write mode F as PNG")
+        # Pillow 12 still writes "I" as 16-bit gray, clipped
+        png.write_png(path, np.clip(a, 0, 65535).astype(np.uint16)
+                      if mode == "I" else a)
         return
     try:
-        data = _pnm_bytes(a, mode) if fmt == "PNM" else _bmp_bytes(a, mode)
+        data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "TIFF": _tiff_bytes,
+                "JPEG": _jpeg_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

@@ -16,7 +16,11 @@ import functools
 
 import numpy as np
 
-from mods_tpu_torch.detectors.mser import build_native
+from mods_tpu_torch.detectors.mser import BUILD_DIR, build_native
+
+# where the port's native libraries are built (the JAX package builds
+# them under its NATIVE_DIR, in native/.cache)
+NATIVE_DIR = BUILD_DIR
 
 
 @functools.lru_cache(maxsize=1)

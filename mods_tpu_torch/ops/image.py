@@ -9,6 +9,37 @@ import numpy as np
 import torch
 
 
+def to_gray(img: torch.Tensor) -> torch.Tensor:
+    """RGB (H, W, 3) or gray (H, W) uint8/float -> float32 equal-weight
+    mean gray (synth-detection.cpp:257-262), on the tensor's device."""
+    img = img.to(torch.float32)
+    if img.ndim == 3:                    # XLA's mean: sum x (1 / n)
+        img = img.sum(dim=-1) * (1.0 / img.shape[-1])
+    return img
+
+
+def pad_to(img: torch.Tensor, h: int, w: int,
+           value: float = 0.0) -> torch.Tensor:
+    """Pad (..., H, W) at the bottom and right to the canvas (h, w)."""
+    ph, pw = h - img.shape[-2], w - img.shape[-1]
+    assert ph >= 0 and pw >= 0, (tuple(img.shape), h, w)
+    return torch.nn.functional.pad(img, (0, pw, 0, ph), value=value)
+
+
+def double_image(img: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of (..., H, W) to (2H-1, 2W-1), the original
+    samples at even positions and the means of neighbours between them
+    (the reference's doubleImage, helpers.cpp)."""
+    h, w = img.shape[-2], img.shape[-1]
+    rows = img.new_zeros(img.shape[:-2] + (2 * h - 1, w))
+    rows[..., 0::2, :] = img
+    rows[..., 1::2, :] = 0.5 * (img[..., :-1, :] + img[..., 1:, :])
+    out = img.new_zeros(img.shape[:-2] + (2 * h - 1, 2 * w - 1))
+    out[..., :, 0::2] = rows
+    out[..., :, 1::2] = 0.5 * (rows[..., :, :-1] + rows[..., :, 1:])
+    return out
+
+
 def half_image(img: torch.Tensor) -> torch.Tensor:
     """2x downsample by 2x2 mean pooling over (..., H, W); an odd tail
     row or column is cropped (the reference's next-octave step,

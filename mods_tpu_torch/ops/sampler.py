@@ -55,6 +55,34 @@ def pad_canvas(img: torch.Tensor) -> torch.Tensor:
     return x.reshape(lead + (ph, pw))
 
 
+def window_origins(xy: torch.Tensor, hc: int, wc: int):
+    """Quantized (WIN_Y, WIN_X) window origins for centres xy (..., 2) in
+    (x, y) order: y0 a multiple of 8, x0 a multiple of 128, clipped to
+    the (hc, wc) canvas, so that every in-canvas sample within 63 px of
+    the centre lands inside [y0, y0 + 136) x [x0, x0 + 256)."""
+    cx = to_index(torch.floor(xy[..., 0]))
+    cy = to_index(torch.floor(xy[..., 1]))
+    y0 = (torch.div(cy - 63, 8, rounding_mode="floor") * 8).clamp(
+        0, hc - WIN_Y)
+    x0 = (torch.div(cx - 63, 128, rounding_mode="floor") * 128).clamp(
+        0, wc - WIN_X)
+    return y0.to(torch.int32), x0.to(torch.int32)
+
+
+def extract_windows(src: torch.Tensor, lvl: torch.Tensor, y0: torch.Tensor,
+                    x0: torch.Tensor) -> torch.Tensor:
+    """Gather (K, WIN_Y, WIN_X) windows from (L, H, W) at each k's level
+    and origin, the starts clipped so that every window lies inside
+    (the JAX gather's CLIP mode)."""
+    nl, h, w = src.shape
+    lv = lvl.to(torch.int64).clamp(0, nl - 1)
+    ys = y0.to(torch.int64).clamp(0, h - WIN_Y)[:, None] + torch.arange(
+        WIN_Y, device=src.device)
+    xs = x0.to(torch.int64).clamp(0, w - WIN_X)[:, None] + torch.arange(
+        WIN_X, device=src.device)
+    return src[lv[:, None, None], ys[:, :, None], xs[:, None, :]]
+
+
 def rows_for_patch(patch_size: int, max_step: float = 2.0) -> int:
     """Window rows covering a patch's worst-case vertical extent (+2 px
     margin), rounded to 8 and kept within [48, 96]."""

@@ -66,6 +66,18 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return torch.where(valid, val, torch.full_like(val, fill))
 
 
+def affine_warp(img: torch.Tensor, inv_map: torch.Tensor, out_h: int,
+                out_w: int, fill: float = 128.0) -> torch.Tensor:
+    """Warp (H, W) -> (out_h, out_w) through the 2x3 inverse map (output
+    pixel -> input position), bilinear, ``fill`` outside."""
+    ys = torch.arange(out_h, dtype=torch.float32, device=img.device)[:, None]
+    xs = torch.arange(out_w, dtype=torch.float32, device=img.device)[None, :]
+    m = inv_map.to(device=img.device, dtype=torch.float32)
+    sx = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
+    sy = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
+    return bilinear_sample(img, sx, sy, fill=fill)
+
+
 def patch_grid(patch_size: int, device=None) -> torch.Tensor:
     """(P, P, 2) grid of patch offsets in [-half, +half], (dx, dy) order
     (interpolate, helpers.cpp:562-572)."""

@@ -269,6 +269,50 @@ def autosize_caps(cfg: EngineConfig) -> EngineConfig:
     return replace(cfg, caps=caps)
 
 
+@dataclass
+class FeatureStore:
+    """Host-side accumulated features of one image for one descriptor
+    (original/reprojected frame), in numpy."""
+    xy: np.ndarray = None
+    A: np.ndarray = None
+    s: np.ndarray = None
+    response: np.ndarray = None
+    desc: np.ndarray = None
+
+    def add(self, xy, A, s, response, desc, mask):
+        m = np.asarray(mask)
+        parts = [np.asarray(x)[m] for x in (xy, A, s, response, desc)]
+        if self.xy is None:
+            self.xy, self.A, self.s, self.response, self.desc = parts
+        else:
+            self.xy, self.A, self.s, self.response, self.desc = (
+                np.concatenate([a, b]) for a, b in zip(
+                    (self.xy, self.A, self.s, self.response, self.desc),
+                    parts))
+
+    @property
+    def count(self) -> int:
+        return 0 if self.xy is None else self.xy.shape[0]
+
+    def padded(self, cap: int, dim: int):
+        """(cap,) rows: the strongest ``cap`` by |response| where there
+        are more, else all in order; zeros and mask False after them."""
+        n = min(self.count, cap)
+        xy = np.zeros((cap, 2), np.float32)
+        A = np.zeros((cap, 2, 2), np.float32)
+        s = np.zeros((cap,), np.float32)
+        desc = np.zeros((cap, dim), np.float32)
+        mask = np.zeros((cap,), bool)
+        if n:
+            order = (np.argsort(-np.abs(self.response))[:cap]
+                     if self.count > cap else np.arange(n))
+            xy[:n], A[:n], s[:n] = self.xy[order], self.A[order], \
+                self.s[order]
+            desc[:n] = self.desc[order]
+            mask[:n] = True
+        return xy, A, s, desc, mask
+
+
 class DeviceStore:
     """Device-resident fixed-capacity feature store of one image for one
     (detector, descriptor): the reference's ImageRepresentation slot

@@ -38,6 +38,24 @@ class Regions:
     def count(self) -> torch.Tensor:
         return self.mask.to(torch.int32).sum(-1)
 
+    @staticmethod
+    def empty(shape, dtype=torch.float32, device="cpu") -> "Regions":
+        """No regions at capacity ``shape``: identity frames, unit scale,
+        every mask False."""
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        z = dict(dtype=dtype, device=device)
+        return Regions(
+            xy=torch.zeros(shape + (2,), **z),
+            A=torch.eye(2, **z).expand(shape + (2, 2)).contiguous(),
+            s=torch.ones(shape, **z), response=torch.zeros(shape, **z),
+            sub_type=torch.zeros(shape, dtype=torch.int32, device=device),
+            mask=torch.zeros(shape, dtype=torch.bool, device=device))
+
+    def flatten(self) -> "Regions":
+        """Collapse all leading axes into one capacity axis."""
+        return self.map(lambda x, extra: x.reshape(
+            (-1,) + tuple(x.shape[x.ndim - extra:])))
+
     def replace(self, **kw) -> "Regions":
         return dataclasses.replace(self, **kw)
 

@@ -5,9 +5,11 @@ Reference: ``SetVSPars`` (synth-detection.cpp:103-234) builds the
 tilt x scale x rotation grid with dedup against previous iterations;
 ``GenerateSynthImageCorr`` (:236-430) renders each view as
 rotate -> anisotropic anti-alias blur -> tilt/zoom squash, tracking the
-original->synth homography H.  This module is pure Python float math and
-gives the same tuples as the JAX package's; the rendering itself is
-``pipeline.py::_make_render_fn``.
+original->synth homography H.  The planning is pure Python float math and
+gives the same tuples as the JAX package's; the ladder renders through
+``pipeline.py::_make_render_fn``.  ``render_group`` is the JAX package's
+plain renderer of one group (bilinear ``affine_warp`` rotations, the
+static-sigma blur, the squash), on the image tensor's device.
 """
 
 from __future__ import annotations
@@ -15,8 +17,13 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
+import torch
+
 from mods_tpu_torch.config import IterationParams, ViewParams
+from mods_tpu_torch.ops.gaussian import gaussian_blur
 from mods_tpu_torch.ops.image import round_up
+from mods_tpu_torch.ops.warp import affine_warp
 
 EPS1 = 0.001
 
@@ -186,3 +193,49 @@ def group_views(plans: list[ViewPlan]) -> list[list[ViewPlan]]:
              p.view.vertical, p.view.do_blur, p.identity)
         groups.setdefault(k, []).append(p)
     return list(groups.values())
+
+
+def render_group(img: torch.Tensor, group: list[ViewPlan],
+                 canvas_hw: tuple[int, int] | None = None,
+                 pad_multiple: int = 128):
+    """Render one (tilt, zoom) group of rotations as a batch.
+
+    img: (H, W) gray float.  Returns (views (V, Hc, Wc) filled with gray
+    128 outside, valid_hw (V, 2) int32, H (V, 3, 3) float64 numpy)."""
+    h, w = img.shape
+    dev = img.device
+    if group[0].identity:
+        out = torch.full((1, round_up(h, pad_multiple),
+                          round_up(w, pad_multiple)), 128.0,
+                         dtype=img.dtype, device=dev)
+        out[0, :h, :w] = img
+        return (out, torch.tensor([[h, w]], dtype=torch.int32, device=dev),
+                np.eye(3)[None].repeat(len(group), 0))
+    hr = max(p.h_rot for p in group)
+    wr = max(p.w_rot for p in group)
+    hn, wn = canvas_hw if canvas_hw is not None else (
+        max(p.h_new for p in group), max(p.w_new for p in group))
+    hc, wc = round_up(hn, pad_multiple), round_up(wn, pad_multiple)
+    rot_inv = []
+    for p in group:
+        a, b, tx, c, d, ty = p.rot
+        det = a * d - b * c
+        ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+        rot_inv.append([[ia, ib, -(ia * tx + ib * ty)],
+                        [ic, id_, -(ic * tx + id_ * ty)]])
+    rot_inv = torch.tensor(rot_inv, dtype=torch.float32, device=dev)
+    rots = torch.stack([affine_warp(img, m, hr, wr, fill=128.0)
+                        for m in rot_inv])
+    p0 = group[0]
+    if p0.view.do_blur:
+        rots = gaussian_blur(rots, p0.sigma_x, p0.sigma_y)
+    sx, sy = p0.tilt_scale
+    squash_inv = torch.tensor([[1.0 / sx, 0.0, 0.0], [0.0, 1.0 / sy, 0.0]],
+                              dtype=torch.float32, device=dev)
+    outs = torch.stack([affine_warp(r, squash_inv, hc, wc, fill=128.0)
+                        for r in rots])
+    valid = torch.tensor([[p.h_new, p.w_new] for p in group],
+                         dtype=torch.int32, device=dev)
+    Hs = np.asarray([np.asarray(p.H, np.float64).reshape(3, 3)
+                     for p in group])
+    return outs, valid, Hs

@@ -14,9 +14,11 @@
 
 import dataclasses
 import os
+import platform
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -227,8 +229,54 @@ SMALL_ITERS = chip_smoke.cviu_iters_ini([
 SHIFT = np.array([[1.0, 0.0, 9.0], [0.0, 1.0, -5.0], [0, 0, 1.0]])
 
 
+def load_jax_native(timeout: float = 300.0) -> None:
+    """Build and load the JAX package's MSER and render libraries without
+    racing other test processes.  ``mods_tpu.detectors.mser.build_native``
+    lets g++ write a library in place, so a process that opens it while
+    a process of another test file is still linking it gets "file too
+    short" (or "invalid ELF header").  Here a missing or stale library
+    is linked under a temporary name and renamed (the JAX package's
+    flags; its own check then finds it current), and a load that fails
+    while another process links in place is retried until the link
+    ends.  Loaded here, the libraries stay loaded for the JAX commands
+    that follow."""
+    import tempfile
+    from mods_tpu.detectors import mser
+    from mods_tpu.ops import host_render
+    cache = os.path.join(mser.NATIVE_DIR, ".cache", platform.machine())
+    os.makedirs(cache, exist_ok=True)
+    deadline = time.monotonic() + timeout
+    for src, so, extra, lib in (
+            ("mser.cpp", "libmods_mser.so", (), mser._lib),
+            ("render.cpp", "libmods_render.so", ("-fopenmp",),
+             host_render._lib)):
+        src = os.path.abspath(os.path.join(mser.NATIVE_DIR, src))
+        so = os.path.join(cache, so)
+        if (not os.path.exists(so)
+                or os.path.getmtime(so) < os.path.getmtime(src)):
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=cache)
+            os.close(fd)
+            try:
+                subprocess.run(["g++", "-O3", "-march=native",
+                                "-funroll-loops", "-shared", "-fPIC",
+                                *extra, "-o", tmp, src], check=True)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        while True:
+            try:
+                lib()
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.5)
+
+
 @pytest.fixture(scope="module")
 def png_pair(tmp_path_factory):
+    load_jax_native()
     d = tmp_path_factory.mktemp("pair")
     img1 = textured_image(128, 176, seed=4)
     img2 = warp_np(img1, SHIFT, 128, 176)
