@@ -179,7 +179,18 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    runs within ``ITEM24_BOUNDS``: ``affine_warp`` and ``render_group`` of
    a tilt-4 group of zoom2x_1 at full size, ``extract_descriptor_patches``
    of 1024 keypoints at P = 41, ``brief_descriptors``, ``double_image``
-   and ``pad_to``.
+   and ``pad_to``; (i) the WebP fixtures of ``tests/data/image_io``
+   (lossy, lossless, ALPH, animated) decoded on the host by
+   ``csrc/webp_decode.cpp``, each array's shape, mode and SHA-256 held to
+   PIL's (``WEBP_FIXTURE_SHA256``), the decode ms printed; (j) zoom2x_1
+   as L and RGB and RGBA canvases of zoom2x_1, zoom2x_2 and tilt4_1
+   written as .webp by ``save_image`` (``csrc/webp_encode.cpp``,
+   lossless) and read back to the canvas as PIL would read it, the bytes'
+   SHA-256 held to the CPU tests' (``WEBP_ENCODE_SHA256``), the
+   encode and decode ms printed; (k) ``cli match`` on zoom2x's pair as
+   PIL's lossy WebP fixtures, its drawings named .webp: its launches held
+   to the plan, its figures to ``JAX_WEBP_REFERENCE`` by phase 6's rule,
+   each drawing decoded to ``viz``'s canvas exactly.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1772,10 +1783,13 @@ def _profile_ladder() -> None:
 def _build_native() -> None:
     """Phase 1, host side: the port's own builds of ``native/mser.cpp``,
     ``native/render.cpp``, the JPEG decoder ``csrc/jpeg_decode.cpp`` and
-    the JPEG encoder ``csrc/jpeg_encode.cpp``
-    (g++, into ``mods_tpu_torch/_build/native``); raises when g++ or
-    OpenMP is missing."""
+    encoder ``csrc/jpeg_encode.cpp``, and the WebP decoder
+    ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (g++,
+    one process a source, all started together, into
+    ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
+    missing."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
     from mods_tpu_torch.detectors import mser
     from mods_tpu_torch.io import image
     from mods_tpu_torch.ops import host_render
@@ -1784,15 +1798,17 @@ def _build_native() -> None:
     if out.returncode != 0:
         raise RuntimeError(f"g++ --version failed: {out.stderr.strip()}")
     t0 = time.perf_counter()
-    mser._lib()
-    host_render._lib()
-    image._jpeg_lib()
-    image._jpeg_encoder()
+    builds = (mser._lib, host_render._lib, image._jpeg_lib,
+              image._jpeg_encoder, image._webp_lib, image._webp_encoder)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(b) for b in builds]:
+            f.result()
     print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
-          f"jpeg_encode.cpp built into {mser.BUILD_DIR} in "
-          f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}, "
-          f"OpenMP threads {host_render.omp_max_threads()}", flush=True)
+          f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp built into "
+          f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
+          f"cores {os.cpu_count()}, OpenMP threads "
+          f"{host_render.omp_max_threads()}", flush=True)
 
 
 def _cviu_matcher(stop_mode: str = "sync"):
@@ -4483,6 +4499,80 @@ TIFF_PAIR_SHA256 = (
 # ``JAX_PLATFORMS=cpu python tests/test_torch_image_formats.py --jax-tiff``
 JAX_TIFF_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                           gt_consistent=37, corner_error_px=4.040)
+# PIL 12.1.0 (libwebp 1.6.0) on the WebP fixtures of tests/data/image_io
+# that tests/test_torch_webp.py::write_webp_fixtures wrote: the shape, the
+# mode and the SHA-256 of np.asarray(Image.open(path)).tobytes()
+# (test_webp_fixture_hashes_are_pils)
+WEBP_FIXTURE_SHA256 = {
+    "animation.webp": ((96, 128, 3), "RGB",
+        "a7b709566db5e626fb51b34c7b497bb6"
+        "70c5eceb386c4aa5654596d6337cc0fc"),
+    "color_q0_m0.webp": ((211, 301, 3), "RGB",
+        "0af0b9c3e0d8376cc73e5b18085a0d0b"
+        "01114ed24789618bd73069c813601999"),
+    "color_q100_m6.webp": ((211, 301, 3), "RGB",
+        "c4bb44ac56f9cada84b8bcfb3c47f4b1"
+        "3f008d0e07246efd82bbc432117e8cab"),
+    "color_q80_m4.webp": ((211, 301, 3), "RGB",
+        "a2473fb03a59e7402dd4ba5fd6052cb6"
+        "f7592a1fe073639256192945294d6158"),
+    "lossless_16colors_m0.webp": ((96, 128, 3), "RGB",
+        "8b36e453f8b305fa9a3d8ab9a01a1cde"
+        "a1a35e45ad55e74f2d82b50d0e709dac"),
+    "lossless_1x1_m6.webp": ((1, 1, 3), "RGB",
+        "5e921d49f5f59d92a83317651e795653"
+        "d18336e3b42c4cee6963c5624522355a"),
+    "lossless_256colors_m6.webp": ((96, 128, 3), "RGB",
+        "5c273bd7cbe2c561b40ea4866a83e9a7"
+        "e86bd49c103009149ace59327c914e0a"),
+    "lossless_gray_m0.webp": ((96, 128, 3), "RGB",
+        "1ff27afccba00f2fbd0022fe3047f9b8"
+        "65a80f991b89739542bbb39822733187"),
+    "lossless_rgb_m0.webp": ((96, 128, 3), "RGB",
+        "5fbd1e2223fdf4e015107d955415c4ec"
+        "ca0ed2579a14b292263ae2f80e209fc9"),
+    "lossless_rgba_m6.webp": ((96, 128, 4), "RGBA",
+        "dbe4426a09017d8c27ee166feef6391f"
+        "790eb53170082537fc83f303bedff714"),
+    "lossy_1x1.webp": ((1, 1, 3), "RGB",
+        "04c2756af09d2e82d2193681ef208cc7"
+        "5cb5d0aa4d5c97efa92d865223110866"),
+    "lossy_37x53.webp": ((53, 37, 3), "RGB",
+        "48a643c722e927304b0899f92a6f0ad5"
+        "6a6a995b11695df7e313f67d2c0dbec5"),
+    "rgba_aq100_m0.webp": ((96, 128, 4), "RGBA",
+        "d40a6c709092f28cc7b183bc4a45c355"
+        "3e3f2ec0903e8eae7a11843811375964"),
+    "rgba_aq50_m6.webp": ((96, 128, 4), "RGBA",
+        "0405771ea74cc23ac9a1dca9737f5a79"
+        "41d0dcf520bcd49f76a383c1d85df3a6"),
+    "zoom2x_1.webp": ((1000, 598, 3), "RGB",
+        "6a3df1395e1de751e08eeec8fa354457"
+        "6321efe497f42184f528116cca4a4eda"),
+    "zoom2x_2.webp": ((1000, 598, 3), "RGB",
+        "5ce345ed2047821888c9a70f36774571"
+        "a1910a464b726bb1b270f0d02945e377"),
+}
+# SHA-256 of csrc/webp_encode.cpp's file of each of 14j's canvases
+# (``webp_encode_canvases``): the port's own lossless bytes, which depend
+# on the pixels alone (tests/test_torch_webp.py::
+# test_encoder_bytes_are_deterministic computes them with this build)
+WEBP_ENCODE_SHA256 = {
+    "zoom2x_1 L":
+        "167b5b7686cbf8ab12a8b9e1bdd8e7c4"
+        "72dabc94cc946ae2f8011aa19f326c20",
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB":
+        "44de7913d57322fe3e5555bc2a897f04"
+        "35404ce9d88c3bd951097348b1feead1",
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA":
+        "1ded3744d1b5af3702e91f985a002801"
+        "9445921a07652a61851b2a9aac0caa4d",
+}
+# The JAX command (``mods_tpu.cli.cmd_match``, LORANSACH, this script's
+# CVIU-shaped INI files) on the WebP zoom2x fixtures, on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_webp.py --jax-webp``
+JAX_WEBP_REFERENCE = dict(steps=1, tentatives=135, matches=30,
+                          gt_consistent=30, corner_error_px=26.647)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -4789,10 +4879,112 @@ def _item24_card_vs_cpu() -> list:
     return failures
 
 
+def _decode_webp_fixtures() -> list:
+    """14i: each WebP fixture decoded on the host, its array's shape, mode
+    and SHA-256 against PIL's, and the median decode ms of three."""
+    import hashlib
+    from mods_tpu_torch.io.image import _read
+    out, failures = {}, []
+    for name, (shape, mode, sha) in WEBP_FIXTURE_SHA256.items():
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a, got_mode = _read(IMAGE_FIXTURES / name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = hashlib.sha256(a.tobytes()).hexdigest()
+        equal = a.shape == tuple(shape) and got_mode == mode and got == sha
+        out[name] = dict(shape=list(a.shape), mode=got_mode,
+                         decode_ms=statistics.median(ms),
+                         sha256_equal_to_pil=equal)
+        if not equal:
+            failures.append(f"14i {name}: decoded {a.dtype} {a.shape} "
+                            f"{got_mode} with SHA-256 {got}; PIL's {shape} "
+                            f"{mode} {sha}")
+    print(f"[14] i, WebP decode on the host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def webp_encode_canvases(views: list) -> dict:
+    """14j's canvases of the zoom2x_1, zoom2x_2 and tilt4_1 views: {name:
+    (canvas, PIL's mode, the array PIL reads from its lossless file)};
+    gray reads as RGB, and a transparent pixel as transparent black."""
+    import numpy as np
+    rgb = np.stack(views, -1)
+    alpha = np.where(views[1] < 64, 0, views[0]).astype(np.uint8)
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    return {"zoom2x_1 L": (views[0], "L", np.stack([views[0]] * 3, -1)),
+            "zoom2x_1, zoom2x_2, tilt4_1 RGB": (rgb, "RGB", rgb),
+            "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+                rgba, "RGBA", np.where(alpha[..., None] == 0, 0, rgba))}
+
+
+def _encode_webps(work: Path) -> list:
+    """14j: each of ``webp_encode_canvases`` written as .webp by
+    ``save_image`` and read back by the port: the bytes' SHA-256 against
+    ``WEBP_ENCODE_SHA256``, the read-back against the array PIL reads from
+    its lossless file of the canvas, the median encode and decode ms of
+    three."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    out, failures = {}, []
+    for i, (name, (canvas, mode, want)) in enumerate(
+            webp_encode_canvases(views).items()):
+        p = work / f"canvas_{i}.webp"
+        enc, dec = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_image(p, canvas)
+            enc.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            back = read_image(p)
+            dec.append((time.perf_counter() - t0) * 1e3)
+        data = p.read_bytes()
+        same = hashlib.sha256(data).hexdigest() == WEBP_ENCODE_SHA256[name]
+        equal = back.shape == want.shape and np.array_equal(back, want)
+        out[name] = dict(shape=list(canvas.shape), mode=mode,
+                         bytes=len(data), encode_ms=statistics.median(enc),
+                         decode_ms=statistics.median(dec),
+                         sha256_equal=same, read_back_equal=equal)
+        if not (same and equal):
+            failures.append(f"14j {name}: {out[name]}")
+    print(f"[14] j, WebP encode on the host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def _match_webp_pair(held, work: Path) -> list:
+    """14k: ``cli match`` on the WebP zoom2x fixtures (PIL's lossy files)
+    against ``JAX_WEBP_REFERENCE`` (``_held_cli_match``), its drawings
+    named .webp: each a lossless file that decodes to ``viz``'s
+    canvas."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x WebP",
+        [IMAGE_FIXTURES / f"zoom2x_{i}.webp" for i in (1, 2)],
+        (work / "o1.webp", work / "o2.webp"), JAX_WEBP_REFERENCE)
+    ref = JAX_WEBP_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14k: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        got = read_image(path)
+        ok = path.read_bytes()[12:16] == b"VP8L" and \
+            got.shape == want.shape and np.array_equal(got, want)
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14k {path.name} is not viz's drawing")
+    print(f"[14] k, cli match on the WebP pair, .webp drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14h), on the card machine without PIL.  Raises with
-    every failure of its parts; returns each kernel's launches in 14c and
-    14g."""
+    """Phase 14 (14a-14k), on the card machine without PIL.  Raises with
+    every failure of its parts; returns each kernel's launches in 14c, 14g
+    and 14k."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -4806,6 +4998,10 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _match_tiff_pair(held, Path(d))
     failures += _item24_card_vs_cpu()
+    failures += _decode_webp_fixtures()
+    with tempfile.TemporaryDirectory() as d:
+        failures += _encode_webps(Path(d))
+        failures += _match_webp_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")

@@ -36,9 +36,16 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     float32 ("F"), gray+alpha, RGB, RGBA and palette indices ("P");
   - GIF (PIL's GifImagePlugin), the first frame: its palette indices
     ("P"), or "L" where the frame's palette is the identity gray ramp
-    or missing; LZW, interlaced or not, global or local palette.
-  Anything else (WebP, ...) raises a ``ValueError`` naming the format,
-  as do the variants the readers leave out.
+    or missing; LZW, interlaced or not, global or local palette;
+  - WebP (PIL's WebPImagePlugin, libwebp's WebPAnimDecoder): lossy VP8
+    key frames (either loop filter, one to eight token partitions),
+    lossless VP8L, ALPH in every coding and filter, and the first frame
+    of an animation on its zero-filled canvas, by
+    ``csrc/webp_decode.cpp`` (built like the JPEG decoder); RGB, or RGBA
+    where libwebp's WebPGetFeatures reports alpha (never "L").
+  Anything else (ICO, PSD, ...) raises a ``ValueError`` naming the
+  format, as do the variants the readers leave out (a VP8 inter frame,
+  which PIL refuses too, among them).
 * ``image_size(path)``: ``Image.open(path).size``, (width, height), from
   the header.
 * ``save_image(path, array)``: the format that the extension names, as
@@ -51,9 +58,14 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   ``.jpe``/``.jfif`` (bool and gray as one component, RGB as 4:2:0 YCbCr,
   quality 75, by ``csrc/jpeg_encode.cpp``, byte for byte PIL's);
   ``.tif``/``.tiff`` (PIL's uncompressed file, byte for byte: bool, gray,
-  gray+alpha, RGB, RGBA, uint16, int32, float).  Every other extension
-  (``.gif``, ``.webp``, ...) and every array that PIL refuses to write
-  in that format raise a ``ValueError`` naming them.
+  gray+alpha, RGB, RGBA, uint16, int32, float); ``.webp`` lossless
+  (``csrc/webp_encode.cpp``) where PIL writes lossy VP8: the modes that
+  PIL's ``WebPImagePlugin._convert_frame`` converts (bool, gray, uint16,
+  int32 and float to RGB, clipped; gray+alpha to RGBA) and a file that
+  PIL reads as it reads its own ``lossless=True`` save of the array.
+  Every other extension (``.gif``, ``.ico``, ...) and every array that
+  PIL refuses to write in that format raise a ``ValueError`` naming
+  them.
 """
 
 from __future__ import annotations
@@ -71,6 +83,8 @@ from mods_tpu_torch.io import png
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
 JPEG_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_encode.cpp")
+WEBP_SOURCE = os.path.join(_PKG, "csrc", "webp_decode.cpp")
+WEBP_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "webp_encode.cpp")
 
 # magic bytes of formats that PIL opens and this module does not
 _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
@@ -96,15 +110,13 @@ def _format(head: bytes, path) -> str:
     if head[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
     if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
-        name = "WebP"
-    else:
-        name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)),
-                    None)
+        return "WEBP"
+    name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
     if name:
         raise ValueError(f"{path}: {name} images are not supported (PNG, "
-                         f"JPEG, PNM, PFM, BMP, TIFF and GIF are)")
+                         f"JPEG, PNM, PFM, BMP, TIFF, GIF and WebP are)")
     raise ValueError(f"{path}: not an image format this reader knows (PNG, "
-                     f"JPEG, PNM, PFM, BMP, TIFF, GIF)")
+                     f"JPEG, PNM, PFM, BMP, TIFF, GIF, WebP)")
 
 
 def _array_mode(a: np.ndarray) -> str:
@@ -137,6 +149,9 @@ def _read(path) -> tuple[np.ndarray, str]:
         return _read_tiff(data, path)
     if fmt == "GIF":
         return _read_gif(data, path)
+    if fmt == "WEBP":
+        a = _read_webp(data, path)
+        return a, _array_mode(a)
     a = _read_pnm(data, path)
     return a, _array_mode(a)
 
@@ -164,6 +179,9 @@ def image_size(path) -> tuple[int, int]:
     if fmt == "GIF":
         with open(path, "rb") as f:
             return _gif_frame(f.read(), path)["size"]
+    if fmt == "WEBP":
+        with open(path, "rb") as f:
+            return _webp_info(f.read(), path)[:2]
     return _pnm_header(data, path)["size"]
 
 
@@ -530,6 +548,44 @@ def _jpeg_size(path) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# WebP (csrc/webp_decode.cpp)
+
+@functools.lru_cache(maxsize=1)
+def _webp_lib():
+    from mods_tpu_torch.detectors.mser import build_native
+    lib = ctypes.CDLL(build_native(WEBP_SOURCE, "libmods_webp.so"))
+    for fn in (lib.mods_webp_info, lib.mods_webp_decode):
+        fn.restype = ctypes.c_int
+    lib.mods_webp_info.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_char_p, ctypes.c_int]
+    lib.mods_webp_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int]
+    return lib
+
+
+def _webp_info(data: bytes, path) -> tuple[int, int, int]:
+    """(width, height, channels) of the canvas: PIL's size, and 4 where
+    PIL's mode is RGBA."""
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int32 * 3)()
+    if _webp_lib().mods_webp_info(data, len(data), info, err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return info[0], info[1], info[2]
+
+
+def _read_webp(data: bytes, path) -> np.ndarray:
+    w, h, c = _webp_info(data, path)
+    out = np.empty((h, w, c), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if _webp_lib().mods_webp_decode(data, len(data), out.ctypes.data,
+                                    out.size, err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # TIFF (PIL's TiffImagePlugin; libtiff decodes the compressed files)
 
 # field type -> struct code (rationals are read as two integers)
@@ -853,8 +909,9 @@ def _read_gif(data: bytes, path) -> tuple[np.ndarray, str]:
 _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PNM", ".bmp": "BMP",
                  ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-                 ".jfif": "JPEG", ".tif": "TIFF", ".tiff": "TIFF"}
-_NOT_WRITTEN = {".gif": "GIF", ".webp": "WebP", ".dib": "DIB",
+                 ".jfif": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
+                 ".webp": "WEBP"}
+_NOT_WRITTEN = {".gif": "GIF", ".dib": "DIB",
                 ".ico": "ICO", ".j2k": "JPEG 2000", ".jp2": "JPEG 2000"}
 
 
@@ -1011,6 +1068,48 @@ def _jpeg_bytes(a: np.ndarray, mode: str) -> bytes:
     return out[:n].tobytes()
 
 
+@functools.lru_cache(maxsize=1)
+def _webp_encoder():
+    from mods_tpu_torch.detectors.mser import build_native
+    lib = ctypes.CDLL(build_native(WEBP_ENCODER_SOURCE,
+                                   "libmods_webp_encode.so"))
+    lib.mods_webp_encode.restype = ctypes.c_int64
+    lib.mods_webp_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+    return lib
+
+
+def _webp_bytes(a: np.ndarray, mode: str) -> bytes:
+    """A lossless WebP (``csrc/webp_encode.cpp``) of the image that
+    ``WebPImagePlugin._convert_frame`` hands libwebp: RGB and RGBA as they
+    are, gray+alpha as RGBA, and every other mode converted to RGB as
+    PIL's ``convert("RGB")`` does (bool as 0/255, integers clipped to
+    0..255, floats truncated toward zero and clipped, NaN as 0)."""
+    if mode == "LA":
+        a = a[..., [0, 0, 0, 1]]
+    elif mode == "1":
+        a = a.astype(np.uint8) * 255
+    elif mode in ("I;16", "I"):
+        a = np.clip(a, 0, 255)
+    elif mode == "F":
+        a = np.clip(np.trunc(np.nan_to_num(a.astype(np.float32), nan=0.0,
+                                           posinf=255.0, neginf=0.0)), 0, 255)
+    if a.ndim == 2:
+        a = np.repeat(a[..., None], 3, -1)
+    a = np.ascontiguousarray(a.astype(np.uint8))
+    h, w, c = a.shape
+    # every pixel a literal: four codes of at most 15 bits
+    out = np.empty(h * w * 8 + 4096, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    n = _webp_encoder().mods_webp_encode(a.ctypes.data, w, h, c,
+                                         out.ctypes.data, out.size, err,
+                                         len(err))
+    if n < 0:
+        raise ValueError(err.value.decode())
+    return out[:n].tobytes()
+
+
 def save_image(path, array) -> None:
     """``Image.fromarray(array).save(path)`` (module docstring)."""
     ext = os.path.splitext(str(path))[1].lower()
@@ -1019,8 +1118,8 @@ def save_image(path, array) -> None:
         name = _NOT_WRITTEN.get(ext)
         raise ValueError(
             f"{path}: writing {name} images is not supported (.png, .pbm, "
-            f".pgm, .ppm, .pnm, .pfm, .bmp, .jpg, .jpeg, .jpe, .jfif, .tif "
-            f"and .tiff are)" if name else
+            f".pgm, .ppm, .pnm, .pfm, .bmp, .jpg, .jpeg, .jpe, .jfif, .tif, "
+            f".tiff and .webp are)" if name else
             f"{path}: unknown image file extension {ext!r}")
     a = np.asarray(array)
     mode = _mode(a)
@@ -1035,7 +1134,7 @@ def save_image(path, array) -> None:
         return
     try:
         data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "TIFF": _tiff_bytes,
-                "JPEG": _jpeg_bytes}[fmt](a, mode)
+                "JPEG": _jpeg_bytes, "WEBP": _webp_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

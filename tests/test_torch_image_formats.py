@@ -491,7 +491,7 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """JPEG-in-TIFF, the CCITT codings, WebP and YCCK JPEG: PIL reads
+    """JPEG-in-TIFF, the CCITT codings, ICO and YCCK JPEG: PIL reads
     each; the port raises a ValueError that names it."""
     cases = [("x.tif", dict(compression="jpeg"), GRAY, "JPEG"),
              ("x.tif", dict(compression="group4"), GRAY > 100,
@@ -500,7 +500,7 @@ def test_refusals_name_the_case(tmp_path):
               "CCITT Group 3"),
              ("x.tif", dict(compression="tiff_ccitt"), GRAY > 100,
               "CCITT RLE"),
-             ("x.webp", {}, RGB, "WebP")]
+             ("x.ico", {}, RGB, "ICO")]
     for name, kw, a, match in cases:
         p = tmp_path / name
         Image.fromarray(a).save(p, **kw)

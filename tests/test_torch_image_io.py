@@ -289,20 +289,20 @@ def test_read_image_equals_pil(tmp_path, case):
 
 
 def test_other_formats_raise_naming_them(tmp_path):
-    """TIFF, GIF and PFM, written by PIL, read as PIL reads them (they
-    raised before the port read them); so do the RLE-compressed and the
-    16-bit BMP.  WebP, written by PIL, and an unknown file raise a
+    """TIFF, GIF, PFM and WebP, written by PIL, read as PIL reads them
+    (they raised before the port read them); so do the RLE-compressed and
+    the 16-bit BMP.  ICO, written by PIL, and an unknown file raise a
     ValueError that names the format."""
-    for fmt in ("TIFF", "GIF", "PFM"):
+    for fmt in ("TIFF", "GIF", "PFM", "WebP"):
         p = tmp_path / f"x.{fmt.lower()}"
         Image.fromarray(GRAY.astype(np.float32) if fmt == "PFM"
-                        else GRAY).save(p)
+                        else RGB if fmt == "WebP" else GRAY).save(p)
         _hold_read(p)
-    p = tmp_path / "x.webp"
+    p = tmp_path / "x.ico"
     Image.fromarray(RGB).save(p)
-    with pytest.raises(ValueError, match="WebP"):
+    with pytest.raises(ValueError, match="ICO"):
         read_image(p)
-    with pytest.raises(ValueError, match="WebP"):
+    with pytest.raises(ValueError, match="ICO"):
         image_size(p)
     p = tmp_path / "x.bin"
     p.write_bytes(b"\x00\x01\x02\x03" * 8)
@@ -602,7 +602,7 @@ def test_save_image_cases_refused_before(tmp_path, name, array):
 
 
 @pytest.mark.parametrize("name,array,match", [
-    ("x.gif", GRAY, "GIF"), ("x.webp", RGB, "WebP"),
+    ("x.gif", GRAY, "GIF"), ("x.ico", RGB, "ICO"),
     ("x.foo", GRAY, "unknown image file extension"),
     ("x.png", GRAY.astype(np.float32), "mode F"),
     ("x.ppm", np.stack([GRAY, GRAY], -1), "mode LA as PPM"),
@@ -628,7 +628,7 @@ def test_save_image_refusals_name_what_they_refuse(tmp_path, name, array,
         save_image(p, array)
     assert not p.exists()
     if match != "unknown image file extension" and "GIF" not in match \
-            and "WebP" not in match:
+            and "ICO" not in match:
         with pytest.raises((OSError, TypeError, KeyError)):
             Image.fromarray(array).save(tmp_path / f"pil{name[1:]}")
 
