@@ -190,7 +190,17 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    encode and decode ms printed; (k) ``cli match`` on zoom2x's pair as
    PIL's lossy WebP fixtures, its drawings named .webp: its launches held
    to the plan, its figures to ``JAX_WEBP_REFERENCE`` by phase 6's rule,
-   each drawing decoded to ``viz``'s canvas exactly.
+   each drawing decoded to ``viz``'s canvas exactly; (l) six canvases of
+   zoom2x_1, zoom2x_2 and tilt4_1 (gray, RGB with fewer than 257 colours,
+   RGB of 11910 and of 159415 colours, RGBA, a 12-row strip) written as
+   .gif by ``save_image`` (``csrc/gif_encode.cpp``: Pillow's median cut
+   or fast octree, its GIF LZW) and read back by the port, the bytes'
+   SHA-256 and the read-back's mode and SHA-256 held to PIL's
+   (``GIF_ENCODE_SHA256``), the encode and decode ms printed; (m) ``cli
+   match`` on the WebP zoom2x pair (RGB), its drawings named .gif: its
+   launches held to the plan, its figures to ``JAX_GIF_REFERENCE`` by
+   phase 6's rule, each drawing decoded to ``adaptive_palette``'s
+   indices of ``viz``'s canvas, its palette that palette.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1783,8 +1793,9 @@ def _profile_ladder() -> None:
 def _build_native() -> None:
     """Phase 1, host side: the port's own builds of ``native/mser.cpp``,
     ``native/render.cpp``, the JPEG decoder ``csrc/jpeg_decode.cpp`` and
-    encoder ``csrc/jpeg_encode.cpp``, and the WebP decoder
-    ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (g++,
+    encoder ``csrc/jpeg_encode.cpp``, the WebP decoder
+    ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp``, and the
+    GIF writer's ``csrc/gif_encode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
@@ -1799,13 +1810,15 @@ def _build_native() -> None:
         raise RuntimeError(f"g++ --version failed: {out.stderr.strip()}")
     t0 = time.perf_counter()
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
-              image._jpeg_encoder, image._webp_lib, image._webp_encoder)
+              image._jpeg_encoder, image._webp_lib, image._webp_encoder,
+              image._gif_encoder)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
     print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
-          f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp built into "
+          f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
+          f"gif_encode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -4573,6 +4586,48 @@ WEBP_ENCODE_SHA256 = {
 # ``JAX_PLATFORMS=cpu python tests/test_torch_webp.py --jax-webp``
 JAX_WEBP_REFERENCE = dict(steps=1, tentatives=135, matches=30,
                           gt_consistent=30, corner_error_px=26.647)
+# 14l: PIL 12.1.0's GIF of each of ``gif_encode_canvases``
+# (Image.fromarray(canvas).save(f, "GIF")): the file's SHA-256, and the
+# mode and the SHA-256 of np.asarray(Image.open(f)).tobytes()
+# (tests/test_torch_gif_write.py::test_gif_encode_hashes_are_pils
+# computes them with PIL)
+GIF_ENCODE_SHA256 = {
+    "zoom2x_1 L": (
+        "e9ec4cbf469e5e4e94d67d17e7079297"
+        "a6d001ad56a51eecd21521787511b122",
+        "P", "4ef0324b5b586421e1ef2e664a10bde5"
+        "2c2fe035689361c1d6069ce30ac7d6e6"),
+    "zoom2x_1 RGB with coloured lines": (
+        "e4de41409a5212d0e2be69f60701126e"
+        "941e6a80937442e7a66e0590efa267c6",
+        "P", "06073e2c24c39ac7afd2a76c9dab23ce"
+        "b459a74b4dc4362ae334068d5dbf3420"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        "e52170fdf00e7eef50da6acf1d87f24b"
+        "50b9365448918648c61bb75858a465b6",
+        "P", "ff7ab8067152b6b0f4542fa92fde6920"
+        "c358a5b8d47bd61809319d2162b13e66"),
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": (
+        "0c502d270deaace947982b7fcf396910"
+        "c8533f46df113c344204226d91594b38",
+        "P", "ad3d8f759a6dfe1f20c74a69008078e8"
+        "e38ffa4693ce9f6dd8fb1256a71a3f04"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+        "7b057057293018560e26fa5ab94a2420"
+        "81f7906c2d8441e8166b3661300e77bf",
+        "P", "a8b96a04caa7c7a0f8a8ed47e4955590"
+        "322301813a176d913584e05ee7b627ec"),
+    "a 12-row strip of the RGB canvas": (
+        "155125bcd95e93d91d3a6c7a0b7ed2ca"
+        "999f853f4948c8af017fd0cc4cf09dd9",
+        "P", "5cfc9037d87decc3fd92f70248035533"
+        "9fe3a4667d7bdcef1b7473ad9fa958ff"),
+}
+# The JAX command (LORANSACH, this script's CVIU-shaped INI files) on the
+# WebP zoom2x fixtures with its drawings named o1.gif and o2.gif, on the
+# CPU: ``JAX_PLATFORMS=cpu python tests/test_torch_gif_write.py --jax-gif``
+JAX_GIF_REFERENCE = dict(steps=1, tentatives=135, matches=30,
+                         gt_consistent=30, corner_error_px=26.647)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -4954,6 +5009,105 @@ def _encode_webps(work: Path) -> list:
     return failures
 
 
+def gif_encode_canvases(views: list) -> dict:
+    """14l's canvases of the zoom2x_1, zoom2x_2 and tilt4_1 views: {name:
+    canvas}.  The gray view (written raw, its levels remapped); the view
+    halved to 128 levels as RGB with lines in six colours (fewer than 257
+    colours: one palette entry each); the three views as RGB (11910
+    colours: boxes of several); zoom2x_1, zoom2x_2 and zoom2x_1 turned
+    half a turn as RGB (159415 colours: the colour hash at a coarser
+    scale); 14j's RGBA canvas (the fast octree, a transparent entry); a
+    12-row strip of the RGB canvas (not interlaced)."""
+    import numpy as np
+    from mods_tpu_torch import viz
+    z1 = views[0]
+    h, w = z1.shape
+    lines = np.stack([z1 >> 1 << 1] * 3, -1)
+    for k, colour in enumerate(((255, 0, 0), (0, 255, 0), (0, 0, 255),
+                                (255, 255, 0), (0, 255, 255),
+                                (255, 0, 255))):
+        viz._draw_line(lines, (0.0, k * h / 6), (w - 1.0, h - 1 - k * h / 6),
+                       colour)
+    rgb = np.stack(views, -1)
+    return {"zoom2x_1 L": z1,
+            "zoom2x_1 RGB with coloured lines": lines,
+            "zoom2x_1, zoom2x_2, tilt4_1 RGB": rgb,
+            "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": np.stack(
+                [z1, views[1], z1[::-1, ::-1]], -1),
+            "zoom2x_1, zoom2x_2, tilt4_1 RGBA": webp_encode_canvases(views)[
+                "zoom2x_1, zoom2x_2, tilt4_1 RGBA"][0],
+            "a 12-row strip of the RGB canvas":
+                np.ascontiguousarray(rgb[494:506])}
+
+
+def _encode_gifs(work: Path) -> list:
+    """14l: each of ``gif_encode_canvases`` written as .gif by
+    ``save_image`` (``csrc/gif_encode.cpp``'s quantiser and LZW) and read
+    back by the port: the bytes' SHA-256 and the read-back's mode and
+    SHA-256 against PIL's file of the canvas and PIL's reading of it
+    (``GIF_ENCODE_SHA256``), the median encode and decode ms of three."""
+    import hashlib
+    from mods_tpu_torch.io.image import _read, read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    out, failures = {}, []
+    for i, (name, canvas) in enumerate(gif_encode_canvases(views).items()):
+        p = work / f"canvas_{i}.gif"
+        enc, dec = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_image(p, canvas)
+            enc.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            back, mode = _read(p)
+            dec.append((time.perf_counter() - t0) * 1e3)
+        data = p.read_bytes()
+        file_sha, want_mode, read_sha = GIF_ENCODE_SHA256[name]
+        same = hashlib.sha256(data).hexdigest() == file_sha
+        equal = mode == want_mode and \
+            hashlib.sha256(back.tobytes()).hexdigest() == read_sha
+        out[name] = dict(shape=list(canvas.shape), bytes=len(data),
+                         encode_ms=statistics.median(enc),
+                         decode_ms=statistics.median(dec),
+                         sha256_equal_to_pil=same,
+                         read_back_equal_to_pil=equal)
+        if not (same and equal):
+            failures.append(f"14l {name}: {out[name]}")
+    print(f"[14] l, GIF encode on the host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def _match_gif_pair(held, work: Path) -> list:
+    """14m: ``cli match`` on the WebP zoom2x fixtures (RGB) against
+    ``JAX_GIF_REFERENCE`` (``_held_cli_match``), its drawings named .gif:
+    each decodes to ``adaptive_palette``'s indices of ``viz``'s canvas,
+    and its global palette begins with that palette (a canvas of more
+    than 512 x 512 pixels keeps the quantiser's palette)."""
+    import numpy as np
+    from mods_tpu_torch.io.image import adaptive_palette, read_image
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x WebP",
+        [IMAGE_FIXTURES / f"zoom2x_{i}.webp" for i in (1, 2)],
+        (work / "o1.gif", work / "o2.gif"), JAX_GIF_REFERENCE)
+    ref = JAX_GIF_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14m: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, canvas in drawings:
+        data = path.read_bytes()
+        got = read_image(path)
+        index, palette = adaptive_palette(canvas)
+        ok = data[:6] == b"GIF87a" and got.shape == index.shape and \
+            np.array_equal(got, index) and \
+            data[13:13 + palette.size] == palette.tobytes()
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14m {path.name} is not viz's drawing")
+    print(f"[14] m, cli match on the WebP pair, .gif drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _match_webp_pair(held, work: Path) -> list:
     """14k: ``cli match`` on the WebP zoom2x fixtures (PIL's lossy files)
     against ``JAX_WEBP_REFERENCE`` (``_held_cli_match``), its drawings
@@ -4982,9 +5136,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14k), on the card machine without PIL.  Raises with
-    every failure of its parts; returns each kernel's launches in 14c, 14g
-    and 14k."""
+    """Phase 14 (14a-14m), on the card machine without PIL.  Raises with
+    every failure of its parts; returns each kernel's launches in 14c, 14g,
+    14k and 14m."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -5002,6 +5156,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _encode_webps(Path(d))
         failures += _match_webp_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _encode_gifs(Path(d))
+        failures += _match_gif_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -5185,7 +5342,8 @@ def main() -> int:
                                "paths")
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
-    print(f"[14] kernel launches on the JPEG and TIFF pairs' commands: "
+    print(f"[14] kernel launches on the JPEG, TIFF, WebP and WebP-to-GIF "
+          f"pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -4,8 +4,9 @@ Each ``<name>.cu`` has a plain C interface.  It is compiled with ``nvcc``
 for Hopper (``sm_90a``) into ``mods_tpu_torch/_build/`` at first use and
 bound with ``ctypes``; nothing here runs at import.  The library's file
 name carries a hash of its source and of the ``*.cuh`` headers beside it,
-so an edited kernel or header is rebuilt.  ``jpeg_decode.cpp`` beside
-them is host C++, not a kernel: ``io/image.py`` builds it with g++.
+so an edited kernel or header is rebuilt.  The ``*.cpp`` files beside
+them (the JPEG, WebP and GIF codecs) are host C++, not kernels:
+``io/image.py`` builds them with g++.
 """
 
 from __future__ import annotations

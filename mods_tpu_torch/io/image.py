@@ -16,7 +16,8 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     to 65535) where maxval > 255; P3/P6 as (H, W, 3) uint8, rescaled to
     255; PFM ("Pf") as float32 ("F"), rows bottom-up, little-endian
     where the scale is negative;
-  - BMP (PIL's BmpImagePlugin), uncompressed, RLE8, RLE4 or with the
+  - BMP (PIL's BmpImagePlugin), and DIB (a BMP without its file header,
+    as PIL's DibImageFile reads it), uncompressed, RLE8, RLE4 or with the
     bitfield masks PIL reads: 1-, 4- and 8-bit palettes as indices
     ("P"), as bool ("1") or gray ("L") where the palette is black and
     white or the gray ramp; 16-bit 5-5-5 and 5-6-5 as RGB (each field
@@ -54,24 +55,34 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   clipped to 0..65535 as 16-bit gray); ``.pbm``/``.pgm``/``.ppm``/
   ``.pnm``/``.pfm`` (P4 for bool, P5 for uint8, P5 with maxval 65535 for
   uint16 and for int32 clipped to 0..65535, P6 for RGB and RGBA, PFM
-  "Pf" for float); ``.bmp`` (bool, gray, RGB, RGBA); ``.jpg``/``.jpeg``/
-  ``.jpe``/``.jfif`` (bool and gray as one component, RGB as 4:2:0 YCbCr,
-  quality 75, by ``csrc/jpeg_encode.cpp``, byte for byte PIL's);
-  ``.tif``/``.tiff`` (PIL's uncompressed file, byte for byte: bool, gray,
+  "Pf" for float); ``.bmp`` (bool, gray, RGB, RGBA) and ``.dib`` (the
+  same without the 14-byte file header); ``.jpg``/``.jpeg``/``.jpe``/
+  ``.jfif`` (bool and gray as one component, RGB as 4:2:0 YCbCr, quality
+  75, by ``csrc/jpeg_encode.cpp``, byte for byte PIL's); ``.tif``/
+  ``.tiff`` (PIL's uncompressed file, byte for byte: bool, gray,
   gray+alpha, RGB, RGBA, uint16, int32, float); ``.webp`` lossless
   (``csrc/webp_encode.cpp``) where PIL writes lossy VP8: the modes that
   PIL's ``WebPImagePlugin._convert_frame`` converts (bool, gray, uint16,
   int32 and float to RGB, clipped; gray+alpha to RGBA) and a file that
-  PIL reads as it reads its own ``lossless=True`` save of the array.
-  Every other extension (``.gif``, ``.ico``, ...) and every array that
-  PIL refuses to write in that format raise a ``ValueError`` naming
-  them.
+  PIL reads as it reads its own ``lossless=True`` save of the array;
+  ``.gif`` byte for byte PIL's (GifImagePlugin's rules here, the
+  quantiser and the LZW in ``csrc/gif_encode.cpp``, built like the
+  others): bool and gray raw, RGB and RGBA through ``adaptive_palette``,
+  the other modes converted to gray.  int8 arrays are PIL's unsigned
+  "I;8" and uint32 arrays its "I;32", their bits as int32, in every
+  format that writes "I".  Every other extension (``.ico``, ...) and
+  every array that PIL refuses to write in that format raise a
+  ``ValueError`` naming them.
+* ``adaptive_palette(array)``: the indices and the palette of
+  ``Image.fromarray(array).convert("P", palette=Image.Palette.ADAPTIVE)``
+  (Pillow's median cut for gray and RGB, its fast octree for RGBA).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 import struct
 import zlib
@@ -85,6 +96,7 @@ JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
 JPEG_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_encode.cpp")
 WEBP_SOURCE = os.path.join(_PKG, "csrc", "webp_decode.cpp")
 WEBP_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "webp_encode.cpp")
+GIF_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "gif_encode.cpp")
 
 # magic bytes of formats that PIL opens and this module does not
 _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
@@ -114,9 +126,12 @@ def _format(head: bytes, path) -> str:
     name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
     if name:
         raise ValueError(f"{path}: {name} images are not supported (PNG, "
-                         f"JPEG, PNM, PFM, BMP, TIFF, GIF and WebP are)")
+                         f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF and WebP "
+                         f"are)")
+    if len(head) >= 4 and _u32(head, 0) in _BMP_HEADER_SIZES:
+        return "DIB"
     raise ValueError(f"{path}: not an image format this reader knows (PNG, "
-                     f"JPEG, PNM, PFM, BMP, TIFF, GIF, WebP)")
+                     f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP)")
 
 
 def _array_mode(a: np.ndarray) -> str:
@@ -145,6 +160,8 @@ def _read(path) -> tuple[np.ndarray, str]:
             else _array_mode(a)
     if fmt == "BMP":
         return _read_bmp(data, path)
+    if fmt == "DIB":
+        return _read_bmp(_dib_as_bmp(data, path), path)
     if fmt == "TIFF":
         return _read_tiff(data, path)
     if fmt == "GIF":
@@ -170,8 +187,9 @@ def image_size(path) -> tuple[int, int]:
         return png.png_size(path)
     if fmt == "JPEG":
         return _jpeg_size(path)
-    if fmt == "BMP":
-        return _bmp_header(data, path)["size"]
+    if fmt in ("BMP", "DIB"):
+        return _bmp_header(data if fmt == "BMP" else _dib_as_bmp(data, path),
+                           path)["size"]
     if fmt == "TIFF":
         with open(path, "rb") as f:
             tags = _tiff_ifd(f.read(), path)[1]
@@ -341,6 +359,10 @@ def _u32(b: bytes, i: int) -> int:
     return int.from_bytes(b[i:i + 4], "little")
 
 
+# the info header sizes that PIL's BMP and DIB readers know
+_BMP_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
+
+
 def _bmp_header(data: bytes, path) -> dict:
     hsize = _u32(data, 14)
     hd = data[18:14 + hsize]
@@ -372,6 +394,17 @@ def _bmp_header(data: bytes, path) -> dict:
         offset += 4 * out["colors"]
     out["offset"] = offset
     return out
+
+
+def _dib_as_bmp(data: bytes, path) -> bytes:
+    """A DIB (a BMP without its file header) with the file header put back:
+    its pixels start where PIL's DibImageFile reads them, after the info
+    header, the bitfield masks read outside it and the palette."""
+    hd = _bmp_header(b"BM" + bytes(12) + data, path)
+    at = hd["palette_at"]
+    if hd["bits"] <= 8:
+        at += (3 if _u32(data, 0) == 12 else 4) * hd["colors"]
+    return b"BM" + struct.pack("<IHHI", 14 + len(data), 0, 0, at) + data
 
 
 def _bmp_rle(data: bytes, at: int, w: int, h: int, rle4: bool) -> bytes:
@@ -908,11 +941,10 @@ def _read_gif(data: bytes, path) -> tuple[np.ndarray, str]:
 
 _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PNM", ".bmp": "BMP",
-                 ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-                 ".jfif": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
-                 ".webp": "WEBP"}
-_NOT_WRITTEN = {".gif": "GIF", ".dib": "DIB",
-                ".ico": "ICO", ".j2k": "JPEG 2000", ".jp2": "JPEG 2000"}
+                 ".dib": "DIB", ".jpg": "JPEG", ".jpeg": "JPEG",
+                 ".jpe": "JPEG", ".jfif": "JPEG", ".tif": "TIFF",
+                 ".tiff": "TIFF", ".webp": "WEBP", ".gif": "GIF"}
+_NOT_WRITTEN = {".ico": "ICO", ".j2k": "JPEG 2000", ".jp2": "JPEG 2000"}
 
 
 def _mode(a: np.ndarray) -> str:
@@ -924,7 +956,8 @@ def _mode(a: np.ndarray) -> str:
             return "L"
         if a.dtype == np.uint16:
             return "I;16"
-        if a.dtype.kind == "i" and a.dtype.itemsize <= 4:
+        if (a.dtype.kind == "i" and a.dtype.itemsize <= 4) or \
+                a.dtype == np.uint32:
             return "I"
         if a.dtype in (np.float32, np.float64):
             return "F"
@@ -978,6 +1011,11 @@ def _bmp_bytes(a: np.ndarray, mode: str) -> bytes:
     head = np.array([offset + body.size, 0, offset, 40, w, h, 1 | bits << 16,
                      0, body.size, ppm, ppm, colors, colors], "<u4")
     return b"BM" + head.tobytes() + pal + body[::-1].tobytes()
+
+
+def _dib_bytes(a: np.ndarray, mode: str) -> bytes:
+    """PIL's DIB: its BMP without the 14-byte file header."""
+    return _bmp_bytes(a, mode)[14:]
 
 
 # TiffImagePlugin.SAVE_INFO: mode -> (photometric, sample format, bits per
@@ -1090,11 +1128,8 @@ def _webp_bytes(a: np.ndarray, mode: str) -> bytes:
         a = a[..., [0, 0, 0, 1]]
     elif mode == "1":
         a = a.astype(np.uint8) * 255
-    elif mode in ("I;16", "I"):
-        a = np.clip(a, 0, 255)
-    elif mode == "F":
-        a = np.clip(np.trunc(np.nan_to_num(a.astype(np.float32), nan=0.0,
-                                           posinf=255.0, neginf=0.0)), 0, 255)
+    elif mode in ("I;16", "I", "F"):
+        a = _to_l(a, mode)
     if a.ndim == 2:
         a = np.repeat(a[..., None], 3, -1)
     a = np.ascontiguousarray(a.astype(np.uint8))
@@ -1110,6 +1145,154 @@ def _webp_bytes(a: np.ndarray, mode: str) -> bytes:
     return out[:n].tobytes()
 
 
+@functools.lru_cache(maxsize=1)
+def _gif_encoder():
+    from mods_tpu_torch.detectors.mser import build_native
+    lib = ctypes.CDLL(build_native(GIF_ENCODER_SOURCE,
+                                   "libmods_gif_encode.so"))
+    lib.mods_gif_quantize.restype = ctypes.c_int
+    lib.mods_gif_quantize.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+        ctypes.c_int]
+    lib.mods_gif_lzw.restype = ctypes.c_int64
+    lib.mods_gif_lzw.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
+        ctypes.c_int]
+    return lib
+
+
+def _quantize(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/gif_encode.cpp``'s ImagingQuantize(im, 256): the median cut
+    of a gray or RGB array, the fast octree of an RGBA one -> (indices
+    uint8 (H, W), palette uint8 (N, 4), alpha 255 but for the octree's)."""
+    a = np.ascontiguousarray(a, np.uint8)
+    h, w = a.shape[:2]
+    if not h * w:
+        raise ValueError(f"cannot quantize an empty {a.shape} array")
+    index = np.empty((h, w), np.uint8)
+    palette = np.zeros((256, 4), np.uint8)
+    n = ctypes.c_int32()
+    err = ctypes.create_string_buffer(256)
+    if _gif_encoder().mods_gif_quantize(
+            a.ctypes.data, h * w, 1 if a.ndim == 2 else a.shape[2],
+            index.ctypes.data, palette.ctypes.data, ctypes.byref(n), err,
+            len(err)):
+        raise ValueError(err.value.decode())
+    return index, palette[:n.value]
+
+
+def adaptive_palette(array) -> tuple[np.ndarray, np.ndarray]:
+    """``Image.fromarray(array).convert("P", palette=Image.Palette.
+    ADAPTIVE)``: its indices, uint8 (H, W), and ``getpalette()`` as uint8
+    (N, 3).  Gray and RGB arrays go through Pillow's median cut, RGBA
+    through its fast octree (N = 256), as ``convert`` sends them."""
+    a = np.asarray(array)
+    mode = _mode(a)
+    if mode not in ("L", "RGB", "RGBA"):
+        raise ValueError(f"cannot quantize mode {mode} (L, RGB and RGBA "
+                         f"are)")
+    index, palette = _quantize(a)
+    return index, np.ascontiguousarray(palette[:, :3])
+
+
+def _to_l(a: np.ndarray, mode: str) -> np.ndarray:
+    """PIL's ``convert("L")`` of "LA", "I;16", "I" and "F": the gray
+    channel, values clipped to 0..255 (floats truncated toward zero, NaN
+    as 0)."""
+    if mode == "LA":
+        return np.ascontiguousarray(a[..., 0])
+    if mode == "F":
+        return np.clip(np.trunc(np.nan_to_num(
+            a.astype(np.float32), nan=0.0, posinf=255.0, neginf=0.0)),
+            0, 255).astype(np.uint8)
+    return np.clip(a, 0, 255).astype(np.uint8)
+
+
+def _gif_table_size(palette: bytes) -> int:
+    """GifImagePlugin._get_color_table_size."""
+    if not palette:
+        return 0
+    if len(palette) < 9:
+        return 1
+    return math.ceil(math.log(len(palette) // 3, 2)) - 1
+
+
+def _gif_bytes(a: np.ndarray, mode: str) -> bytes:
+    """PIL's GIF with its defaults (``optimize=True``): GifImagePlugin's
+    ``_normalize_mode`` ("1" and "L" raw, RGB and RGBA through
+    ``adaptive_palette``'s quantiser, the rest converted to "L"),
+    ``_normalize_palette`` and ``_get_optimize`` (an "L" image always
+    remapped to the levels it uses, a "P" image below 512 x 512 pixels
+    where its palette has holes or would halve), the global header and
+    palette padded to a power of two, version 87a or 89a with a graphic
+    control extension where an RGBA palette names a transparent entry,
+    and the image data by ``csrc/gif_encode.cpp``'s LZW, interlaced unless
+    a side is below 16."""
+    h, w = a.shape[:2]
+    if not (1 <= w <= 65535 and 1 <= h <= 65535):
+        raise ValueError(f"a GIF's sides are 1 to 65535 pixels, not {w} x "
+                         f"{h}")
+    transparency = None
+    if mode in ("RGB", "RGBA"):
+        px, pal = _quantize(a)
+        if mode == "RGBA":
+            clear = np.flatnonzero(pal[:, 3] == 0)
+            transparency = int(clear[0]) if clear.size else None
+            source = pal.tobytes()
+        else:
+            source = pal[:, :3].tobytes()
+        is_p, bands = True, 4 if mode == "RGBA" else 3
+    else:
+        px = (a.astype(np.uint8) * 255 if mode == "1" else
+              a if mode == "L" else _to_l(a, mode))
+        source = bytes(i // 3 for i in range(768))
+        is_p, bands = False, 3
+        if mode != "1":
+            mode = "L"
+    # _get_optimize
+    used = None
+    if is_p or mode == "L":
+        if mode == "L" or w * h < 512 * 512:
+            levels = np.flatnonzero(np.bincount(px.ravel(), minlength=256))
+            if mode == "L" or levels[-1] >= len(levels):
+                used = levels
+            else:
+                size = 1 << (len(source) // bands - 1).bit_length()
+                if len(levels) <= size // 2 and size > 2:
+                    used = levels
+    if used is not None:                                 # remap_palette
+        src = np.frombuffer(source, np.uint8).reshape(-1, bands)
+        mapping = np.zeros(256, np.uint8)
+        mapping[used] = np.arange(len(used))
+        px = mapping[px]
+        source = src[used].tobytes()
+        if transparency is not None:
+            hit = np.flatnonzero(used == transparency)
+            transparency = int(hit[0]) if hit.size else None
+    palette = np.frombuffer(source, np.uint8).reshape(-1, bands)[:, :3] \
+        .tobytes()
+    size = _gif_table_size(palette)
+    palette += bytes(3 * max(0, (2 << size) - len(palette) // 3))
+    interlace = 0 if min(w, h) < 16 else 1
+    head = (b"GIF" + (b"87a" if transparency is None else b"89a")
+            + struct.pack("<HHBBB", w, h, size + 128, 0, 0) + palette)
+    if transparency is not None:
+        head += b"!\xf9\x04\x01\x00\x00" + bytes([transparency, 0])
+    head += b"," + struct.pack("<HHHHBB", 0, 0, w, h, 64 * interlace, 8)
+    px = np.ascontiguousarray(px, np.uint8)
+    # at most 12 bits of LZW a pixel, and a length byte every 255 bytes
+    out = np.empty(2 * w * h + 1024, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    n = _gif_encoder().mods_gif_lzw(px.ctypes.data, w, h, interlace,
+                                    max(65536, 4 * w), out.ctypes.data,
+                                    out.size, err, len(err))
+    if n < 0:
+        raise ValueError(err.value.decode())
+    return head + out[:n].tobytes() + b"\x00;"
+
+
 def save_image(path, array) -> None:
     """``Image.fromarray(array).save(path)`` (module docstring)."""
     ext = os.path.splitext(str(path))[1].lower()
@@ -1118,13 +1301,15 @@ def save_image(path, array) -> None:
         name = _NOT_WRITTEN.get(ext)
         raise ValueError(
             f"{path}: writing {name} images is not supported (.png, .pbm, "
-            f".pgm, .ppm, .pnm, .pfm, .bmp, .jpg, .jpeg, .jpe, .jfif, .tif, "
-            f".tiff and .webp are)" if name else
+            f".pgm, .ppm, .pnm, .pfm, .bmp, .dib, .jpg, .jpeg, .jpe, .jfif, "
+            f".tif, .tiff, .webp and .gif are)" if name else
             f"{path}: unknown image file extension {ext!r}")
     a = np.asarray(array)
     mode = _mode(a)
-    if mode == "I":                      # PIL reads int8 as "I;8": unsigned
-        a = (a.view(np.uint8) if a.dtype == np.int8 else a).astype(np.int32)
+    if mode == "I":          # PIL reads int8 as "I;8" (unsigned) and uint32
+        # as "I;32" (its bits as int32)
+        a = (a.view(np.uint8) if a.dtype == np.int8 else
+             a.view(np.int32) if a.dtype == np.uint32 else a).astype(np.int32)
     if fmt == "PNG":
         if mode == "F":
             raise ValueError(f"{path}: cannot write mode F as PNG")
@@ -1133,8 +1318,9 @@ def save_image(path, array) -> None:
                       if mode == "I" else a)
         return
     try:
-        data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "TIFF": _tiff_bytes,
-                "JPEG": _jpeg_bytes, "WEBP": _webp_bytes}[fmt](a, mode)
+        data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "DIB": _dib_bytes,
+                "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes, "WEBP": _webp_bytes,
+                "GIF": _gif_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:
