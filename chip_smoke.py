@@ -200,7 +200,18 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    match`` on the WebP zoom2x pair (RGB), its drawings named .gif: its
    launches held to the plan, its figures to ``JAX_GIF_REFERENCE`` by
    phase 6's rule, each drawing decoded to ``adaptive_palette``'s
-   indices of ``viz``'s canvas, its palette that palette.
+   indices of ``viz``'s canvas, its palette that palette; (n) the TIFF
+   fixtures of ``TIFF_VARIANT_FIXTURES`` (CCITT, JPEG-in-TIFF, YCbCr
+   through libtiff's RGBA interface, BigTIFF, predictor 3 under LZMA,
+   fill order 2, LAB, CMYK, associated alpha, 12-bit, the Orientation
+   tag) decoded on the host by ``io/tiff.py`` (``csrc/tiff_decode.cpp``,
+   ``csrc/jpeg_decode.cpp``), each array's shape, mode and SHA-256 held
+   to PIL's (``FORMAT_FIXTURE_SHA256``), the decode ms printed, and
+   zoom2x_1 as a 1000x598 LZW TIFF and GIF read in ms; (o) ``cli match``
+   on zoom2x's pair as YCbCr JPEG-in-TIFF in tiles: its launches held to
+   the plan, its figures to ``JAX_TIFF_JPEG_REFERENCE`` by phase 6's rule
+   and its tentatives within 20 %, its drawings named .tif read back to
+   ``viz``'s canvases.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -210,6 +221,10 @@ needs no network and imports nothing of JAX or of ``mods_tpu``.
 ``python3 chip_smoke.py --capture-all`` instead runs every other
 detector's and descriptor family's ladder through the monolith on
 zoom2x, capturing each rung it reaches (``capture_all``).
+
+``python3 chip_smoke.py --probe-image-reads TREE LABEL`` instead times
+14n's 1000x598 LZW TIFF and GIF reads with the ``io/image.py`` of the
+checkout at TREE (``probe_image_reads``).
 
 ``python3 chip_smoke.py --probe-batched-f TREE LABEL`` instead shows
 where 13c's ORSA batch spends its time with the port of the checkout at
@@ -1794,15 +1809,16 @@ def _build_native() -> None:
     """Phase 1, host side: the port's own builds of ``native/mser.cpp``,
     ``native/render.cpp``, the JPEG decoder ``csrc/jpeg_decode.cpp`` and
     encoder ``csrc/jpeg_encode.cpp``, the WebP decoder
-    ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp``, and the
-    GIF writer's ``csrc/gif_encode.cpp`` (g++,
+    ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp``, the
+    GIF writer's ``csrc/gif_encode.cpp`` and the TIFF and GIF codecs of
+    ``csrc/tiff_decode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
     import os
     from concurrent.futures import ThreadPoolExecutor
     from mods_tpu_torch.detectors import mser
-    from mods_tpu_torch.io import image
+    from mods_tpu_torch.io import image, tiff
     from mods_tpu_torch.ops import host_render
     out = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True, timeout=60)
@@ -1811,14 +1827,14 @@ def _build_native() -> None:
     t0 = time.perf_counter()
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
-              image._gif_encoder)
+              image._gif_encoder, tiff._lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
     print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
-          f"gif_encode.cpp built into "
+          f"gif_encode.cpp, tiff_decode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -4495,7 +4511,56 @@ FORMAT_FIXTURE_SHA256 = {
                    "aa56681aec1682ded2542c349ee66"),
     "cmyk.jpg": ((96, 128, 4), "CMYK", "1865c5dad152bb2d7f2b75c94fc2abeda79"
                  "de0c19621b187c885724e5097ef53"),
+    "ccitt_g4.tif": ((96, 128), "1", "05c62fc613e409cead473abc9e857bcba85"
+                     "9261c671eae3221529fbcfe5f342e"),
+    "ccitt_g3_2d_fill2.tif": ((96, 128), "1", "b6a68bf0d34af360ed44152ce17c"
+                              "a34e67ce76247c04e30d453e9feec8e956f1"),
+    "ccitt_rle_tiles.tif": ((96, 128), "1", "05c62fc613e409cead473abc9e857b"
+                            "cba859261c671eae3221529fbcfe5f342e"),
+    "jpeg_ycbcr_420_tiles.tif": ((96, 128, 3), "RGB", "f55a166f352c155cad5e"
+                                 "db16eca1f375ce3fcb34fc294f543d724f1fcb4a"
+                                 "aee9"),
+    "jpeg_cmyk.tif": ((96, 128, 4), "CMYK", "5bf754c521e7a8a8a4d80a00205001"
+                      "79480392d3a924491cdb4a6f75c558145f"),
+    "ycbcr_422_lzw.tif": ((96, 128, 3), "RGB", "e1d53e479f1de66a5093055f625"
+                          "4f8436b8037d9170b90253994e83c3b310ddb"),
+    "ycbcr_44_tiles.tif": ((96, 128, 3), "RGB", "b3d06bb8e4aea1217af3ac19ee"
+                           "4cbba3e7a31333eb73ef9e7c9e534582b11d7d"),
+    "rgb16_bigtiff.tif": ((48, 64, 3), "RGB", "a2cc61079eacfd47e90fc2061c5c"
+                          "8671bc92c10d3fc5c315c689a99982282e19"),
+    "float_predictor3_lzma.tif": ((48, 64), "F", "38a177a76973c67c1ee6e2285"
+                                  "9a9dfdb6dabdcebbfb989b32f213553dd355bb7"),
+    "cmyk16_mm.tif": ((48, 64, 4), "CMYK", "d3b854ae96ee89449ce7c7a6e03e0de"
+                      "7b8145f642b6b7639a4e42db6197e0cd6"),
+    "rgba_associated.tif": ((48, 64, 4), "RGBA", "ea3e9f7252176909c9e0ee885"
+                            "658042f24047fcaa13f3e5311eefcf45c93bee1"),
+    "lab_tiles.tif": ((48, 64, 3), "LAB", "76d463c2aa2c3cb8e398504399104a98"
+                      "88a6ab8f59e89d8ca4308438d12a505b"),
+    "gray4_fill2.tif": ((48, 64), "L", "39372ba6bacccca6866a90eefede91a5d6d"
+                        "49e04edf4ce1f7c4990f2dba1cf03"),
+    "gray12_old_lzw.tif": ((48, 64), "I;16", "6c63ac6f8d5e4b669ffb99227063a"
+                           "60bc995cdf855b68e00df5ab3618f88577a"),
+    "palette2_packbits.tif": ((48, 64), "P", "2a90c4e3f5af4577ec0feb48450e58"
+                              "f96568fd59a2c3731c59301b59c34d89d1"),
+    "oriented_6.tif": ((64, 48, 3), "RGB", "c81c7fb88830d823f40fc40eedf6b60b"
+                       "4d1cecd8242e583e4c2fa6b1c5ef3f02"),
+    "zoom2x_1_ycbcr_jpeg.tif": ((1000, 598, 3), "RGB", "c8cc46b79644c43c2e9"
+                                "11de6e79ef6a1518242ec5dc4b999061003af086cd2"
+                                "d2"),
+    "zoom2x_2_ycbcr_jpeg.tif": ((1000, 598, 3), "RGB", "76495f065105506e02d"
+                                "4013a5493e051e74a50e867ba575a6660899575bb87"
+                                "82"),
 }
+# 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
+# (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
+# to the hashes above; 14e holds the others
+TIFF_VARIANT_FIXTURES = (
+    "ccitt_g4.tif", "ccitt_g3_2d_fill2.tif", "ccitt_rle_tiles.tif",
+    "jpeg_ycbcr_420_tiles.tif", "jpeg_cmyk.tif", "ycbcr_422_lzw.tif",
+    "ycbcr_44_tiles.tif", "rgb16_bigtiff.tif", "float_predictor3_lzma.tif",
+    "cmyk16_mm.tif", "rgba_associated.tif", "lab_tiles.tif",
+    "gray4_fill2.tif", "gray12_old_lzw.tif", "palette2_packbits.tif",
+    "oriented_6.tif", "zoom2x_1_ycbcr_jpeg.tif", "zoom2x_2_ycbcr_jpeg.tif")
 # SHA-256 of Image.fromarray(canvas).save(f, "JPEG") (PIL 12.1.0,
 # libjpeg-turbo 3.1.3) of 14f's canvases, and of Image.fromarray(view)
 # .save(f, "TIFF") of zoom2x's views (14g)
@@ -4628,6 +4693,12 @@ GIF_ENCODE_SHA256 = {
 # CPU: ``JAX_PLATFORMS=cpu python tests/test_torch_gif_write.py --jax-gif``
 JAX_GIF_REFERENCE = dict(steps=1, tentatives=135, matches=30,
                          gt_consistent=30, corner_error_px=26.647)
+# The JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# 14o's pair, zoom2x as YCbCr JPEG-in-TIFF in tiles, on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_tiff_variants.py
+# --jax-tiff-jpeg``
+JAX_TIFF_JPEG_REFERENCE = dict(steps=1, tentatives=132, matches=31,
+                               gt_consistent=31, corner_error_px=16.434)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -4781,6 +4852,8 @@ def _decode_format_fixtures() -> list:
     from mods_tpu_torch.io.image import _read
     out, failures = {}, []
     for name, (shape, mode, sha) in FORMAT_FIXTURE_SHA256.items():
+        if name in TIFF_VARIANT_FIXTURES:
+            continue
         ms = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -4796,6 +4869,145 @@ def _decode_format_fixtures() -> list:
                             f"with SHA-256 {got}; PIL's {shape} {mode} {sha}")
     print(f"[14] e, TIFF/GIF/PFM/BMP/CMYK decode on the host: "
           f"{json.dumps(out)}", flush=True)
+    return failures
+
+
+def tiff_lzw_file(view) -> bytes:
+    """An 8-bit gray view as a one-strip LZW TIFF (libtiff's code widths:
+    MSB first, widened one code early, a clear code at 4093 entries)."""
+    import struct
+    raw = view.tobytes()
+    out, acc, nbits = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nbits
+        acc = (acc << width | code) & 0xFFFFFF
+        nbits += width
+        while nbits >= 8:
+            out.append(acc >> (nbits - 8) & 255)
+            nbits -= 8
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width, w = 258, 9, b""
+    put(256, 9)
+    for c in raw:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 1 << width:
+            width += 1
+        if nxt >= 4093:
+            put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        w = bytes([c])
+    put(table[w], width)
+    put(257, width)
+    if nbits:
+        out.append(acc << (8 - nbits) & 255)
+    h, wd = view.shape
+    tags = [(256, 4, wd), (257, 4, h), (258, 3, 8), (259, 3, 5),
+            (262, 3, 1), (273, 4, 8 + 2 + 12 * 8 + 4), (278, 4, h),
+            (279, 4, len(out))]
+    return (b"II*\x00" + struct.pack("<IH", 8, len(tags))
+            + b"".join(struct.pack("<HHII", t, typ, 1, v)
+                       if typ == 4 else struct.pack("<HHIHH", t, typ, 1, v, 0)
+                       for t, typ, v in tags) + bytes(4) + bytes(out))
+
+
+def _large_reads(work: Path, read_image, save_image) -> dict:
+    """The median ms of three reads of zoom2x_1 (1000x598) as an LZW TIFF
+    (``tiff_lzw_file``) and as the ``.gif`` that ``save_image`` writes
+    (PIL's bytes, 14l), each held to the view (the GIF to its palette
+    indices' hash, ``GIF_ENCODE_SHA256``)."""
+    import hashlib
+    import numpy as np
+    view = read_image(PAIRS / "zoom2x_1.png")
+    tif, gif = work / "zoom2x_1_lzw.tif", work / "zoom2x_1.gif"
+    tif.write_bytes(tiff_lzw_file(view))
+    save_image(gif, view)
+    out = {}
+    for path, check in (
+            (tif, lambda a: np.array_equal(a, view)),
+            (gif, lambda a: hashlib.sha256(a.tobytes()).hexdigest()
+             == GIF_ENCODE_SHA256["zoom2x_1 L"][2])):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a = read_image(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[path.name] = dict(read_ms=statistics.median(ms),
+                              equal=bool(check(a)))
+    return out
+
+
+def _decode_tiff_variants(work: Path) -> list:
+    """14n: each TIFF of ``TIFF_VARIANT_FIXTURES`` decoded on the host,
+    its array's shape, mode and SHA-256 against PIL's, the median decode
+    ms of three; CPython's ``lzma`` present; zoom2x_1 as a 1000x598 LZW
+    TIFF and GIF read (``_large_reads``), the codecs of
+    ``csrc/tiff_decode.cpp``."""
+    import hashlib
+    from mods_tpu_torch.io.image import _read, read_image, save_image
+    out, failures = {}, []
+    try:
+        import lzma  # noqa: F401  (io/tiff.py's LZMA codec)
+    except ImportError as e:
+        failures.append(f"14n: CPython's lzma module does not import ({e})")
+    for name in TIFF_VARIANT_FIXTURES:
+        shape, mode, sha = FORMAT_FIXTURE_SHA256[name]
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a, got_mode = _read(IMAGE_FIXTURES / name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        # PIL's array of a mode "1" image holds 255 for True
+        got = hashlib.sha256((a.view("u1") * 255 if a.dtype == bool
+                              else a).tobytes()).hexdigest()
+        equal = a.shape == tuple(shape) and got_mode == mode and got == sha
+        out[name] = dict(shape=list(a.shape), mode=got_mode,
+                         decode_ms=statistics.median(ms),
+                         sha256_equal_to_pil=equal)
+        if not equal:
+            failures.append(f"14n {name}: decoded {a.dtype} {a.shape} "
+                            f"{got_mode} with SHA-256 {got}; PIL's {shape} "
+                            f"{mode} {sha}")
+    large = _large_reads(work, read_image, save_image)
+    for name, res in large.items():
+        if not res["equal"]:
+            failures.append(f"14n {name}: not read back to the view")
+    print(f"[14] n, TIFF variants decoded on the host: {json.dumps(out)}; "
+          f"1000x598 reads: {json.dumps(large)}", flush=True)
+    return failures
+
+
+def _match_tiff_jpeg_pair(held, work: Path) -> list:
+    """14o: ``cli match`` on zoom2x's pair as YCbCr JPEG-in-TIFF in tiles
+    against ``JAX_TIFF_JPEG_REFERENCE`` (``_held_cli_match``, tentatives
+    within 20 %), its drawings named .tif: each PIL's TIFF of ``viz``'s
+    canvas, read back to it."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x YCbCr JPEG-in-TIFF",
+        [IMAGE_FIXTURES / f"zoom2x_{i}_ycbcr_jpeg.tif" for i in (1, 2)],
+        (work / "o1.tif", work / "o2.tif"), JAX_TIFF_JPEG_REFERENCE)
+    ref = JAX_TIFF_JPEG_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14o: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        got = read_image(path)
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14o {path.name} is not viz's drawing")
+    print(f"[14] o, cli match on the YCbCr JPEG-in-TIFF pair: "
+          f"{json.dumps(res)}", flush=True)
     return failures
 
 
@@ -5136,9 +5348,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14m), on the card machine without PIL.  Raises with
+    """Phase 14 (14a-14o), on the card machine without PIL.  Raises with
     every failure of its parts; returns each kernel's launches in 14c, 14g,
-    14k and 14m."""
+    14k, 14m and 14o."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -5159,6 +5371,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _encode_gifs(Path(d))
         failures += _match_gif_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_tiff_variants(Path(d))
+        failures += _match_tiff_jpeg_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -5342,8 +5557,8 @@ def main() -> int:
                                "paths")
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
-    print(f"[14] kernel launches on the JPEG, TIFF, WebP and WebP-to-GIF "
-          f"pairs' commands: "
+    print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF and "
+          f"JPEG-in-TIFF pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "
@@ -6091,7 +6306,25 @@ def capture_all() -> int:
     return 0
 
 
+def probe_image_reads(tree: str, label: str) -> int:
+    """``python3 chip_smoke.py --probe-image-reads TREE LABEL``: 14n's
+    1000x598 LZW TIFF and GIF reads (``_large_reads``) with the
+    ``io/image.py`` of the checkout at TREE (this one, or an earlier
+    commit unpacked with ``git archive``), printed as one ``[probe]
+    LABEL`` JSON line.  Host only."""
+    import tempfile
+    sys.path.insert(0, str(Path(tree).resolve()))
+    from mods_tpu_torch.io import image
+    with tempfile.TemporaryDirectory() as d:
+        res = _large_reads(Path(d), image.read_image, image.save_image)
+    print(f"[probe] {label} {Path(image.__file__).parent}: "
+          f"{json.dumps(res)}", flush=True)
+    return 0 if all(r["equal"] for r in res.values()) else 1
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--probe-image-reads"]:
+        sys.exit(probe_image_reads(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--capture-all"]:
         sys.exit(capture_all())
     if sys.argv[1:2] == ["--probe-batched-f"]:

@@ -5,7 +5,7 @@ for Hopper (``sm_90a``) into ``mods_tpu_torch/_build/`` at first use and
 bound with ``ctypes``; nothing here runs at import.  The library's file
 name carries a hash of its source and of the ``*.cuh`` headers beside it,
 so an edited kernel or header is rebuilt.  The ``*.cpp`` files beside
-them (the JPEG, WebP and GIF codecs) are host C++, not kernels:
+them (the JPEG, WebP, GIF and TIFF codecs) are host C++, not kernels:
 ``io/image.py`` builds them with g++.
 """
 

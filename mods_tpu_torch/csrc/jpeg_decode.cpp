@@ -29,7 +29,11 @@
 // Interface: mods_jpeg_info(data, n, info[4], err, errlen) fills width,
 // height, channels; mods_jpeg_decode(data, n, out, cap, err, errlen)
 // writes (height, width[, channels]) uint8 pixels.  Both return 0, or -1 with a
-// message in err.
+// message in err.  mods_jpeg_decode_tiff decodes one strip or tile of a
+// JPEG-in-TIFF file as libtiff's JPEG codec does for PIL: the JPEGTables
+// stream read first, the sampling factors checked against the TIFF's, and
+// the colour transform taken from the TIFF's photometric interpretation
+// (YCbCr -> RGB for 6, none otherwise), never from the markers.
 
 #include <algorithm>
 #include <cstdint>
@@ -77,8 +81,14 @@ class Decoder {
   Decoder(const uint8_t *d, size_t n) : d_(d), n_(n) {}
 
   void read_headers();
+  void load_tables(const uint8_t *t, size_t nt);
   void decode();
   void output(uint8_t *out);
+  void check_tiff_sampling(int hs, int vs) const;
+
+  // -1: the colour transform from the markers; 0: none (the components
+  // as stored); 1: YCbCr -> RGB (a JPEG-in-TIFF strip or tile)
+  int transform = -1;
 
   int width = 0, height = 0, ncomp = 0;
 
@@ -547,6 +557,57 @@ void Decoder::read_headers() {
   }
 }
 
+// libtiff's JPEGTables (tag 347): an abbreviated stream of tables (SOI,
+// DQT, DHT, DRI, EOI) read before each strip's or tile's own stream
+void Decoder::load_tables(const uint8_t *t, size_t nt) {
+  const uint8_t *d = d_;
+  size_t n = n_;
+  d_ = t;
+  n_ = nt;
+  if (nt < 4 || t[0] != 0xFF || t[1] != 0xD8)
+    throw Error{"JPEG-in-TIFF: JPEGTables without an SOI marker"};
+  pos_ = 2;
+  while (true) {
+    while (pos_ < n_ && d_[pos_] != 0xFF) pos_++;
+    while (pos_ < n_ && d_[pos_] == 0xFF) pos_++;
+    if (pos_ >= n_) break;
+    int m = d_[pos_++];
+    if (m == 0xD9) break;
+    if (m == 0xC4) {
+      read_dht();
+    } else if (m == 0xDB) {
+      read_dqt();
+    } else if (m == 0xDD) {
+      if (u16() != 4) throw Error{"JPEG: bad DRI length"};
+      restart_interval_ = u16();
+    } else if (m >= 0xE0 && m <= 0xEF) {
+      read_app(m);
+    } else if ((m >= 0xC0 && m <= 0xCF) || m == 0xDA) {
+      throw Error{"JPEG-in-TIFF: JPEGTables holds a frame or a scan"};
+    } else if (!(m >= 0xD0 && m <= 0xD8)) {
+      skip_segment();
+    }
+  }
+  d_ = d;
+  n_ = n;
+  pos_ = 0;
+}
+
+// tif_jpeg.c JPEGPreDecode: component 0 sampled (hs, vs) as the TIFF's
+// YCbCrSubsampling says (1, 1 for any other photometric), the rest 1, 1
+void Decoder::check_tiff_sampling(int hs, int vs) const {
+  for (int i = 0; i < ncomp; i++) {
+    int h = i == 0 ? hs : 1, v = i == 0 ? vs : 1;
+    if (comp_[i].h != h || comp_[i].v != v)
+      throw Error{"JPEG-in-TIFF: improper JPEG sampling factors " +
+                  std::to_string(comp_[i].h) + "x" +
+                  std::to_string(comp_[i].v) + " of component " +
+                  std::to_string(i) + " (the TIFF says " + std::to_string(h) +
+                  "x" + std::to_string(v) + "): PIL refuses it (libtiff's "
+                  "JPEGPreDecode fails)"};
+  }
+}
+
 void Decoder::decode() {
   while (true) {
     while (pos_ < n_ && d_[pos_] != 0xFF) pos_++;
@@ -794,7 +855,7 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
 }
 
 void Decoder::output(uint8_t *out) {
-  if (ncomp == 4 && adobe_ && adobe_transform_ != 0)
+  if (transform < 0 && ncomp == 4 && adobe_ && adobe_transform_ != 0)
     throw Error{"JPEG: YCCK (4 components, Adobe transform " +
                 std::to_string(adobe_transform_) + ") is not supported"};
   std::vector<uint8_t> planes[4];
@@ -818,13 +879,16 @@ void Decoder::output(uint8_t *out) {
       for (int k = 0; k < 4; k++) {
         const uint8_t *p = &planes[k][static_cast<size_t>(y) * widths[k]];
         for (int x = 0; x < width; x++)
-          o[4 * x + k] = static_cast<uint8_t>(255 - p[x]);
+          o[4 * x + k] = static_cast<uint8_t>(transform == 0 ? p[x]
+                                                             : 255 - p[x]);
       }
     }
     return;
   }
   bool rgb;  // jdapimin.c default_decompress_parms
-  if (jfif_)
+  if (transform >= 0)
+    rgb = transform == 0;
+  else if (jfif_)
     rgb = false;
   else if (adobe_)
     rgb = adobe_transform_ == 0;
@@ -897,6 +961,42 @@ extern "C" int mods_jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
   try {
     Decoder dec(data, static_cast<size_t>(n));
     dec.read_headers();
+    int64_t need = static_cast<int64_t>(dec.width) * dec.height * dec.ncomp;
+    if (need > cap) throw Error{"JPEG: the output buffer is too small"};
+    dec.decode();
+    dec.output(out);
+    return 0;
+  } catch (const Error &e) {
+    set_error(err, errlen, e.msg);
+  } catch (const std::exception &e) {
+    set_error(err, errlen, std::string("JPEG: ") + e.what());
+  }
+  return -1;
+}
+
+// One strip or tile of a JPEG-in-TIFF file (compression 7): `tables` (the
+// JPEGTables tag, or n_tables 0) read first, the stream's sampling held
+// to (hs, vs) as libtiff holds it, and the components put out as stored
+// (ycc 0) or converted from YCbCr to RGB (ycc 1: photometric 6, planar
+// configuration 1, libtiff's JPEGCOLORMODE_RGB).  info gets width,
+// height and components before the decode.
+extern "C" int mods_jpeg_decode_tiff(const uint8_t *tables, int64_t n_tables,
+                                     const uint8_t *data, int64_t n, int ycc,
+                                     int hs, int vs, uint8_t *out,
+                                     int64_t cap, int32_t *info, char *err,
+                                     int errlen) {
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    if (n_tables > 0) dec.load_tables(tables, static_cast<size_t>(n_tables));
+    dec.read_headers();
+    info[0] = dec.width;
+    info[1] = dec.height;
+    info[2] = dec.ncomp;
+    dec.check_tiff_sampling(hs, vs);
+    if (ycc && dec.ncomp != 3)
+      throw Error{"JPEG-in-TIFF: YCbCr with " + std::to_string(dec.ncomp) +
+                  " components: PIL refuses it"};
+    dec.transform = ycc ? 1 : 0;
     int64_t need = static_cast<int64_t>(dec.width) * dec.height * dec.ncomp;
     if (need > cap) throw Error{"JPEG: the output buffer is too small"};
     dec.decode();

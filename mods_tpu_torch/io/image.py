@@ -27,17 +27,19 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     transform 0, inverted as PIL inverts it), by ``csrc/jpeg_decode.cpp``
     (libjpeg-turbo's default decode, which PIL runs), built with g++ at
     first use into ``mods_tpu_torch/_build/native/<machine>/``;
-  - TIFF (PIL's TiffImagePlugin, libtiff for the compressed files), the
-    first page: byte orders II and MM, strips or tiles, planar
-    configuration 1 (or 2 with 8-bit or narrower samples: PIL misreads
-    wider ones), no compression, PackBits, LZW and Deflate,
-    horizontal predictor 2 (which libtiff undoes for LZW and Deflate
-    only); bilevel ("1"), gray ("L"), 16-bit gray
-    ("I;16", big-endian "I;16B" in an MM file), int16/int32 ("I"),
-    float32 ("F"), gray+alpha, RGB, RGBA and palette indices ("P");
+  - TIFF and little-endian BigTIFF (PIL's TiffImagePlugin, libtiff for
+    the compressed files), the first page, by ``io/tiff.py``: every mode
+    of PIL's OPEN_INFO (both byte orders, both fill orders, 1- to 32-bit
+    samples, gray, palette, RGB, RGBA and associated alpha, CMYK, LAB,
+    YCbCr), strips or tiles, both planar configurations as PIL reads
+    them, the Orientation tag; no compression, CCITT modified Huffman,
+    Group 3 and Group 4, LZW (both bit orders), JPEG (with JPEGTables;
+    YCbCr to RGB), Deflate, PackBits and LZMA, predictors 2 and 3
+    (``csrc/tiff_decode.cpp``, ``csrc/jpeg_decode.cpp``);
   - GIF (PIL's GifImagePlugin), the first frame: its palette indices
     ("P"), or "L" where the frame's palette is the identity gray ramp
-    or missing; LZW, interlaced or not, global or local palette;
+    or missing; LZW (``csrc/tiff_decode.cpp``), interlaced or not,
+    global or local palette;
   - WebP (PIL's WebPImagePlugin, libwebp's WebPAnimDecoder): lossy VP8
     key frames (either loop filter, one to eight token partitions),
     lossless VP8L, ALPH in every coding and filter, and the first frame
@@ -46,7 +48,8 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     where libwebp's WebPGetFeatures reports alpha (never "L").
   Anything else (ICO, PSD, ...) raises a ``ValueError`` naming the
   format, as do the variants the readers leave out (a VP8 inter frame,
-  which PIL refuses too, among them).
+  which PIL refuses too, and the TIFF compressions Zstandard, WebP,
+  old-style JPEG, SGILog, ThunderScan and tiff_raw_16, among them).
 * ``image_size(path)``: ``Image.open(path).size``, (width, height), from
   the header.
 * ``save_image(path, array)``: the format that the extension names, as
@@ -85,11 +88,10 @@ import functools
 import math
 import os
 import struct
-import zlib
 
 import numpy as np
 
-from mods_tpu_torch.io import png
+from mods_tpu_torch.io import png, tiff
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
@@ -103,8 +105,7 @@ _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
                   (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
                   (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"qoif", "QOI"),
                   (b"DDS ", "DDS"), (b"icns", "ICNS"),
-                  (b"\x0a", "PCX"), (b"#?RADIANCE", "HDR"),
-                  (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"))
+                  (b"\x0a", "PCX"), (b"#?RADIANCE", "HDR"))
 
 
 def _format(head: bytes, path) -> str:
@@ -117,7 +118,7 @@ def _format(head: bytes, path) -> str:
     if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5",
                                           b"6", b"f"):
         return "PNM"
-    if head[:4] in (b"II*\x00", b"MM\x00*"):
+    if head[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return "TIFF"
     if head[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
@@ -163,7 +164,7 @@ def _read(path) -> tuple[np.ndarray, str]:
     if fmt == "DIB":
         return _read_bmp(_dib_as_bmp(data, path), path)
     if fmt == "TIFF":
-        return _read_tiff(data, path)
+        return tiff.read_tiff(data, path)
     if fmt == "GIF":
         return _read_gif(data, path)
     if fmt == "WEBP":
@@ -192,11 +193,10 @@ def image_size(path) -> tuple[int, int]:
                            path)["size"]
     if fmt == "TIFF":
         with open(path, "rb") as f:
-            tags = _tiff_ifd(f.read(), path)[1]
-        return tags[256][0], tags[257][0]
+            return tiff.tiff_size(f.read(), path)
     if fmt == "GIF":
         with open(path, "rb") as f:
-            return _gif_frame(f.read(), path)["size"]
+            return _gif_header(f.read(), path)["size"]
     if fmt == "WEBP":
         with open(path, "rb") as f:
             return _webp_info(f.read(), path)[:2]
@@ -542,6 +542,12 @@ def _jpeg_lib():
     lib.mods_jpeg_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_char_p, ctypes.c_int]
+    lib.mods_jpeg_decode_tiff.restype = ctypes.c_int
+    lib.mods_jpeg_decode_tiff.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+        ctypes.c_int]
     return lib
 
 
@@ -619,239 +625,6 @@ def _read_webp(data: bytes, path) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# TIFF (PIL's TiffImagePlugin; libtiff decodes the compressed files)
-
-# field type -> struct code (rationals are read as two integers)
-_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B",
-               8: "h", 9: "i", 10: "i", 11: "f", 12: "d", 13: "I"}
-_TIFF_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3 fax",
-                      4: "CCITT Group 4 fax", 6: "old-style JPEG",
-                      7: "JPEG", 32809: "ThunderScan", 34661: "JBIG",
-                      34676: "SGI LogLuv", 34712: "JPEG 2000",
-                      34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
-# (photometric, sample format, bits per sample, extra samples) -> PIL's
-# mode, from TiffImagePlugin.OPEN_INFO (fill order 1)
-_TIFF_MODES = {
-    (0, (1,), (1,), ()): "1", (1, (1,), (1,), ()): "1",
-    (0, (1,), (8,), ()): "L", (1, (1,), (8,), ()): "L",
-    (1, (2,), (8,), ()): "L",
-    (1, (1,), (16,), ()): "I;16", (1, (2,), (16,), ()): "I",
-    (1, (2,), (32,), ()): "I",
-    (0, (3,), (32,), ()): "F", (1, (3,), (32,), ()): "F",
-    (1, (1,), (8, 8), (2,)): "LA",
-    (2, (1,), (8, 8, 8), ()): "RGB",
-    (2, (1,), (8, 8, 8, 8), ()): "RGBA",
-    (2, (1,), (8, 8, 8, 8), (0,)): "RGB",
-    (2, (1,), (8, 8, 8, 8), (2,)): "RGBA",
-    (2, (1,), (8, 8, 8, 8), (999,)): "RGBA",
-    (3, (1,), (1,), ()): "P", (3, (1,), (2,), ()): "P",
-    (3, (1,), (4,), ()): "P", (3, (1,), (8,), ()): "P",
-}
-
-
-def _tiff_ifd(data: bytes, path) -> tuple[str, dict]:
-    """The byte order and the first IFD's tags (tag -> tuple of values)."""
-    bo = "<" if data[:2] == b"II" else ">"
-    off = struct.unpack_from(bo + "I", data, 4)[0]
-    if off + 2 > len(data):
-        raise ValueError(f"{path}: TIFF without an image file directory")
-    tags = {}
-    for i in range(struct.unpack_from(bo + "H", data, off)[0]):
-        e = off + 2 + 12 * i
-        if e + 12 > len(data):
-            raise ValueError(f"{path}: TIFF directory is truncated")
-        tag, typ, cnt = struct.unpack_from(bo + "HHI", data, e)
-        code = _TIFF_TYPES.get(typ)
-        if code is None:
-            continue
-        n = cnt * (2 if typ in (5, 10) else 1)
-        size = struct.calcsize(code) * n
-        at = e + 8 if size <= 4 else struct.unpack_from(bo + "I", data,
-                                                        e + 8)[0]
-        if at + size <= len(data):
-            tags[tag] = struct.unpack_from(f"{bo}{n}{code}", data, at)
-    if 256 not in tags or 257 not in tags:
-        raise ValueError(f"{path}: TIFF without an image size")
-    return bo, tags
-
-
-def _packbits(b: bytes) -> bytes:
-    out, i = bytearray(), 0
-    while i < len(b):
-        c = b[i]
-        i += 1
-        if c < 128:
-            out += b[i:i + c + 1]
-            i += c + 1
-        elif c > 128 and i < len(b):
-            out += b[i:i + 1] * (257 - c)
-            i += 1
-    return bytes(out)
-
-
-def _lzw(b: bytes, min_bits: int, tiff: bool, limit: int = -1) -> bytes:
-    """LZW as TIFF (codes MSB first, widened one code early) or GIF
-    (codes LSB first, widened when the table fills their width) packs
-    it; ``limit`` stops after that many bytes."""
-    data = b + b"\0\0\0"
-    total = 8 * len(b)
-    clear = 1 << min_bits
-    base = [bytes([i]) for i in range(clear)] + [b"", b""]
-    table, width, prev = list(base), min_bits + 1, None
-    out, pos, early = bytearray(), 0, 1 if tiff else 0
-    while pos + width <= total and len(out) != limit:
-        k = pos >> 3
-        if tiff:
-            code = ((data[k] << 16 | data[k + 1] << 8 | data[k + 2])
-                    >> (24 - (pos & 7) - width)) & ((1 << width) - 1)
-        else:
-            code = ((data[k] | data[k + 1] << 8 | data[k + 2] << 16)
-                    >> (pos & 7)) & ((1 << width) - 1)
-        pos += width
-        if code == clear:
-            table, width, prev = list(base), min_bits + 1, None
-            continue
-        if code == clear + 1:
-            break
-        if prev is None:
-            if code >= clear:
-                break
-            entry = table[code]
-        elif code < len(table):
-            entry = table[code]
-            if len(table) < 4096:
-                table.append(prev + entry[:1])
-        elif code == len(table):
-            entry = prev + prev[:1]
-            table.append(entry)
-        else:
-            break
-        out += entry
-        prev = entry
-        if len(table) + early >= 1 << width and width < 12:
-            width += 1
-    return bytes(out) if limit < 0 else bytes(out[:limit])
-
-
-def _tiff_chunk(raw: bytes, comp: int, path) -> bytes:
-    if comp == 1:
-        return raw
-    if comp == 32773:
-        return _packbits(raw)
-    if comp == 5:
-        if raw[:2] == b"\x00\x01":
-            raise ValueError(f"{path}: old-style (LSB-first) TIFF LZW is not "
-                             f"supported")
-        return _lzw(raw, 8, True)
-    if comp in (8, 32946):
-        return zlib.decompressobj().decompress(raw)
-    raise ValueError(f"{path}: TIFF compression "
-                     f"{_TIFF_COMPRESSIONS.get(comp, comp)} is not supported "
-                     f"(none, PackBits, LZW and Deflate are)")
-
-
-def _read_tiff(data: bytes, path) -> tuple[np.ndarray, str]:
-    bo, tags = _tiff_ifd(data, path)
-    w, h = tags[256][0], tags[257][0]
-    photo = tags.get(262, (0,))[0]
-    comp = tags.get(259, (1,))[0]
-    planar = tags.get(284, (1,))[0]
-    # libtiff undoes a predictor in its LZW and Deflate codecs only
-    predictor = tags.get(317, (1,))[0] if comp in (5, 8, 32946) else 1
-    sf = tags.get(339, (1,))
-    if len(sf) > 1 and max(sf) == min(sf) == 1:
-        sf = (1,)
-    # TiffImageFile._setup's bits-per-sample rules
-    bps, extra = tags.get(258, (1,)), tags.get(338, ())
-    spp = tags.get(277, (1,))[0]
-    if spp < len(bps):
-        bps = bps[:spp]
-    elif spp > len(bps) and len(bps) == 1:
-        bps = bps * spp
-    mode = _TIFF_MODES.get((photo, sf, bps, extra))
-    if mode is None or len(bps) != spp:
-        raise ValueError(f"{path}: TIFF of photometric interpretation "
-                         f"{photo}, sample format {sf}, bits {bps}, extra "
-                         f"samples {extra} is not supported")
-    if tags.get(266, (1,))[0] != 1:
-        raise ValueError(f"{path}: TIFF fill order 2 is not supported")
-    if predictor not in (1, 2) or (predictor == 2 and bps[0] < 8):
-        raise ValueError(f"{path}: TIFF predictor {predictor} on "
-                         f"{bps[0]}-bit samples is not supported")
-    bits = bps[0]
-    if planar == 2 and bits > 8:
-        # TiffImagePlugin reads each plane with one character of the raw
-        # mode ("F;32BF"[0] is "F"): PIL misreads these files
-        raise ValueError(f"{path}: TIFF planar configuration 2 with "
-                         f"{bits}-bit samples is not supported")
-    if 322 in tags:                                  # tiles
-        tw, th = tags[322][0], tags[323][0]
-        offsets, counts = tags.get(324), tags.get(325)
-        across, down = -(-w // tw), -(-h // th)
-        chunks = [(ty * th, tx * tw, th, tw) for ty in range(down)
-                  for tx in range(across)]
-        full_h, full_w = down * th, across * tw
-    else:
-        rps = max(1, min(tags.get(278, (h,))[0], h))
-        offsets, counts = tags.get(273), tags.get(279)
-        chunks = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
-        full_h, full_w = h, w
-    if offsets is None or counts is None:
-        raise ValueError(f"{path}: TIFF without strip or tile offsets and "
-                         f"byte counts")
-    per = spp if planar == 1 else 1
-    unsigned = np.dtype(f"{bo}u{max(1, bits // 8)}")
-    full = np.zeros((full_h, full_w, spp), unsigned.newbyteorder("="))
-    for plane in range(spp if planar == 2 else 1):
-        for j, (y0, x0, rows, cols) in enumerate(chunks):
-            k = plane * len(chunks) + j
-            if k >= len(offsets):
-                raise ValueError(f"{path}: TIFF has fewer strips or tiles "
-                                 f"than its image needs")
-            buf = _tiff_chunk(data[offsets[k]:offsets[k] + counts[k]], comp,
-                              path)
-            row_bytes = -(-cols * per * bits // 8)
-            need = rows * row_bytes
-            if len(buf) < need:
-                raise ValueError(f"{path}: a TIFF strip or tile holds "
-                                 f"{len(buf)} bytes of {need}")
-            if bits < 8:
-                r = np.frombuffer(buf[:need], np.uint8).reshape(rows,
-                                                                row_bytes)
-                shifts = (8 - bits * (np.arange(8 // bits) + 1)).astype(
-                    np.uint8)
-                v = ((r[:, :, None] >> shifts) & ((1 << bits) - 1)) \
-                    .reshape(rows, -1)[:, :cols * per]
-            else:
-                v = np.frombuffer(buf[:need], unsigned).reshape(
-                    rows, cols * per).astype(full.dtype)
-            v = v.reshape(rows, cols, per)
-            if predictor == 2:
-                v = np.cumsum(v, axis=1, dtype=full.dtype)
-            ch = slice(None) if planar == 1 else slice(plane, plane + 1)
-            full[y0:y0 + rows, x0:x0 + cols, ch] = v
-    full = full[:h, :w]
-    if mode == "1":
-        a = full[..., 0] != 0
-        return (~a if photo == 0 else a), mode
-    if mode == "P":
-        return full[..., 0].astype(np.uint8), mode
-    if mode == "L":
-        a = full[..., 0].astype(np.uint8)
-        return (255 - a if photo == 0 else a), mode
-    if mode == "I;16":
-        return (full[..., 0].astype(unsigned),
-                "I;16" if bo == "<" else "I;16B")
-    if mode == "I":
-        signed = np.int16 if bits == 16 else np.int32
-        return full[..., 0].view(signed).astype(np.int32), mode
-    if mode == "F":
-        return full[..., 0].view(np.float32).copy(), mode
-    n = {"LA": 2, "RGB": 3, "RGBA": 4}[mode]
-    return np.ascontiguousarray(full[..., :n].astype(np.uint8)), mode
-
-
-# ---------------------------------------------------------------------------
 # GIF (PIL's GifImagePlugin: the first frame)
 
 def _gif_palette_needed(p: bytes) -> bool:
@@ -913,8 +686,15 @@ def _gif_frame(data: bytes, path) -> dict:
                 bits=data[pos], data_at=pos + 1)
 
 
+def _gif_header(data: bytes, path) -> dict:
+    try:
+        return _gif_frame(data, path)
+    except (IndexError, struct.error):
+        raise ValueError(f"{path}: GIF is truncated") from None
+
+
 def _read_gif(data: bytes, path) -> tuple[np.ndarray, str]:
-    fr = _gif_frame(data, path)
+    fr = _gif_header(data, path)
     (w, h), (x0, y0, fw, fh) = fr["size"], fr["extent"]
     if not 1 <= fr["bits"] <= 11:
         raise ValueError(f"{path}: GIF LZW code size {fr['bits']} is not "
@@ -923,7 +703,7 @@ def _read_gif(data: bytes, path) -> tuple[np.ndarray, str]:
     while pos < len(data) and data[pos]:
         blocks.append(data[pos + 1:pos + 1 + data[pos]])
         pos += 1 + data[pos]
-    pixels = _lzw(b"".join(blocks), fr["bits"], False, fw * fh)
+    pixels = tiff.lzw_decode(b"".join(blocks), 2, fr["bits"], fw * fh, path)
     if len(pixels) < fw * fh:
         raise ValueError(f"{path}: GIF image data is truncated")
     frame = np.frombuffer(pixels, np.uint8).reshape(fh, fw)

@@ -491,20 +491,25 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """JPEG-in-TIFF, the CCITT codings, ICO and YCCK JPEG: PIL reads
-    each; the port raises a ValueError that names it."""
-    cases = [("x.tif", dict(compression="jpeg"), GRAY, "JPEG"),
-             ("x.tif", dict(compression="group4"), GRAY > 100,
-              "CCITT Group 4"),
-             ("x.tif", dict(compression="group3"), GRAY > 100,
-              "CCITT Group 3"),
-             ("x.tif", dict(compression="tiff_ccitt"), GRAY > 100,
-              "CCITT RLE"),
+    """Zstandard TIFF, ICO and YCCK JPEG: PIL reads each; old-style JPEG,
+    ThunderScan, SGILog and tiff_raw_16 TIFFs (PIL hands them to
+    libtiff) and WebP in TIFF (this libtiff lacks it): the port raises a
+    ValueError that names each (ROADMAP C3's next slices)."""
+    cases = [("x.tif", dict(compression="zstd"), GRAY, "Zstandard"),
              ("x.ico", {}, RGB, "ICO")]
     for name, kw, a, match in cases:
         p = tmp_path / name
         Image.fromarray(a).save(p, **kw)
         np.asarray(Image.open(p))
+        with pytest.raises(ValueError, match=match):
+            read_image(p)
+    for comp, match in ((6, "old-style JPEG"), (32809, "ThunderScan"),
+                        (34676, "SGILog"), (32771, "tiff_raw_16"),
+                        (50001, "WebP")):
+        p = tmp_path / "c.tif"
+        p.write_bytes(_tiff(GRAY, compression=8).replace(
+            struct.pack("<HHII", 259, 3, 1, 8),
+            struct.pack("<HHIH", 259, 3, 1, comp) + bytes(2)))
         with pytest.raises(ValueError, match=match):
             read_image(p)
     f = io.BytesIO()
