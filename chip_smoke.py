@@ -78,7 +78,9 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    full-size view on the card against its plain run on the CPU (TILDE's
    also on zoom2x's rung-2 views, its extrema above ``TILDE_NOISE``: on
    the constant fill of a rotated view the score is the rounding of a
-   zero-mean bank).  Phase 2 also holds the
+   zero-mean bank); device MSER's timed pairs give bit for bit the same
+   regions (each run's regions per image and rung and per detect call
+   printed, ``regions_repeat``).  Phase 2 also holds the
    sampler at these rungs' identity groups and Baumberg over DoG's and
    Harris's keypoints;
 10. drive pair-batched matching (``mods_tpu_torch.parallel.multi``):
@@ -210,6 +212,17 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    zoom2x_1 as a 1000x598 LZW TIFF and GIF read in ms; (o) ``cli match``
    on zoom2x's pair as YCbCr JPEG-in-TIFF in tiles: its launches held to
    the plan, its figures to ``JAX_TIFF_JPEG_REFERENCE`` by phase 6's rule
+   and its tentatives within 20 %, its drawings named .tif read back to
+   ``viz``'s canvases; (p) the TIFF fixtures of ``TIFF_CODEC_FIXTURES``
+   (Zstandard under predictors 1-3, in strips, tiles and both byte
+   orders, PIL's own; ThunderScan; tiff_raw_16) decoded on the host
+   (``csrc/zstd_decode.cpp``, ``csrc/tiff_decode.cpp``), each array's
+   shape, mode and SHA-256 held to PIL's (``FORMAT_FIXTURE_SHA256``), the
+   decode ms printed, and zoom2x_1 as 14q's 1000x598 Zstandard TIFF read
+   in ms beside the same view as an LZW TIFF; (q) ``cli match`` on
+   zoom2x's pair as Zstandard TIFFs in tiles with predictor 2
+   (``TIFF_ZSTD_PAIR``, each read to the PNG view): its launches held to
+   the plan, its figures to ``JAX_TIFF_ZSTD_REFERENCE`` by phase 6's rule
    and its tentatives within 20 %, its drawings named .tif read back to
    ``viz``'s canvases.
 
@@ -1810,8 +1823,9 @@ def _build_native() -> None:
     ``native/render.cpp``, the JPEG decoder ``csrc/jpeg_decode.cpp`` and
     encoder ``csrc/jpeg_encode.cpp``, the WebP decoder
     ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp``, the
-    GIF writer's ``csrc/gif_encode.cpp`` and the TIFF and GIF codecs of
-    ``csrc/tiff_decode.cpp`` (g++,
+    GIF writer's ``csrc/gif_encode.cpp``, the TIFF and GIF codecs of
+    ``csrc/tiff_decode.cpp`` and the Zstandard decoder
+    ``csrc/zstd_decode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
@@ -1827,14 +1841,14 @@ def _build_native() -> None:
     t0 = time.perf_counter()
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
-              image._gif_encoder, tiff._lib)
+              image._gif_encoder, tiff._lib, tiff._zstd_lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
     print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
-          f"gif_encode.cpp, tiff_decode.cpp built into "
+          f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -2365,7 +2379,56 @@ def hold_tentatives(label: str, got: list, ref: list,
                                f"JAX {r}")
 
 
-def _drive_detectors(wrappers: dict) -> dict:
+def record_device_mser() -> tuple[list, object]:
+    """Keep every ``detect_mser_tpu`` call's regions (xy, A, mask, cloned
+    on the device: no host read inside a timed pair) in the list returned,
+    until the function returned is called.  Must run before the matcher
+    builds its detect stages."""
+    from mods_tpu_torch.detectors import mser_tpu
+    inner = mser_tpu.detect_mser_tpu
+    calls: list = []
+
+    def detect(*a, **kw):
+        r = inner(*a, **kw)
+        calls.append((r.xy.clone(), r.A.clone(), r.mask.clone()))
+        return r
+
+    mser_tpu.detect_mser_tpu = detect
+
+    def restore():
+        mser_tpu.detect_mser_tpu = inner
+    return calls, restore
+
+
+def regions_repeat(runs: list) -> dict:
+    """Each run's detect calls (``record_device_mser``) against the first
+    run's, call by call and view by view: the regions a view has in each
+    run, and for each later run which of ``count``, ``xy`` and ``A``
+    differ bit for bit (xy and A compared in slot order where the masks
+    are equal)."""
+    import torch
+    counts = [[int(m.sum()) for _, _, m in calls] for calls in runs]
+    differ = []
+    for calls in runs[1:]:
+        what = set()
+        if len(calls) != len(runs[0]):
+            what.add("count")
+        for (xa, Aa, ma), (xb, Ab, mb) in zip(runs[0], calls):
+            if not torch.equal(ma, mb):
+                what.add("count")
+                continue
+            if not torch.equal(xa[ma].view(torch.int32),
+                               xb[mb].view(torch.int32)):
+                what.add("xy")
+            if not torch.equal(Aa[ma].view(torch.int32),
+                               Ab[mb].view(torch.int32)):
+                what.add("A")
+        differ.append(sorted(what))
+    return dict(regions_per_call=counts, differ_from_run_1=differ,
+                equal=not any(differ))
+
+
+def _drive_detectors(wrappers: dict, detectors=OTHER_DETECTORS) -> dict:
     """Phase 9: each detector of ``OTHER_DETECTORS`` on its two-rung
     ladder, on ``DETECTOR_PAIRS`` at full size (one warm-up and
     ``DETECTOR_TIMED_PAIRS`` timed pairs each), held to
@@ -2375,15 +2438,19 @@ def _drive_detectors(wrappers: dict) -> dict:
     seed 0 breaks it and the JAX matcher's own seeds do too, the rule
     over the seeds of ``JAX_DETECTOR_SPREAD``) and to its own plain run
     on the CPU (``_regions_card_vs_cpu``; TILDE's rung 2 above the
-    rounding level of its bank, ``tilde_card_vs_cpu``).  Returns each kernel's launches over
-    the first timed pair of each cell."""
+    rounding level of its bank, ``tilde_card_vs_cpu``); device MSER's
+    timed pairs must give bit for bit the same regions
+    (``regions_repeat``).  Returns each kernel's launches over the first
+    timed pair of each cell."""
     import torch
 
     def counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
 
     total = {k: 0 for k in wrappers}
-    for det in OTHER_DETECTORS:
+    for det in detectors:
+        mser_calls, restore = (record_device_mser() if det == "MSER"
+                               else (None, None))
         matcher = _detector_matcher(det)
         rows = store_rows_per_rung(matcher, lambda st: st._n.clone())
         tents = tentatives_per_rung(matcher)
@@ -2414,9 +2481,11 @@ def _drive_detectors(wrappers: dict) -> dict:
             matcher.match(img1, img2)                   # warm-up
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
-            pair_s = []
+            pair_s, run_regions, run_rows = [], [], []
             for i in range(DETECTOR_TIMED_PAIRS.get(det, 1)):
                 del rows[:], tents[:]
+                if mser_calls is not None:
+                    mser_calls.clear()
                 for ws in wrappers.values():  # every count, just before
                     for w in ws:
                         w.launches = 0
@@ -2434,7 +2503,10 @@ def _drive_detectors(wrappers: dict) -> dict:
                 if i == 0:
                     for k in total:
                         total[k] += launches[k]
-            region_rows = [[int(n) for n in rung] for rung in rows]
+                if mser_calls is not None:
+                    run_regions.append(list(mser_calls))
+                run_rows.append([[int(n) for n in rung] for rung in rows])
+            region_rows = run_rows[-1]
             rung_tents = [int(t) for t in tents]
             outcome = pair_outcome(r, H_gt, img1.shape)
             res = dict(
@@ -2447,6 +2519,13 @@ def _drive_detectors(wrappers: dict) -> dict:
                 kernel_launches_per_pair=launches,
                 peak_mem_bytes=max(matcher.rung_peak_bytes, default=None),
                 card_vs_cpu=cvc if pair == DETECTOR_PAIRS[0] else None)
+            repeat = None
+            if mser_calls is not None:
+                # C4: every timed run's regions, per image and rung and
+                # per detect call, and whether they are the same bits
+                repeat = regions_repeat(run_regions)
+                res["regions_each_run"] = run_rows
+                res["repeat"] = repeat
             min_matches = matcher.cfg.min_matches
             _hold_regions(label, region_rows, ref["regions"])
             hold_tentatives(label, rung_tents, ref["tentatives_per_rung"],
@@ -2474,7 +2553,13 @@ def _drive_detectors(wrappers: dict) -> dict:
             print(f"[9] {label}: {json.dumps(res)}", flush=True)
             if failure:
                 raise RuntimeError(failure)
+            if repeat is not None and not repeat["equal"]:
+                raise RuntimeError(
+                    f"{label}: the timed runs' regions differ: "
+                    f"{repeat['differ_from_run_1']}")
         matcher.close()
+        if restore is not None:
+            restore()
     return total
 
 
@@ -4487,6 +4572,18 @@ JAX_JPEG_REFERENCE = dict(steps=1, tentatives=117, matches=32,
 # mode and the SHA-256 of np.asarray(Image.open(path)).tobytes()
 # (test_format_fixture_hashes_are_pils)
 FORMAT_FIXTURE_SHA256 = {
+    "zstd_gray_predictor2.tif": ((96, 128), "L", "56d2651f2c6ecdc9c931cc08f50"
+                                 "71e0578f6259374e329b8069b0948f396fd4b"),
+    "zstd_rgb16_mm_tiles.tif": ((48, 64, 3), "RGB", "b4e59c8bacc863ffb595f78"
+                                "077e159d680e16397e9a77b5cf8c23ca6f69d1804"),
+    "zstd_float_predictor3.tif": ((48, 64), "F", "4510475623544842d77eb9f97c"
+                                  "89f40dfc846005a8d8cb967b21aa352c7d9f53"),
+    "zstd_pil.tif": ((96, 128, 3), "RGB", "a8946fb56af681629f15b9af9649cfa8a"
+                     "3730f41c165315f366dfd6221eacb3d"),
+    "thunderscan.tif": ((48, 64), "L", "39372ba6bacccca6866a90eefede91a5d6d4"
+                        "9e04edf4ce1f7c4990f2dba1cf03"),
+    "tiff_raw_16.tif": ((48, 128), "1", "61703dd1f9a2ee9b2a611d423ec48a2f44a"
+                        "1fa348cc74bd332e9e149262848b8"),
     "lzw_predictor.tif": ((96, 128, 3), "RGB", "a8946fb56af681629f15b9af96"
                           "49cfa8a3730f41c165315f366dfd6221eacb3d"),
     "packbits_16bit.tif": ((48, 64), "I;16", "1512747d0b66ccbb76d4942c9560f"
@@ -4699,6 +4796,20 @@ JAX_GIF_REFERENCE = dict(steps=1, tentatives=135, matches=30,
 # --jax-tiff-jpeg``
 JAX_TIFF_JPEG_REFERENCE = dict(steps=1, tentatives=132, matches=31,
                                gt_consistent=31, corner_error_px=16.434)
+# 14p: Zstandard, ThunderScan and tiff_raw_16 TIFFs of
+# tests/test_torch_tiff_variants.py::write_fixtures, held to the hashes
+# of FORMAT_FIXTURE_SHA256
+TIFF_CODEC_FIXTURES = (
+    "zstd_gray_predictor2.tif", "zstd_rgb16_mm_tiles.tif",
+    "zstd_float_predictor3.tif", "zstd_pil.tif", "thunderscan.tif",
+    "tiff_raw_16.tif")
+# 14q's pair: zoom2x as Zstandard TIFFs in 128 x 128 tiles, predictor 2
+TIFF_ZSTD_PAIR = ("zoom2x_1_zstd_tiles.tif", "zoom2x_2_zstd_tiles.tif")
+# The JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# 14q's pair, on the CPU: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_tiff_variants.py --jax-tiff-zstd``
+JAX_TIFF_ZSTD_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                               gt_consistent=37, corner_error_px=4.040)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -4852,7 +4963,7 @@ def _decode_format_fixtures() -> list:
     from mods_tpu_torch.io.image import _read
     out, failures = {}, []
     for name, (shape, mode, sha) in FORMAT_FIXTURE_SHA256.items():
-        if name in TIFF_VARIANT_FIXTURES:
+        if name in TIFF_VARIANT_FIXTURES + TIFF_CODEC_FIXTURES:
             continue
         ms = []
         for _ in range(3):
@@ -4945,20 +5056,15 @@ def _large_reads(work: Path, read_image, save_image) -> dict:
     return out
 
 
-def _decode_tiff_variants(work: Path) -> list:
-    """14n: each TIFF of ``TIFF_VARIANT_FIXTURES`` decoded on the host,
-    its array's shape, mode and SHA-256 against PIL's, the median decode
-    ms of three; CPython's ``lzma`` present; zoom2x_1 as a 1000x598 LZW
-    TIFF and GIF read (``_large_reads``), the codecs of
-    ``csrc/tiff_decode.cpp``."""
+def _hold_tiff_fixtures(label: str, names, failures: list) -> dict:
+    """Each fixture of ``names`` decoded on the host (``io/image.py``):
+    its array's shape, mode and SHA-256 against PIL's
+    (``FORMAT_FIXTURE_SHA256``; a failure appended to ``failures``) and
+    the median decode ms of three."""
     import hashlib
-    from mods_tpu_torch.io.image import _read, read_image, save_image
-    out, failures = {}, []
-    try:
-        import lzma  # noqa: F401  (io/tiff.py's LZMA codec)
-    except ImportError as e:
-        failures.append(f"14n: CPython's lzma module does not import ({e})")
-    for name in TIFF_VARIANT_FIXTURES:
+    from mods_tpu_torch.io.image import _read
+    out = {}
+    for name in names:
         shape, mode, sha = FORMAT_FIXTURE_SHA256[name]
         ms = []
         for _ in range(3):
@@ -4973,9 +5079,25 @@ def _decode_tiff_variants(work: Path) -> list:
                          decode_ms=statistics.median(ms),
                          sha256_equal_to_pil=equal)
         if not equal:
-            failures.append(f"14n {name}: decoded {a.dtype} {a.shape} "
+            failures.append(f"{label} {name}: decoded {a.dtype} {a.shape} "
                             f"{got_mode} with SHA-256 {got}; PIL's {shape} "
                             f"{mode} {sha}")
+    return out
+
+
+def _decode_tiff_variants(work: Path) -> list:
+    """14n: each TIFF of ``TIFF_VARIANT_FIXTURES`` decoded on the host,
+    its array's shape, mode and SHA-256 against PIL's, the median decode
+    ms of three; CPython's ``lzma`` present; zoom2x_1 as a 1000x598 LZW
+    TIFF and GIF read (``_large_reads``), the codecs of
+    ``csrc/tiff_decode.cpp``."""
+    from mods_tpu_torch.io.image import read_image, save_image
+    failures = []
+    try:
+        import lzma  # noqa: F401  (io/tiff.py's LZMA codec)
+    except ImportError as e:
+        failures.append(f"14n: CPython's lzma module does not import ({e})")
+    out = _hold_tiff_fixtures("14n", TIFF_VARIANT_FIXTURES, failures)
     large = _large_reads(work, read_image, save_image)
     for name, res in large.items():
         if not res["equal"]:
@@ -5007,6 +5129,67 @@ def _match_tiff_jpeg_pair(held, work: Path) -> list:
         if not ok:
             failures.append(f"14o {path.name} is not viz's drawing")
     print(f"[14] o, cli match on the YCbCr JPEG-in-TIFF pair: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
+def _decode_tiff_codecs(work: Path) -> list:
+    """14p: each TIFF of ``TIFF_CODEC_FIXTURES`` decoded on the host, its
+    array's shape, mode and SHA-256 against PIL's, the median decode ms of
+    three; zoom2x_1 as 14q's Zstandard TIFF and as an LZW TIFF
+    (``tiff_lzw_file``), each read to the view, the median ms of three."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    failures = []
+    out = _hold_tiff_fixtures("14p", TIFF_CODEC_FIXTURES, failures)
+    view = read_image(PAIRS / "zoom2x_1.png")
+    lzw = work / "zoom2x_1_lzw.tif"
+    lzw.write_bytes(tiff_lzw_file(view))
+    large = {}
+    for path in (IMAGE_FIXTURES / TIFF_ZSTD_PAIR[0], lzw):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a = read_image(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        large[path.name] = dict(read_ms=statistics.median(ms),
+                                equal=bool(np.array_equal(a, view)))
+        if not large[path.name]["equal"]:
+            failures.append(f"14p {path.name}: not read to the view")
+    print(f"[14] p, Zstandard, ThunderScan and tiff_raw_16 TIFFs decoded on "
+          f"the host: {json.dumps(out)}; 1000x598 reads: "
+          f"{json.dumps(large)}", flush=True)
+    return failures
+
+
+def _match_tiff_zstd_pair(held, work: Path) -> list:
+    """14q: ``cli match`` on zoom2x's pair as Zstandard TIFFs in tiles
+    (``TIFF_ZSTD_PAIR``, each read to the PNG view) against
+    ``JAX_TIFF_ZSTD_REFERENCE`` (``_held_cli_match``, tentatives within
+    20 %), its drawings named .tif read back to ``viz``'s canvases."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    failures = []
+    pair = [IMAGE_FIXTURES / name for name in TIFF_ZSTD_PAIR]
+    for i, path in enumerate(pair, 1):
+        if not np.array_equal(read_image(path),
+                              read_image(PAIRS / f"zoom2x_{i}.png")):
+            failures.append(f"14q {path.name} is not zoom2x_{i}.png")
+    res, held_failures, drawings = _held_cli_match(
+        held, work, "zoom2x Zstandard TIFF", pair,
+        (work / "o1.tif", work / "o2.tif"), JAX_TIFF_ZSTD_REFERENCE)
+    failures += held_failures
+    ref = JAX_TIFF_ZSTD_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14q: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        got = read_image(path)
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14q {path.name} is not viz's drawing")
+    print(f"[14] q, cli match on the Zstandard TIFF pair: "
           f"{json.dumps(res)}", flush=True)
     return failures
 
@@ -5348,9 +5531,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14o), on the card machine without PIL.  Raises with
+    """Phase 14 (14a-14q), on the card machine without PIL.  Raises with
     every failure of its parts; returns each kernel's launches in 14c, 14g,
-    14k, 14m and 14o."""
+    14k, 14m, 14o and 14q."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -5374,6 +5557,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _decode_tiff_variants(Path(d))
         failures += _match_tiff_jpeg_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_tiff_codecs(Path(d))
+        failures += _match_tiff_zstd_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -5557,8 +5743,8 @@ def main() -> int:
                                "paths")
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
-    print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF and "
-          f"JPEG-in-TIFF pairs' commands: "
+    print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
+          f"JPEG-in-TIFF and Zstandard TIFF pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -15,7 +15,10 @@
 //     (3: T4Options bit 0 for 2-D rows, EOLs found as tif_fax3.c's
 //     SYNC_EOL finds them, so bit 2's fill bits need nothing more) and
 //     Group 4 (4), each strip or tile started on an all-white reference
-//     row, rows written as bits with 1 for black runs (tif_fax3.c);
+//     row, rows written as bits with 1 for black runs (tif_fax3.c), and
+//     modified Huffman in 16-bit words (32771, tiff_raw_16: libtiff's
+//     CCITTRLEW, whose word alignment follows its bit accumulator);
+//   - ThunderScan's 4-bit codes (tif_thunder.c);
 //     the uncompressed mode's extension codes and bad codes raise, where
 //     libtiff reports them and fills the row;
 //   - YCbCr to RGB as TIFFRGBAImageGet gives it: TIFFYCbCrToRGBInit's
@@ -362,7 +365,6 @@ class Fax {
   }
   void align() { br_.align(); }
   bool at_end() const { return br_.at_end(); }
-
   // one row of 1-D runs into `line` (changing elements, alternating from
   // white); returns false where an EOL cut the row short
   bool row_1d(std::vector<int> &line) {
@@ -505,6 +507,145 @@ class Fax {
   }
 };
 
+// tiff_raw_16 (libtiff's CCITTRLEW): Fax3DecodeRLE under FAXMODE_WORDALIGN,
+// step by step as libtiff takes it, since its reading is not the writer's
+// rows: a 32-bit accumulator that fetches bytes as a 12-bit (white) or
+// 13-bit (black) lookup needs them, zeros past the data's end (the end of
+// data where the accumulator is empty); EXPAND1D's runs, where eleven
+// zeros (libtiff's EOL entry, eleven bits taken) or a code that is none
+// (libtiff's "unexpected", no bit taken) ends the row; CLEANUP_RUNS,
+// which drops the runs past the row's end and fills it white; then the
+// bits past a 16-bit multiple dropped and, where none is left, a byte
+// skipped if the next one's address is odd (`parity`: the strip's file
+// offset, as libtiff reads a mapped file in place).  A row's last code
+// that ends in the 13 bits before a word boundary has the next row's
+// first byte fetched and dropped with it.
+class Rlew {
+ public:
+  Rlew(const uint8_t *d, int64_t n, int width, int parity)
+      : d_(d), n_(n), width_(width), parity_(parity) {}
+
+  void row(uint8_t *out, int64_t row_bytes, int y) {
+    std::vector<int64_t> runs;
+    int64_t a0 = 0, run_length = 0;
+    auto set = [&](int64_t x) {
+      runs.push_back(run_length + x);
+      a0 += x;
+      run_length = 0;
+    };
+    bool eof = false;
+    for (bool done = false; !done;) {
+      for (int colour = 0; colour < 2 && !done; colour++) {
+        for (;;) {
+          int const r = lookup(colour ? black_ : white_, colour ? 13 : 12,
+                               &eof);
+          if (eof || r == kEOL || r == kNone) {
+            done = true;
+            break;
+          }
+          if (r < 64) {
+            set(r);
+            break;
+          }
+          a0 += r;
+          run_length += r;
+        }
+        if (!done && a0 >= width_) done = true;
+      }
+      if (!done && runs.size() >= 2 && runs[runs.size() - 1] == 0 &&
+          runs[runs.size() - 2] == 0)
+        runs.resize(runs.size() - 2);
+    }
+    // CLEANUP_RUNS
+    if (run_length) set(0);
+    if (a0 != width_) {
+      while (a0 > width_ && !runs.empty()) {
+        a0 -= runs.back();
+        runs.pop_back();
+      }
+      if (a0 < width_) {
+        if (a0 < 0) a0 = 0;
+        if (runs.size() & 1) set(0);
+        set(width_ - a0);
+      } else if (a0 > width_) {
+        set(width_);
+        set(0);
+      }
+    }
+    fill(runs, out, row_bytes);
+    if (eof)
+      throw Error{"TIFF tiff_raw_16 (CCITT RLEW) data ends inside row " +
+                  std::to_string(y) + ": PIL refuses it (libtiff's decoder "
+                  "fails)"};
+    // FAXMODE_WORDALIGN
+    take(avail_ % 16);
+    if (avail_ == 0 && ((cp_ + parity_) & 1)) cp_++;
+  }
+
+ private:
+  static const int kNone = -3;
+  const uint8_t *d_;
+  int64_t n_, cp_ = 0;
+  int width_, parity_, avail_ = 0;
+  uint64_t acc_ = 0;  // the next `avail_` bits, the first one highest
+  RunTable white_{kWhite, sizeof(kWhite) / sizeof(Code)};
+  RunTable black_{kBlack, sizeof(kBlack) / sizeof(Code)};
+
+  // NeedBits16 then the table's entry: a run, kEOL or kNone (width 0)
+  int lookup(const RunTable &t, int need, bool *eof) {
+    for (int i = 0; i < 2 && avail_ < need; i++) {
+      if (cp_ >= n_) {
+        if (avail_ == 0) {
+          *eof = true;
+          return kNone;
+        }
+        acc_ <<= need - avail_;
+        avail_ = need;
+      } else {
+        acc_ = acc_ << 8 | d_[cp_++];
+        avail_ += 8;
+      }
+    }
+    // eleven zeros are libtiff's EOL entry (mkg3states' EOLH), whatever
+    // follows, and take eleven bits
+    if (((acc_ >> (avail_ - 11)) & 0x7FF) == 0) {
+      take(11);
+      return kEOL;
+    }
+    for (int l = 1; l <= need; l++) {
+      int const r = t.run[l][(acc_ >> (avail_ - l)) & ((1u << l) - 1)];
+      if (r >= 0) {
+        take(l);
+        return r;
+      }
+    }
+    return kNone;
+  }
+  void take(int l) {
+    avail_ -= l;
+    acc_ &= avail_ ? (uint64_t{1} << avail_) - 1 : 0;
+  }
+
+  // _TIFFFax3fillruns: white and black runs in turn, each cut at the row
+  void fill(std::vector<int64_t> &runs, uint8_t *out, int64_t row_bytes) {
+    if (runs.size() & 1) runs.push_back(0);
+    int64_t x = 0;
+    for (size_t i = 0; i < runs.size(); i++) {
+      int64_t run = runs[i];
+      if (x + run > width_ || run > width_) run = width_ - x;
+      for (int64_t p = x; p < x + run; p++) {
+        uint8_t const bit = static_cast<uint8_t>(0x80 >> (p & 7));
+        if (i & 1)
+          out[p >> 3] |= bit;
+        else
+          out[p >> 3] &= static_cast<uint8_t>(~bit);
+      }
+      x += run;
+    }
+    (void)row_bytes;
+  }
+};
+
 void fill_row(const std::vector<int> &line, int width, uint8_t *out,
               int64_t row_bytes) {
   memset(out, 0, static_cast<size_t>(row_bytes));
@@ -519,6 +660,13 @@ void fill_row(const std::vector<int> &line, int width, uint8_t *out,
 
 void ccitt(const uint8_t *in, int64_t n, int kind, int width, int rows,
            int options, uint8_t *out, int64_t row_bytes) {
+  if (kind == 32771) {
+    Rlew rlew(in, n, width, options & 1);
+    memset(out, 0, static_cast<size_t>(rows * row_bytes));
+    for (int y = 0; y < rows; y++)
+      rlew.row(out + static_cast<int64_t>(y) * row_bytes, row_bytes, y);
+    return;
+  }
   Fax fax(in, n, width);
   std::vector<int> ref{width}, line;
   bool two_d = kind == 4 || (kind == 3 && (options & 1));
@@ -542,6 +690,72 @@ void ccitt(const uint8_t *in, int64_t n, int kind, int width, int rows,
     ref.clear();
     for (int v : line)
       if (v < width) ref.push_back(v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ThunderScan (tif_thunder.c): 4-bit pixels, each row `width` of them from
+// the codes that follow the last row's: a run of the last pixel, three
+// 2-bit or two 3-bit deltas to it (a skip code leaves a slot out), or a raw
+// value; codes past a full row are kept for the next
+
+void thunder(const uint8_t *in, int64_t n, int width, int rows, uint8_t *out,
+             int64_t row_bytes) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  int64_t pos = 0;
+  for (int y = 0; y < rows; y++) {
+    uint8_t *const row = out + static_cast<int64_t>(y) * row_bytes;
+    uint8_t *op = row;
+    unsigned last = 0;
+    int64_t np = 0;
+    auto set = [&](int v) {
+      last = static_cast<unsigned>(v) & 0xf;
+      if (np < width) {
+        if (np++ & 1)
+          *op++ |= static_cast<uint8_t>(last);
+        else
+          op[0] = static_cast<uint8_t>(last << 4);
+      }
+    };
+    while (pos < n && np < width) {
+      int c = in[pos++];
+      switch (c & 0xc0) {
+        case 0x00: {  // run
+          int k = c & 0x3f;
+          if (np & 1) {
+            op[0] |= static_cast<uint8_t>(last);
+            last = *op++;
+            np++;
+            k--;
+          } else {
+            last |= last << 4;
+          }
+          np += k;
+          if (np <= width)
+            for (; k > 0; k -= 2) *op++ = static_cast<uint8_t>(last);
+          if (k == -1) *--op &= 0xf0;
+          last &= 0xf;
+          break;
+        }
+        case 0x40:  // three 2-bit deltas, 2 skips
+          for (int sh = 4; sh >= 0; sh -= 2)
+            if (((c >> sh) & 3) != 2) set(static_cast<int>(last) + two[(c >> sh) & 3]);
+          break;
+        case 0x80:  // two 3-bit deltas, 4 skips
+          for (int sh = 3; sh >= 0; sh -= 3)
+            if (((c >> sh) & 7) != 4)
+              set(static_cast<int>(last) + three[(c >> sh) & 7]);
+          break;
+        default:  // raw
+          set(c);
+      }
+    }
+    if (np != width)
+      throw Error{std::string("TIFF ThunderScan data: ") +
+                  (np < width ? "not enough" : "too much") + " data in row " +
+                  std::to_string(y) + ": PIL refuses it (libtiff's decoder "
+                  "fails)"};
   }
 }
 
@@ -687,14 +901,34 @@ extern "C" int mods_tiff_unpredict(uint8_t *buf, int64_t rows,
   return -1;
 }
 
-// kind 2 (modified Huffman), 3 (Group 3, T4Options `options`) or 4
-// (Group 4): `rows` rows of `width` pixels, row_bytes bytes a row
+// rows of `width` 4-bit ThunderScan pixels, row_bytes bytes a row
+extern "C" int mods_thunder_decode(const uint8_t *in, int64_t n, int width,
+                                   int rows, uint8_t *out, int64_t row_bytes,
+                                   char *err, int errlen) {
+  try {
+    if (width <= 0 || row_bytes * 2 < width)
+      throw Error{"ThunderScan: bad arguments"};
+    thunder(in, n, width, rows, out, row_bytes);
+    return 0;
+  } catch (const Error &e) {
+    set_error(err, errlen, e.msg);
+  }
+  return -1;
+}
+
+// kind 2 (modified Huffman), 3 (Group 3, T4Options `options`), 4 (Group
+// 4) or 32771 (modified Huffman in 16-bit words, libtiff's CCITTRLEW; bit
+// 0 of `options` the parity of the strip's offset in the file, which
+// libtiff's word alignment reads): `rows` rows of `width` pixels,
+// row_bytes bytes a row
 extern "C" int mods_ccitt_decode(const uint8_t *in, int64_t n, int kind,
                                  int width, int rows, int options,
                                  uint8_t *out, int64_t row_bytes, char *err,
                                  int errlen) {
   try {
-    if (kind < 2 || kind > 4 || width <= 0 || row_bytes * 8 < width)
+    if ((kind < 2 || kind > 4) && kind != 32771)
+      throw Error{"CCITT: bad arguments"};
+    if (width <= 0 || row_bytes * 8 < width)
       throw Error{"CCITT: bad arguments"};
     ccitt(in, n, kind, width, rows, options, out, row_bytes);
     return 0;

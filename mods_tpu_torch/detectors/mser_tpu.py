@@ -10,9 +10,13 @@ segmented prefix minimum is one ``cummin`` over ``value - seg_id * BIG``
 (int64, BIG > H*W): a later segment's keys lie below every earlier
 one's, so the running minimum never crosses a segment boundary, and
 ``seg_id * BIG`` added back restores the values.  Component areas and
-raw moments are label-keyed ``index_add_`` sums (float atomics on the
-card: the moment sums round in another order from run to run, the
-areas are exact counts).  Stability follows the native twin's
+raw moments are label-keyed ``index_add_`` sums in int64: every weight
+is 0 or 1 and every coordinate an integer, so each sum is an exact
+integer (x^2 over a 1280x1024 view is about 6e14, far below 2^63), and
+the card's integer atomics give it in any order; each is rounded once to
+float32, the nearest float32 to the JAX package's float32 running sums
+(which round in their own, sequential order).  Stability follows the
+native twin's
 ``best_rate`` (native/mser.cpp:175-179).  MSER+ (dark) and MSER- (bright)
 run as one batch on (img, 255 - img).
 
@@ -79,6 +83,19 @@ def _label_components(m: torch.Tensor, passes: int) -> torch.Tensor:
     return torch.where(m, lab, HW).reshape(B, HW)
 
 
+def _component_sums(key: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
+                    ys: torch.Tensor, bins: int) -> list:
+    """Area, sum x, sum y, sum x^2, sum xy and sum y^2 of the flat int64
+    weights ``w`` (0 or 1) at integer coordinates (xs, ys), keyed by
+    ``key`` into ``bins`` bins: six int64 (bins,) tensors, one
+    ``index_add_`` each, exact and the same in any order of the adds."""
+    out = []
+    for wt in (w, xs * w, ys * w, xs * xs * w, xs * ys * w, ys * ys * w):
+        acc = torch.zeros(bins, dtype=torch.int64, device=key.device)
+        out.append(acc.index_add_(0, key, wt))
+    return out
+
+
 def _mser_sweep(gray2: torch.Tensor, valid: torch.Tensor, levels: int,
                 passes: int, r_step: int, min_size: int,
                 max_size: torch.Tensor, min_margin: int) -> dict:
@@ -89,9 +106,9 @@ def _mser_sweep(gray2: torch.Tensor, valid: torch.Tensor, levels: int,
     HW = H * W
     dev = gray2.device
     step = 256.0 / levels
-    xs = torch.arange(W, dtype=torch.float32, device=dev).repeat(H)[None]
-    ys = torch.arange(H, dtype=torch.float32,
-                      device=dev).repeat_interleave(W)[None]
+    # each pixel's integer coordinates, flat over the (B, HW) batch
+    xs = torch.arange(W, device=dev).repeat(B * H)
+    ys = torch.arange(H, device=dev).repeat_interleave(W).repeat(B)
     iota = torch.arange(HW, device=dev)[None]
     row_base = (torch.arange(B, device=dev) * (HW + 1))[:, None]
     a_m1 = torch.zeros((B, HW), dtype=torch.float32, device=dev)
@@ -103,22 +120,15 @@ def _mser_sweep(gray2: torch.Tensor, valid: torch.Tensor, levels: int,
         lab = _label_components(m, passes)              # (B, HW)
         mf = m.reshape(B, HW)
         labc = torch.where(mf, lab, HW)
-        w = mf.to(torch.float32)
-        # six label-keyed sums, one index_add_ over the flat (B*(HW+1))
-        # bins each.  A pixel outside the mask adds its weight 0 to its
-        # own bin, which no label uses (a label is the index of a mask
-        # pixel), not to the shared bin H*W as the JAX package does: on
-        # the card every atomic add of the background would land on one
-        # address
+        w = mf.to(torch.int64)
+        # a pixel outside the mask adds its weight 0 to its own bin, which
+        # no label uses (a label is the index of a mask pixel), not to the
+        # shared bin H*W as the JAX package does: on the card every atomic
+        # add of the background would land on one address
         key = (row_base + torch.where(mf, lab, iota)).reshape(-1)
-        sums = []
-        for wt in (w, xs * w, ys * w, xs * xs * w, xs * ys * w,
-                   ys * ys * w):
-            acc = torch.zeros(B * (HW + 1), dtype=torch.float32,
-                              device=dev)
-            sums.append(acc.index_add_(0, key, wt.reshape(-1)).reshape(
-                B, HW + 1))
-        area = sums[0]
+        sums = [s.reshape(B, HW + 1) for s in _component_sums(
+            key, w.reshape(-1), xs, ys, B * (HW + 1))]
+        area = sums[0].to(torch.float32)
         a_map = torch.where(mf, torch.gather(area, 1, labc), 0.0)
         root = mf & (lab == iota)
         # backward growth rate of the containing component
@@ -131,7 +141,8 @@ def _mser_sweep(gray2: torch.Tensor, valid: torch.Tensor, levels: int,
         cand, cvalid = nonzero_static(ok.reshape(-1), r_step)
         bidx = cand // HW
         clab = lab.reshape(-1)[cand].clamp(max=HW)
-        mom = torch.stack([s[bidx, clab] for s in sums], -1)
+        mom = torch.stack([s[bidx, clab] for s in sums],
+                          -1).to(torch.float32)
         recs["b"].append(torch.where(cvalid, bidx, -1))
         recs["margin"].append(torch.where(cvalid, margin.reshape(-1)[cand],
                                           0.0))

@@ -27,12 +27,14 @@ are followed one by one:
   fill order 2 undone on the compressed bytes (libtiff's codecs but
   JPEG) and the fill-order-1 raw mode used; each strip or tile decoded
   (``csrc/tiff_decode.cpp``: LZW in both bit orders, PackBits, CCITT
-  modified Huffman, Group 3 and Group 4; zlib's Deflate, CPython's
-  ``lzma`` for LZMA; ``csrc/jpeg_decode.cpp`` for JPEG with the
-  ``JPEGTables`` stream), its 16-, 32- and 64-bit samples put in the
-  host's byte order and predictor 2 or 3 undone (LZW, Deflate and LZMA),
-  then unpacked with the raw mode's native-order form ("I;16N",
-  "RGB;16N", ...);
+  modified Huffman, Group 3 and Group 4, modified Huffman in 16-bit
+  words (tiff_raw_16, libtiff's CCITTRLEW), ThunderScan's 4-bit codes;
+  ``csrc/zstd_decode.cpp``: Zstandard as libzstd 1.5.7 decodes a strip
+  for libtiff's ZSTDDecode; zlib's Deflate, CPython's ``lzma`` for LZMA;
+  ``csrc/jpeg_decode.cpp`` for JPEG with the ``JPEGTables`` stream), its
+  16-, 32- and 64-bit samples put in the host's byte order and predictor
+  2 or 3 undone (LZW, Deflate, LZMA and Zstandard), then unpacked with
+  the raw mode's native-order form ("I;16N", "RGB;16N", ...);
 * YCbCr (photometric 6): JPEG in planar configuration 1 decodes to RGB
   (libtiff's JPEGCOLORMODE_RGB); any other compressed YCbCr file goes
   through libtiff's RGBA interface (TIFFRGBAImageGet: its subsampling
@@ -59,6 +61,7 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIFF_SOURCE = os.path.join(_PKG, "csrc", "tiff_decode.cpp")
+ZSTD_SOURCE = os.path.join(_PKG, "csrc", "zstd_decode.cpp")
 
 II, MM = b"II", b"MM"
 # TiffImagePlugin.OPEN_INFO (Pillow 12.1.0): (byte order, photometric,
@@ -146,13 +149,14 @@ COMPRESSION_INFO = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                     34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                     50001: "webp"}
 # the compressions this module decodes
-READ_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
-# the names of the others, for their refusal
-_COMPRESSION_NAMES = {6: "old-style JPEG", 32771: "tiff_raw_16 (CCITT RLEW)",
-                      32809: "ThunderScan", 34661: "JBIG",
+READ_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34925,
+                     50000)
+# the names of the others, for their refusal, and of the CCITT ones
+_COMPRESSION_NAMES = {6: "old-style JPEG", 34661: "JBIG",
                       34676: "SGILog (LogLuv)", 34677: "SGILog24 (LogLuv)",
-                      34712: "JPEG 2000", 50000: "Zstandard",
-                      50001: "WebP"}
+                      34712: "JPEG 2000", 50001: "WebP"}
+_CCITT_NAMES = {2: "CCITT", 3: "CCITT Group 3", 4: "CCITT Group 4",
+                32771: "tiff_raw_16 (CCITT RLEW)"}
 # the phrases of every refusal
 REFUSALS = ("PIL does not open", "PIL refuses", "PIL misreads",
             "is not supported")
@@ -201,11 +205,62 @@ def _lib():
                                       c.c_int, c.c_int, c.c_int, c.c_void_p,
                                       c.c_void_p, c.c_void_p, c.c_int64,
                                       c.c_char_p, c.c_int]
+    lib.mods_thunder_decode.argtypes = [c.c_char_p, c.c_int64, c.c_int,
+                                        c.c_int, c.c_void_p, c.c_int64,
+                                        c.c_char_p, c.c_int]
     for fn in (lib.mods_lzw_decode, lib.mods_packbits_decode,
                lib.mods_tiff_unpredict, lib.mods_ccitt_decode,
-               lib.mods_ycbcr_to_rgb):
+               lib.mods_ycbcr_to_rgb, lib.mods_thunder_decode):
         fn.restype = c.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _zstd_lib():
+    from mods_tpu_torch.detectors.mser import build_native
+    lib = ctypes.CDLL(build_native(ZSTD_SOURCE, "libmods_zstd.so"))
+    c = ctypes
+    for fn in (lib.mods_zstd_decode, lib.mods_zstd_decode_strip):
+        fn.argtypes = [c.c_char_p, c.c_int64, c.c_void_p, c.c_int64,
+                       c.c_char_p, c.c_int]
+        fn.restype = c.c_int64
+    lib.mods_zstd_coverage.argtypes = [c.POINTER(c.c_int64), c.c_int, c.c_int]
+    lib.mods_zstd_coverage.restype = c.c_int
+    return lib
+
+
+# csrc/zstd_decode.cpp's counters (enum Cov), for the tests
+ZSTD_COUNTERS = (
+    "block_raw", "block_rle", "block_compressed", "lit_raw", "lit_rle",
+    "lit_huffman", "lit_treeless", "lit_1_stream", "lit_4_streams",
+    "ll_predefined", "ll_rle", "ll_fse", "ll_repeat", "of_predefined",
+    "of_rle", "of_fse", "of_repeat", "ml_predefined", "ml_rle", "ml_fse",
+    "ml_repeat", "repeat_offset_1", "repeat_offset_2", "repeat_offset_3",
+    "frames", "skippable_frames", "single_segment", "windowed",
+    "checksums", "huffman_x1", "huffman_x2", "huffman_fast")
+
+
+def zstd_decode(data: bytes, cap: int, strip: bool = False,
+                path="Zstandard") -> bytes:
+    """``ZSTD_decompress`` of ``data`` into at most ``cap`` bytes, or with
+    ``strip`` what libtiff's ZSTDDecode reads of one strip of ``cap``
+    bytes (csrc/zstd_decode.cpp); a ValueError where libzstd fails."""
+    out = ctypes.create_string_buffer(max(cap, 1))
+    err = ctypes.create_string_buffer(256)
+    lib = _zstd_lib()
+    fn = lib.mods_zstd_decode_strip if strip else lib.mods_zstd_decode
+    n = fn(data, len(data), out, cap, err, len(err))
+    if n < 0:
+        raise ValueError(f"{path}: Zstandard data that libzstd does not "
+                         f"decode ({err.value.decode()}): PIL refuses it")
+    return out.raw[:n]
+
+
+def zstd_coverage(reset: bool = False) -> dict:
+    """csrc/zstd_decode.cpp's counters since the last reset, by name."""
+    counts = (ctypes.c_int64 * len(ZSTD_COUNTERS))()
+    _zstd_lib().mods_zstd_coverage(counts, len(ZSTD_COUNTERS), int(reset))
+    return dict(zip(ZSTD_COUNTERS, counts))
 
 
 def _check(rc: int, err, path) -> None:
@@ -478,8 +533,8 @@ class _Info:
             name = _COMPRESSION_NAMES.get(self.comp,
                                           COMPRESSION_INFO[self.comp])
             raise _refuse(path, f"compression {name} is not supported "
-                          f"(none, CCITT, LZW, JPEG, Deflate, PackBits and "
-                          f"LZMA are)")
+                          f"(none, CCITT, LZW, JPEG, Deflate, PackBits, LZMA, "
+                          f"Zstandard and ThunderScan are)")
         self.planar = tags.get(284, (1,))[0]
         # (old-style JPEG, refused above, is the one compression for which
         # _setup would take photometric 6 and 3 samples by default)
@@ -640,24 +695,42 @@ def _read_raw(data: bytes, info: _Info, path) -> np.ndarray:
 
 def _decode_chunk(raw: bytes, info: _Info, need: int, rows: int, cols: int,
                   row_bytes: int, samples: int, path,
-                  short_ok: bool = False) -> bytes:
-    """One strip or tile through libtiff's codec: ``need`` bytes of
-    ``rows`` rows, in the host's byte order, the predictor undone (fewer
-    where ``short_ok`` and the data ends early)."""
+                  short_ok: bool = False, offset: int = 0) -> bytes:
+    """One strip or tile (at ``offset`` in the file) through libtiff's
+    codec: ``need`` bytes of ``rows`` rows, in the host's byte order, the
+    predictor undone (fewer where ``short_ok`` and the data ends early)."""
     comp = info.comp
     if info.fill == 2 and comp != 7:
         raw = _reverse_bits(raw)
-    if comp in (2, 3, 4):
+    if comp in (2, 3, 4, 32771):
         if info.bits != 1 or samples != 1:
-            raise _refuse(path, f"CCITT compression of {info.bits}-bit, "
-                          f"{samples}-sample pixels is not supported (libtiff "
-                          f"reads bilevel images only)")
+            raise _refuse(path, f"{_CCITT_NAMES[comp]} compression of "
+                          f"{info.bits}-bit, {samples}-sample pixels is not "
+                          f"supported (libtiff reads bilevel images only)")
         out = np.empty(rows * row_bytes, np.uint8)
         err = ctypes.create_string_buffer(256)
-        options = info.tags.get(292 if comp == 3 else 293, (0,))[0]
+        # CCITTRLEW's word alignment reads the strip's address: libtiff
+        # reads a mapped file in place, at its offset
+        options = (offset & 1 if comp == 32771 else
+                   info.tags.get(292 if comp == 3 else 293, (0,))[0])
         _check(_lib().mods_ccitt_decode(raw, len(raw), comp, cols, rows,
                                         options, out.ctypes.data, row_bytes,
                                         err, len(err)), err, path)
+        return out.tobytes()
+    if comp == 32809:
+        if info.bits != 4:
+            raise _refuse(path, f"ThunderScan compression of {info.bits}-bit "
+                          f"samples: PIL refuses it (libtiff decodes 4-bit "
+                          f"samples only)")
+        if 322 in info.tags or 324 in info.tags:
+            raise _refuse(path, "ThunderScan in tiles: PIL refuses it "
+                          "(libtiff does not decode ThunderScan tiles)")
+        line = -(-info.w * 4 // 8)
+        out = np.zeros(need, np.uint8)
+        err = ctypes.create_string_buffer(256)
+        _check(_lib().mods_thunder_decode(raw, len(raw), info.w, need // line,
+                                          out.ctypes.data, line, err,
+                                          len(err)), err, path)
         return out.tobytes()
     if comp == 5:
         old = raw[:1] == b"\x00" and len(raw) > 1 and raw[1] & 1
@@ -668,6 +741,8 @@ def _decode_chunk(raw: bytes, info: _Info, need: int, rows: int, cols: int,
         except zlib.error as e:
             raise ValueError(f"{path}: TIFF Deflate data is corrupt ({e})") \
                 from None
+    elif comp == 50000:
+        buf = zstd_decode(raw, need, True, path)
     elif comp == 34925:
         import lzma                 # chip_smoke.py 14n checks it imports
         try:
@@ -688,8 +763,8 @@ def _decode_chunk(raw: bytes, info: _Info, need: int, rows: int, cols: int,
         raise _refuse(path, f"strip or tile of {len(buf)} bytes where "
                       f"{need} are due: PIL refuses it (libtiff's decoder "
                       f"fails)")
-    predictor = info.tags.get(317, (1,))[0] if comp in (5, 8, 32946,
-                                                        34925) else 1
+    predictor = info.tags.get(317, (1,))[0] if comp in (
+        5, 8, 32946, 34925, 50000) else 1
     wide = info.bits in (16, 32, 64)
     swap = info.bo != ("<" if _HOST else ">")
     if predictor == 1 and not (swap and wide):
@@ -813,7 +888,7 @@ def _read_libtiff(data: bytes, info: _Info, path) -> np.ndarray:
             row_bytes = cols * (3 if jpeg_rgb else per)
         else:
             buf = _decode_chunk(raw, info, rows * row_bytes, rows, cols,
-                                row_bytes, per, path)
+                                row_bytes, per, path, offset=offset)
         r = np.frombuffer(buf, np.uint8, rows * row_bytes).reshape(
             rows, row_bytes)
         vis_rows = min(rows, info.h - y0)

@@ -491,12 +491,17 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """Zstandard TIFF, ICO and YCCK JPEG: PIL reads each; old-style JPEG,
-    ThunderScan, SGILog and tiff_raw_16 TIFFs (PIL hands them to
-    libtiff) and WebP in TIFF (this libtiff lacks it): the port raises a
-    ValueError that names each (ROADMAP C3's next slices)."""
-    cases = [("x.tif", dict(compression="zstd"), GRAY, "Zstandard"),
-             ("x.ico", {}, RGB, "ICO")]
+    """ICO and YCCK JPEG: PIL reads each; old-style JPEG and SGILog TIFFs
+    (PIL hands them to libtiff), ThunderScan and tiff_raw_16 TIFFs of
+    8-bit samples (libtiff refuses those) and WebP in TIFF (this libtiff
+    lacks it): the port raises a ValueError that names each (ROADMAP C3's
+    next slices).  A Zstandard TIFF of PIL's is read as PIL reads it."""
+    p = tmp_path / "z.tif"
+    Image.fromarray(GRAY).save(p, compression="zstd")
+    got, mode = read_image(p), Image.open(p).mode
+    np.testing.assert_array_equal(got, np.asarray(Image.open(p)))
+    assert mode == "L"
+    cases = [("x.ico", {}, RGB, "ICO")]
     for name, kw, a, match in cases:
         p = tmp_path / name
         Image.fromarray(a).save(p, **kw)

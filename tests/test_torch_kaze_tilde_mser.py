@@ -8,10 +8,12 @@ Tolerances.  Diffusion steps, gradients and determinants are float32
 stencils: relative 1e-5 of the largest magnitude.  The TILDE bank's
 21x21 convolutions sum 2,646 products in another order: 2e-5.  The MSER
 labels, areas and candidate records are integers and exact counts, so
-they are equal; the moment sums are float32 sums in another order, so
-the region centres agree to 1e-3 px and the ellipses to 1e-3 relative
-(on the card ``index_add_``'s atomics reorder them from run to run:
-``chip_smoke.py`` holds the card's regions to 0.5 px of the CPU's).
+they are equal; the port sums the moments exactly in int64 and rounds
+them once, the JAX package in float32 in its own order, so the moments
+agree to 1e-5 relative, the region centres to 1e-3 px and the ellipses
+to 1e-3 relative.  The port's sums are exact and do not depend on the
+order of the adds (``test_mser_sums_exact_and_order_free``; on the card
+``index_add_`` adds with atomics in any order).
 Region sets are compared as in ``test_torch_detectors.py``.  End to end
 as there.
 """
@@ -263,6 +265,93 @@ def test_mser_sweep_records_against_jax():
     mom_w = np.asarray(want["mom"])
     np.testing.assert_array_equal(got["mom"].numpy()[..., 0], mom_w[..., 0])
     np.testing.assert_allclose(got["mom"].numpy(), mom_w, rtol=1e-5)
+
+
+def _blob_views(h, w, seed):
+    """Dark elliptic blobs of several sizes and greys on a bright
+    textured ground, (2, h, w) float32 0..255: components of thousands
+    of pixels far from the origin, whose sums of x^2 pass 2^24."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    views = []
+    for _ in range(2):
+        g = 190 + 30 * rng.uniform(0, 1, (h, w))
+        for _ in range(6):
+            cy, cx = rng.uniform(0.15, 0.85) * h, rng.uniform(0.15, 0.85) * w
+            ry, rx = rng.uniform(12, 60), rng.uniform(12, 60)
+            d = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+            g = np.where(d < 1, rng.uniform(10, 120) + 40 * d, g)
+        views.append(g)
+    return np.clip(np.stack(views), 0, 255).astype(np.float32)
+
+
+def test_mser_sums_exact_and_order_free():
+    """On 384x512 views whose components' sums of x^2 pass 2^24 (float32
+    running sums round there), every candidate record's six moments are
+    float32 of numpy's int64 bincount sums over its component; and the
+    int64 sums are the same after the flat pixel order is permuted, as
+    the card's atomics permute it (float32 sums in the same two orders
+    differ, so the permutation does reorder the adds)."""
+    h, w = 384, 512
+    g2 = _blob_views(h, w, 11)
+    B, HW = 2, h * w
+    valid = np.ones((B, h, w), bool)
+    max_size = np.full((B, 1), 0.05 * HW, np.float32)
+    rec = tmser._mser_sweep(torch.as_tensor(g2), torch.as_tensor(valid),
+                            32, 3, 256, 30, torch.as_tensor(max_size), 8)
+    bs, mom = rec["b"].numpy(), rec["mom"].numpy().astype(np.float64)
+    xs = np.tile(np.arange(w), h).astype(np.int64)
+    ys = np.repeat(np.arange(h), w).astype(np.int64)
+    step = 256.0 / 32
+    checked = rounded = 0
+    for lvl in range(32):
+        m = torch.as_tensor(g2 <= (lvl + 1.0) * step - 1.0)
+        lab = tmser._label_components(m, 3).numpy()
+        for b in range(B):
+            sel = bs[lvl] == b
+            if not sel.any():
+                continue
+            inside = m[b].reshape(-1).numpy()
+            lb, x, y = lab[b][inside], xs[inside], ys[inside]
+            exact = np.stack([_int_bincount(lb, wt, HW) for wt in (
+                np.ones_like(x), x, y, x * x, x * y, y * y)], -1)
+            want = exact.astype(np.float32).astype(np.float64)
+            # every record of (level, b) is one component's exact sums
+            table = {tuple(r) for r in want[exact[:, 0] > 0]}
+            for r in mom[lvl][sel]:
+                assert tuple(r) in table, (lvl, b, r)
+                checked += 1
+                rounded += int(r[3] > 1 << 24)
+    assert checked > 20 and rounded > 10, (checked, rounded)
+    # the order of the adds: int64 sums agree, float32 ones do not
+    m = torch.as_tensor(g2 <= 120.0)
+    lab = tmser._label_components(m, 3)
+    mf = m.reshape(B, HW)
+    iota = torch.arange(HW)[None]
+    key = ((torch.arange(B) * (HW + 1))[:, None]
+           + torch.where(mf, lab, iota)).reshape(-1)
+    wt = mf.reshape(-1).to(torch.int64)
+    tx = torch.as_tensor(np.tile(xs, B))
+    ty = torch.as_tensor(np.tile(ys, B))
+    perm = torch.as_tensor(np.random.default_rng(0).permutation(B * HW))
+    bins = B * (HW + 1)
+    a = tmser._component_sums(key, wt, tx, ty, bins)
+    b = tmser._component_sums(key[perm], wt[perm], tx[perm], ty[perm], bins)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    f = (wt * tx * tx).to(torch.float32)
+    fa = torch.zeros(bins).index_add_(0, key, f)
+    fb = torch.zeros(bins).index_add_(0, key[perm], f[perm])
+    assert not torch.equal(fa, fb)
+    assert torch.equal(a[3].to(torch.float32), torch.as_tensor(
+        _int_bincount(key.numpy(), (wt * tx * tx).numpy(),
+                      bins).astype(np.float32)))
+
+
+def _int_bincount(keys, weights, n):
+    """numpy's bincount of integer ``weights`` as int64: it sums in
+    float64, exact below 2^53 (a 384x512 view's sum of x^2 is 1.3e13)."""
+    return np.bincount(keys, weights=weights, minlength=n).astype(np.int64)
 
 
 def test_mser_device_against_jax():

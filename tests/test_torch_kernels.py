@@ -540,3 +540,48 @@ def test_descriptor_families_on_card_match_cpu(cuda):
     a, b = (net_for("", 32, 128, "L2", dev)(p32.to(dev)).cpu()
             for dev in ("cuda", "cpu"))
     assert (a - b).abs().max() <= 1e-4
+
+
+# -- device MSER: the same regions in every run -------------------------------
+
+def _mser_views(device):
+    """Two 480x640 views: dark blobs of many sizes on a textured ground,
+    so that components of thousands of pixels sum x^2 past 2^24."""
+    rng = np.random.default_rng(9)
+    h, w = 480, 640
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    views = []
+    for _ in range(2):
+        g = 150 + 60 * rng.uniform(0, 1, (h, w))
+        for _ in range(40):
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            r = rng.uniform(4, 70)
+            d = ((yy - cy) ** 2 + (xx - cx) ** 2) / r ** 2
+            g = np.where(d < 1, rng.uniform(0, 140) + 60 * d, g)
+        views.append(g)
+    v = torch.from_numpy(np.clip(np.stack(views), 0, 255).astype(
+        np.float32)).to(device)
+    return v, torch.tensor([[h, w], [h, w - 40]], device=device)
+
+
+@pytest.mark.gpu
+def test_device_mser_repeats_on_card(cuda):
+    """``detect_mser_tpu`` twice on the same views on the card gives the
+    same regions bit for bit (its component sums are int64, so the
+    order of ``index_add_``'s atomics does not matter).  Against the CPU
+    the regions, their centres and margins are the same bits; the
+    ellipses ``A`` within 1e-5, as the 2x2 square roots of the
+    covariances round on each device."""
+    from mods_tpu_torch.detectors.mser_tpu import detect_mser_tpu
+    caps = CapacityParams(per_view=1024)
+    views, hw = _mser_views(cuda)
+    a, b = (detect_mser_tpu(views, hw, caps) for _ in range(2))
+    c = detect_mser_tpu(views.cpu(), hw.cpu(), caps)
+    assert int(a.mask.sum()) > 50
+    for name in ("xy", "A", "s", "response", "sub_type", "mask"):
+        x, y, z = (getattr(r, name).cpu() for r in (a, b, c))
+        assert torch.equal(x, y), name
+        if name == "A":
+            torch.testing.assert_close(x, z, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(x, z), name

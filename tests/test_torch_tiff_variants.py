@@ -2,8 +2,9 @@
 (``np.asarray(Image.open(path))``, Pillow 12.1.0 with libtiff 4.7.1):
 every key of ``TiffImagePlugin.OPEN_INFO`` in both byte orders, every
 compression of ``COMPRESSION_INFO`` that the port reads (none, CCITT
-modified Huffman, Group 3 and Group 4, LZW in both bit orders, JPEG,
-both Deflates, PackBits, LZMA), fill order 2, predictors 2 and 3,
+modified Huffman, Group 3 and Group 4, tiff_raw_16 (CCITT RLEW), LZW in
+both bit orders, JPEG, both Deflates, PackBits, LZMA, ThunderScan;
+Zstandard in ``test_torch_zstd.py``), fill order 2, predictors 2 and 3,
 YCbCr through libtiff's RGBA interface, strips, tiles, planar
 configuration 2, BigTIFF and the Orientation tag (CPU).
 
@@ -21,10 +22,11 @@ configuration and BigTIFF), PIL's reading of the same bytes being the
 reference.
 
 ``python tests/test_torch_tiff_variants.py --fixtures`` writes
-``chip_smoke.py`` phase 14n's fixtures into ``tests/data/image_io``;
+``chip_smoke.py`` phase 14n-14q's fixtures into ``tests/data/image_io``;
 ``JAX_PLATFORMS=cpu python tests/test_torch_tiff_variants.py
---jax-tiff-jpeg`` prints the JAX command's figures on phase 14o's pair
-(``chip_smoke.JAX_TIFF_JPEG_REFERENCE``).
+--jax-tiff-jpeg`` (``--jax-tiff-zstd``) prints the JAX command's figures
+on phase 14o's (14q's) pair (``chip_smoke.JAX_TIFF_JPEG_REFERENCE``,
+``JAX_TIFF_ZSTD_REFERENCE``).
 """
 
 import io
@@ -215,11 +217,14 @@ def _float_planes(raw: bytes, rows: int, bps: int, stride: int) -> bytes:
 
 
 def encode(raw: bytes, compression, rows=1, bps=4, stride=1,
-           predictor=1) -> bytes:
+           predictor=1, zstd_level=3) -> bytes:
     if predictor == 3:
         raw = _float_planes(raw, rows, bps, stride)
     if compression in (8, 32946):
         return zlib.compress(raw)
+    if compression == 50000:
+        from test_torch_zstd import zstd_compress
+        return zstd_compress(raw, zstd_level)
     if compression == 5:
         return lzw(raw)
     if compression == "5old":
@@ -245,11 +250,13 @@ def _predict2(block: np.ndarray, bits: int) -> np.ndarray:
 
 def tiff_file(a, bo="<", photometric=1, sample_format=1, fill_order=1,
               extra=(), compression=1, predictor=1, planar=1, tile=None,
-              rows_per_strip=None, big=False, bits=None, tags=None):
+              rows_per_strip=None, big=False, bits=None, tags=None,
+              zstd_level=3):
     """A TIFF of the (H, W[, S]) samples ``a`` (``bits`` a sample, the
     dtype's by default): strips or (th, tw) tiles, planar configuration 1
     or 2, ``compression`` 1, 5 (LZW), "5old" (LZW's old LSB-first form,
-    tagged 5), 8 or 32946 (Deflate), 32773 (PackBits) or 34925 (LZMA),
+    tagged 5), 8 or 32946 (Deflate), 32773 (PackBits), 34925 (LZMA) or
+    50000 (Zstandard at ``zstd_level``, through Pillow's libzstd),
     predictor 1, 2 or 3, fill order 1 or 2 (the stored bytes reversed),
     ``extra`` samples, BigTIFF where ``big``; ``tags`` adds or replaces
     tags."""
@@ -267,7 +274,7 @@ def tiff_file(a, bo="<", photometric=1, sample_format=1, fill_order=1,
         # predictor 3's byte planes do not depend on the byte order
         raw = pack_rows(block, bits, "<" if predictor == 3 else bo)
         out = encode(raw, compression, block.shape[0], bits // 8, stride,
-                     predictor)
+                     predictor, zstd_level)
         return reverse_bits(out) if fill_order == 2 else out
 
     chunks = []
@@ -582,7 +589,8 @@ def test_coverage_of_pils_tables(tmp_path):
             hold(tmp_path, key_file(key, 5, 7, compression,
                                     rows_per_strip=2))
     read = set(tiff.READ_COMPRESSIONS)
-    assert read == {1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925}
+    assert read == {1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946,
+                    34925, 50000}
     for comp in sorted(set(TiffImagePlugin.COMPRESSION_INFO) - read) + [
             34661, 34712, 9]:
         data = tiff_file(GRAY_SMALL, compression=8,
@@ -727,6 +735,228 @@ def test_ccitt_uncompressed_mode_refused(tmp_path):
         want = pil_read(data)
         assert isinstance(want, Exception) or want[0].all(), want
         hold_refusal(tmp_path, data, "uncompressed mode")
+
+
+# ---------------------------------------------------------------------------
+# tiff_raw_16 (CCITT RLEW) and ThunderScan: files written here
+
+def _row_codes(a):
+    """Each row of bilevel ``a`` as libtiff's modified Huffman code of
+    that row alone (a one-row tiff_ccitt strip of PIL's, padded to a
+    byte), and the tags of such a file."""
+    codes = []
+    for r in a:
+        _, tags, strips = pil_parts(pil_tiff(r[None],
+                                             compression="tiff_ccitt"))
+        codes.append(strips[0])
+    return codes, tags
+
+
+def shift_strip(data: bytes) -> bytes:
+    """``data`` (one strip, last in the file, a LONG offset) with its strip
+    moved one byte on: an odd offset."""
+    bo, tags = tiff.read_ifd(data, "x")
+    (off,) = tags[273]
+    entry = struct.pack(bo + "HHII", 273, 4, 1, off)
+    at = data.index(entry)
+    data = data[:at] + struct.pack(bo + "HHII", 273, 4, 1, off + 1) + \
+        data[at + 12:]
+    return data[:off] + b"\0" + data[off:]
+
+
+def rlew_file(a, pad, rows_per_strip=None, fill_order=1, tags=None):
+    """Bilevel ``a`` as tiff_raw_16: each row's modified Huffman code
+    (``_row_codes``) followed by ``pad(y, bytes so far)`` zero bytes."""
+    codes, t = _row_codes(a)
+    h, w = a.shape
+    rps = rows_per_strip or h
+    chunks = []
+    for y0 in range(0, h, rps):
+        c = b""
+        for y in range(y0, min(h, y0 + rps)):
+            c += codes[y] + bytes(pad(y, len(c) + len(codes[y])))
+        chunks.append(reverse_bits(c) if fill_order == 2 else c)
+    t.update({256: (4, [w]), 257: (4, [h]), 259: (3, [32771]),
+              278: (4, [rps])})
+    if fill_order == 2:
+        t[266] = (3, [2])
+    t.update(tags or {})
+    return assemble(t, chunks)
+
+
+RLEW = ("even_rows", "unpadded", "random_padding", "odd_offset",
+        "fill_order2", "photometric0", "strips", "random_bytes")
+
+
+@pytest.mark.parametrize("variant", RLEW)
+def test_rlew(tmp_path, variant):
+    """tiff_raw_16 files of seeded bilevel images at widths 1-70 and 1000:
+    rows padded to whole 16-bit words as the format asks, unpadded, with
+    0-3 zero bytes after each, in a strip at an odd offset, under fill
+    order 2, WhiteIsZero, in strips of 3 rows, and strips of random bytes.
+    PIL reads them through libtiff's word alignment, which follows its bit
+    accumulator and the strip's address and so often not the rows: the
+    port reads what PIL reads (``csrc/tiff_decode.cpp::Rlew``)."""
+    rng = np.random.default_rng(len(variant))
+    read = 0
+    for w in CCITT_WIDTHS:
+        if variant == "random_bytes":
+            chunk = rng.integers(0, 256, int(rng.integers(0, 40)),
+                                 dtype=np.uint8).tobytes()
+            data = assemble({256: (4, [w]), 257: (4, [5]),
+                             259: (3, [32771]), 262: (3, [0]),
+                             278: (4, [5])}, [chunk])
+        else:
+            a = bilevel(9 if w < 100 else 40, w, w,
+                        None if w % 3 else 40 if w < 100 else 300)
+            pad = {"unpadded": lambda y, n: 0,
+                   "random_padding": lambda y, n: int(rng.integers(0, 4))
+                   }.get(variant, lambda y, n: n % 2)
+            data = rlew_file(
+                a, pad, 3 if variant == "strips" else None,
+                2 if variant == "fill_order2" else 1,
+                {262: (3, [0])} if variant == "photometric0" else None)
+            if variant == "odd_offset":
+                data = shift_strip(data)
+        read += hold(tmp_path, data) is not None
+    assert read > 0
+
+
+THUNDER_CODES = {
+    "raw": [0xC1, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7],
+    "runs": [0xC7, 0x04, 0xC9, 0x02, 0xC1, 0x03],
+    "run_to_row_end": [0xC1, 0x03, 0xC2, 0x03, 0xC3, 0x05],
+    "empty_run": [0xC7, 0x00, 0xC1, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6],
+    "deltas_2bit": [0xC5, 0x40 | 1 << 4 | 3 << 2 | 2, 0x40 | 1 << 4 | 1 << 2,
+                    0x40 | 3 << 4 | 3 << 2 | 3, 0x40 | 1 << 4 | 1 << 2 | 1],
+    "deltas_3bit": [0xC5, 0x80 | 3 << 3 | 5, 0x80 | 4 << 3 | 1, 0x80 | 2,
+                    0x80 | 3 << 3 | 3, 0x80 | 7 << 3 | 6],
+    "wraps": [0xC0, 0x40 | 63, 0xCF, 0x80 | 3 << 3 | 3, 0x80 | 27],
+    "too_long_run": [0xC1, 0x3F],
+    "too_short": [0xC1, 0xC2],
+}
+
+
+def _thunder_row(rng, w) -> bytes:
+    """Codes of exactly one row of ``w`` pixels: a raw value, then runs,
+    2-bit and 3-bit deltas (no skip codes) and raw values."""
+    out, n = [0xC0 | int(rng.integers(16))], 1
+    while n < w:
+        k = int(rng.integers(4))
+        if k == 0:
+            run = int(rng.integers(1, min(63, w - n) + 1))
+            out.append(run)
+            n += run
+        elif k == 1 and n + 3 <= w:
+            d = rng.choice([0, 1, 3], 3)
+            out.append(0x40 | int(d[0]) << 4 | int(d[1]) << 2 | int(d[2]))
+            n += 3
+        elif k == 2 and n + 2 <= w:
+            d = rng.choice([0, 1, 2, 3, 5, 6, 7], 2)
+            out.append(0x80 | int(d[0]) << 3 | int(d[1]))
+            n += 2
+        else:
+            out.append(0xC0 | int(rng.integers(64)))
+            n += 1
+    return bytes(out)
+
+
+def thunder_file(w, h, rows, photometric=1, rows_per_strip=None,
+                 fill_order=1, bits=4) -> bytes:
+    rps = rows_per_strip or h
+    chunks = [b"".join(rows[y:y + rps]) for y in range(0, h, rps)]
+    t = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits]), 259: (3, [32809]),
+         262: (3, [photometric]), 278: (4, [rps])}
+    if fill_order == 2:
+        chunks = [reverse_bits(c) for c in chunks]
+        t[266] = (3, [2])
+    return assemble(t, chunks)
+
+
+@pytest.mark.parametrize("case", sorted(THUNDER_CODES) + [
+    "random_rows", "random_bytes"])
+def test_thunderscan(tmp_path, case):
+    """ThunderScan files written here (each code kind at widths 3-7;
+    seeded rows in strips of 1-5 rows, MinIsBlack and MinIsWhite, fill
+    orders 1 and 2; random bytes): PIL's arrays (mode L, 4-bit values
+    times 17), or refused where libtiff's decoder fails."""
+    rng = np.random.default_rng(len(case))
+    read = 0
+    if case in THUNDER_CODES:
+        codes = bytes(THUNDER_CODES[case])
+        for w in range(3, 8):
+            read += hold(tmp_path, thunder_file(w, 1, [codes])) is not None
+            read += hold(tmp_path, thunder_file(w, 2, [codes, codes])) \
+                is not None
+        assert read or case.startswith("too"), case
+        return
+    for _ in range(60):
+        w, h = int(rng.integers(1, 70)), int(rng.integers(1, 8))
+        rows = [_thunder_row(rng, w) if case == "random_rows" else
+                rng.integers(0, 256, int(rng.integers(0, 30)),
+                             dtype=np.uint8).tobytes() for _ in range(h)]
+        data = thunder_file(w, h, rows, int(rng.integers(0, 2)),
+                            int(rng.integers(1, 6)), int(rng.integers(1, 3)))
+        read += hold(tmp_path, data) is not None
+    assert read > (40 if case == "random_rows" else 0)
+
+
+def thunder_encode(v: np.ndarray) -> list:
+    """Each row of the 4-bit values ``v`` as ThunderScan codes: a raw
+    first value, then runs of the last value (up to 63), 3-bit deltas of
+    two values within 3 of the last, 2-bit deltas of three within 1, else
+    a raw value."""
+    rows = []
+    for r in v.astype(int):
+        out, x, w = [0xC0 | r[0]], 1, len(r)
+        while x < w:
+            n = 0
+            while x + n < w and n < 63 and r[x + n] == r[x - 1]:
+                n += 1
+            if n:
+                out.append(n)
+                x += n
+                continue
+            if x + 2 < w and all(abs(r[x + i] - r[x + i - 1]) <= 1
+                                 for i in range(3)):
+                d = [(r[x + i] - r[x + i - 1]) % 4 for i in range(3)]
+                out.append(0x40 | d[0] << 4 | d[1] << 2 | d[2])
+                x += 3
+            elif x + 1 < w and all(0 < abs(r[x + i] - r[x + i - 1]) <= 3
+                                   for i in range(2)):
+                d = [(r[x + i] - r[x + i - 1]) % 8 for i in range(2)]
+                out.append(0x80 | d[0] << 3 | d[1])
+                x += 2
+            else:
+                out.append(0xC0 | r[x])
+                x += 1
+        rows.append(bytes(out))
+    return rows
+
+
+def test_thunder_encode_reads_back(tmp_path):
+    """``thunder_encode``'s codes of a view read back, through PIL and the
+    port, to the values times 17."""
+    v = _zoom(1)[200:240, 300:367] // 16
+    data = thunder_file(v.shape[1], v.shape[0], thunder_encode(v),
+                        rows_per_strip=16)
+    np.testing.assert_array_equal(hold(tmp_path, data), v * 17)
+
+
+def test_thunderscan_refusals(tmp_path):
+    """ThunderScan of other than 4-bit samples (libtiff's
+    ThunderSetupDecode refuses them) and in tiles (libtiff does not decode
+    them): PIL fails, the port refuses each by name."""
+    row = bytes([0xC1, 0x04])
+    for bits in (1, 2, 8):
+        data = thunder_file(5, 1, [row], bits=bits)
+        assert isinstance(pil_read(data), Exception)
+        hold_refusal(tmp_path, data, "ThunderScan")
+    tiled = assemble({256: (4, [5]), 257: (4, [1]), 258: (3, [4]),
+                      259: (3, [32809]), 262: (3, [1]), 322: (4, [16]),
+                      323: (4, [16])}, [row * 16], tiles=True)
+    assert isinstance(pil_read(tiled), Exception)
+    hold_refusal(tmp_path, tiled, "ThunderScan in tiles")
 
 
 # ---------------------------------------------------------------------------
@@ -1018,20 +1248,30 @@ def test_orientation(tmp_path, orientation):
 REFUSED = {6: "old-style JPEG", 32771: "tiff_raw_16", 32809: "ThunderScan",
            34676: "SGILog", 34677: "SGILog24", 50000: "Zstandard",
            50001: "WebP", 34661: "JBIG", 34712: "JPEG 2000"}
+# the compressions of REFUSED that the port now reads
+READ_NOW = (32771, 32809, 50000)
 
 
 @pytest.mark.parametrize("compression", sorted(REFUSED))
 def test_refused_compressions(tmp_path, compression):
     """Each compression the port does not read raises a ValueError that
-    names it; PIL reads Zstandard here (so the port refuses a file PIL
-    reads, ROADMAP C3), cannot read WebP in TIFF (libtiff built without
-    it), and opens no JBIG or JPEG 2000 TIFF."""
+    names it: old-style JPEG and SGILog, which PIL's libtiff reads (ROADMAP
+    C3.1); WebP in TIFF, which this libtiff lacks; JBIG and JPEG 2000,
+    which PIL does not open.  Zstandard (PIL's own file), ThunderScan and
+    tiff_raw_16 (written here) are read as PIL reads them."""
     g = GRAY_SMALL
-    if compression == 50000:
-        data = pil_tiff(g, compression="zstd")
-        assert hold_refusal(tmp_path, data, "Zstandard")
-        np.testing.assert_array_equal(np.asarray(Image.open(
-            io.BytesIO(data))), g)
+    if compression in READ_NOW:
+        if compression == 50000:
+            data = pil_tiff(g, compression="zstd")
+        elif compression == 32809:
+            data = thunder_file(9, 7, [bytes([0xC0 | v >> 4 for v in row])
+                                       for row in g])
+        else:
+            data = rlew_file(g > 100, lambda y, n: n % 2)
+        arr = hold(tmp_path, data)
+        assert arr is not None
+        if compression == 50000:
+            np.testing.assert_array_equal(arr, g)
         return
     data = tiff_file(g, compression=8, tags={259: (3, [compression])})
     if compression in (50001, 34661, 34712):
@@ -1058,10 +1298,18 @@ def tiff_jpeg_pair(i: int) -> bytes:
                      tables=True, quality=85)
 
 
+def tiff_zstd_pair(i: int) -> bytes:
+    """Phase 14q's file: zoom2x view ``i`` as a Zstandard TIFF (level 19)
+    in 128 x 128 tiles with predictor 2."""
+    return tiff_file(_zoom(i), compression=50000, predictor=2,
+                     tile=(128, 128), zstd_level=19)
+
+
 def write_fixtures(d) -> None:
     """Phase 14n's fixtures (small crops of the zoom2x and tilt4 views;
     CCITT and JPEG coded by PIL's libtiff or its JPEG encoder, the rest
-    by ``tiff_file`` and ``ycbcr_file``) and 14o's pair."""
+    by ``tiff_file`` and ``ycbcr_file``), 14o's pair, 14p's Zstandard,
+    ThunderScan and tiff_raw_16 fixtures and 14q's pair."""
     os.makedirs(d, exist_ok=True)
     g, rgb = _crops(96, 128)
     bw = g > np.median(g)
@@ -1103,6 +1351,24 @@ def write_fixtures(d) -> None:
                                     tags={274: (3, [6])}),
         "zoom2x_1_ycbcr_jpeg.tif": tiff_jpeg_pair(1),
         "zoom2x_2_ycbcr_jpeg.tif": tiff_jpeg_pair(2),
+        # 14p: the codecs of this slice
+        "zstd_gray_predictor2.tif": tiff_file(
+            g, compression=50000, predictor=2, rows_per_strip=16,
+            zstd_level=19),
+        "zstd_rgb16_mm_tiles.tif": tiff_file(
+            rgb48.astype(np.uint16) * 257 + 5, ">", 2, compression=50000,
+            predictor=2, tile=(16, 32)),
+        "zstd_float_predictor3.tif": tiff_file(
+            g48.astype(np.float32) / 3 - 7, sample_format=3,
+            compression=50000, predictor=3, rows_per_strip=16,
+            zstd_level=9),
+        "zstd_pil.tif": pil_tiff(rgb, compression="zstd"),
+        "thunderscan.tif": thunder_file(64, 48, thunder_encode(g48 // 16),
+                                        rows_per_strip=16),
+        "tiff_raw_16.tif": rlew_file(bw[:48], lambda y, n: n % 2),
+        # 14q's pair
+        "zoom2x_1_zstd_tiles.tif": tiff_zstd_pair(1),
+        "zoom2x_2_zstd_tiles.tif": tiff_zstd_pair(2),
     }
     for name, data in files.items():
         with open(os.path.join(d, name), "wb") as f:
@@ -1110,21 +1376,30 @@ def write_fixtures(d) -> None:
 
 
 def test_tiff_fixtures_are_written_here():
-    """The committed fixtures of phase 14n-14o are ``write_fixtures``'s
-    bytes (PIL's coders here, Pillow 12.1.0 with libtiff 4.7.1 and
-    libjpeg-turbo), and every one of 14n's has PIL's hash in
-    ``chip_smoke.FORMAT_FIXTURE_SHA256``."""
+    """The committed fixtures of phase 14n-14q are ``write_fixtures``'s
+    bytes (PIL's coders here, Pillow 12.1.0 with libtiff 4.7.1,
+    libjpeg-turbo and libzstd 1.5.7), and every one of 14n's and 14p's has
+    PIL's hash in ``chip_smoke.FORMAT_FIXTURE_SHA256``.  Sizes: 30 KB a
+    crop, 100 KB a file of 14o's JPEG pair, 1.5 MB for 14q's lossless
+    Zstandard pair together."""
     import tempfile
+    zstd_pair = 0
     with tempfile.TemporaryDirectory() as d:
         write_fixtures(d)
         for name in sorted(os.listdir(d)):
             mine = open(os.path.join(d, name), "rb").read()
             assert (chip_smoke.IMAGE_FIXTURES / name).read_bytes() == mine
+            if name in chip_smoke.TIFF_ZSTD_PAIR:
+                zstd_pair += len(mine)
+                continue
             assert len(mine) < (100_000 if name.startswith("zoom2x")
                                 else 30_000), (name, len(mine))
             if not name.startswith("zoom2x"):
-                assert name in chip_smoke.TIFF_VARIANT_FIXTURES
-    assert set(chip_smoke.TIFF_VARIANT_FIXTURES) <= set(
+                assert name in chip_smoke.TIFF_VARIANT_FIXTURES + \
+                    chip_smoke.TIFF_CODEC_FIXTURES
+    assert 0 < zstd_pair < 1_500_000
+    assert set(chip_smoke.TIFF_VARIANT_FIXTURES +
+               chip_smoke.TIFF_CODEC_FIXTURES) <= set(
         chip_smoke.FORMAT_FIXTURE_SHA256)
 
 
@@ -1138,19 +1413,21 @@ def _bigtiff_rgb16(i: int) -> bytes:
                      compression=8, predictor=2, rows_per_strip=64, big=True)
 
 
-@pytest.mark.parametrize("pair", ["ycbcr_jpeg_tiles", "rgb16_bigtiff"])
+@pytest.mark.parametrize("pair", ["ycbcr_jpeg_tiles", "rgb16_bigtiff",
+                                  "zstd_tiles"])
 def test_cli_match_against_jax(tmp_path, pair, capsys):
     """``cli match`` (LORANSACH, the CVIU-shaped INI files, as phase 14o
-    runs it) on zoom2x's pair as phase 14o's YCbCr JPEG-in-TIFF files and
-    as 16-bit RGB BigTIFFs, against ``mods_tpu.cli.cmd_match`` on the
-    same files: ``test_torch_cli.py``'s rule (the same steps, the
-    verified count within 20 %)."""
+    runs it) on zoom2x's pair as phase 14o's YCbCr JPEG-in-TIFF files, as
+    16-bit RGB BigTIFFs and as phase 14q's Zstandard TIFFs, against
+    ``mods_tpu.cli.cmd_match`` on the same files: ``test_torch_cli.py``'s
+    rule (the same steps, the verified count within 20 %)."""
     from mods_tpu import cli as jcli
     from mods_tpu_torch import cli as tcli
     from test_torch_cli import load_jax_native
     load_jax_native()
-    if pair == "ycbcr_jpeg_tiles":
-        imgs = [str(chip_smoke.IMAGE_FIXTURES / f"zoom2x_{i}_ycbcr_jpeg.tif")
+    if pair in ("ycbcr_jpeg_tiles", "zstd_tiles"):
+        stem = "ycbcr_jpeg" if pair == "ycbcr_jpeg_tiles" else pair
+        imgs = [str(chip_smoke.IMAGE_FIXTURES / f"zoom2x_{i}_{stem}.tif")
                 for i in (1, 2)]
     else:
         imgs = []
@@ -1177,9 +1454,10 @@ def test_cli_match_against_jax(tmp_path, pair, capsys):
         <= 0.2 * j["matches"], (t, j)
 
 
-def _jax_tiff_jpeg_main() -> None:
+def _jax_tiff_jpeg_main(stem: str = "ycbcr_jpeg") -> None:
     """The JAX command on phase 14o's pair (LORANSACH, the CVIU-shaped
-    INI files): ``JAX_TIFF_JPEG_REFERENCE``."""
+    INI files): ``JAX_TIFF_JPEG_REFERENCE``; with ``stem`` "zstd_tiles"
+    on 14q's pair: ``JAX_TIFF_ZSTD_REFERENCE``."""
     import contextlib
     import json
     import tempfile
@@ -1192,7 +1470,7 @@ def _jax_tiff_jpeg_main() -> None:
         (td / "config.ini").write_text(chip_smoke.CVIU_CONFIG_INI)
         (td / "iters.ini").write_text(chip_smoke.cviu_iters_ini())
         m = td / "m.txt"
-        pair = [str(chip_smoke.IMAGE_FIXTURES / f"zoom2x_{i}_ycbcr_jpeg.tif")
+        pair = [str(chip_smoke.IMAGE_FIXTURES / f"zoom2x_{i}_{stem}.tif")
                 for i in (1, 2)]
         t0 = time.time()
         buf = io.StringIO()
@@ -1213,6 +1491,8 @@ if __name__ == "__main__":
         write_fixtures(chip_smoke.IMAGE_FIXTURES)
     elif sys.argv[1:] == ["--jax-tiff-jpeg"]:
         _jax_tiff_jpeg_main()
+    elif sys.argv[1:] == ["--jax-tiff-zstd"]:
+        _jax_tiff_jpeg_main("zstd_tiles")
 
 
 def test_decompression_bomb_refused(tmp_path):
