@@ -224,6 +224,18 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    (``TIFF_ZSTD_PAIR``, each read to the PNG view): its launches held to
    the plan, its figures to ``JAX_TIFF_ZSTD_REFERENCE`` by phase 6's rule
    and its tentatives within 20 %, its drawings named .tif read back to
+   ``viz``'s canvases; (r) the old-style JPEG TIFFs (compression 6) of
+   ``TIFF_OJPEG_FIXTURES`` and ``TIFF_OJPEG_PAIR`` (both of libtiff's
+   forms, 4:2:0, 4:2:2, 4:1:1, 4:4:4 and gray, strips, tiles, a restart
+   interval, both byte orders) decoded on the host by ``io/tiff.py``
+   (tif_ojpeg.c's rules, ``csrc/jpeg_decode.cpp``'s raw planes), each
+   array's shape, mode and SHA-256 held to PIL's
+   (``FORMAT_FIXTURE_SHA256``), the decode ms printed, and zoom2x_1 as
+   14s's 1000x598 old-style JPEG TIFF read in ms beside the same view as
+   an LZW TIFF; (s) ``cli match`` on zoom2x's pair as old-style JPEG
+   TIFFs in strips (``TIFF_OJPEG_PAIR``): its launches held to the plan,
+   its figures to ``JAX_TIFF_OJPEG_REFERENCE`` by phase 6's rule and its
+   tentatives within 20 %, its drawings named .tif read back to
    ``viz``'s canvases.
 
 The last lines are one JSON line of phase 10's batched figures under
@@ -4647,6 +4659,20 @@ FORMAT_FIXTURE_SHA256 = {
     "zoom2x_2_ycbcr_jpeg.tif": ((1000, 598, 3), "RGB", "76495f065105506e02d"
                                 "4013a5493e051e74a50e867ba575a6660899575bb87"
                                 "82"),
+    "ojpeg_420_strips.tif": ((96, 128, 3), "RGB", "5475492bf822c25abc77067c8"
+                             "e503883ced28acb8dcda7442b2f593fd456af52"),
+    "ojpeg_422_tables_mm.tif": ((96, 128, 3), "RGB", "93aedb3c6597914a8592f1"
+                                "3f25157c3e42da98e9905bf08b6734fb8c603fc671"),
+    "ojpeg_411_tiles.tif": ((96, 128, 3), "RGB", "e4bb9a4b6320bbf3e2337315a7"
+                            "4b3e4b8ebd4c6c5788a4a6233b6f514a13b038"),
+    "ojpeg_444_restart.tif": ((96, 128, 3), "RGB", "7685e4b463b443f7e844fdbe"
+                              "4dab968fc2541eed05e3b523c5b903877c2b469e"),
+    "ojpeg_gray_whole.tif": ((96, 128), "L", "e91f579900220314821b25e74aea2b"
+                             "81055e3932bc8cba27d9bf6766cd164ba3"),
+    "zoom2x_1_ojpeg.tif": ((1000, 598, 3), "RGB", "c1ce17d188669c3232f40b6c0"
+                           "1a582cad06771ebf24b24e32e54111861aa88d8"),
+    "zoom2x_2_ojpeg.tif": ((1000, 598, 3), "RGB", "27479847723b1006bcdc0a098"
+                           "bc17bf0512cf033cb773caef69f94e5cfda75b3"),
 }
 # 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
 # (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
@@ -4810,6 +4836,21 @@ TIFF_ZSTD_PAIR = ("zoom2x_1_zstd_tiles.tif", "zoom2x_2_zstd_tiles.tif")
 # tests/test_torch_tiff_variants.py --jax-tiff-zstd``
 JAX_TIFF_ZSTD_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                                gt_consistent=37, corner_error_px=4.040)
+# 14r: old-style JPEG TIFFs (compression 6) of
+# tests/test_torch_ojpeg.py::write_fixtures (both forms, 4:2:0, 4:2:2,
+# 4:1:1 and 4:4:4, strips, tiles, a restart interval, gray, both byte
+# orders) and 14s's pair, held to the hashes of FORMAT_FIXTURE_SHA256
+TIFF_OJPEG_FIXTURES = (
+    "ojpeg_420_strips.tif", "ojpeg_422_tables_mm.tif", "ojpeg_411_tiles.tif",
+    "ojpeg_444_restart.tif", "ojpeg_gray_whole.tif")
+# 14s's pair: zoom2x as old-style JPEG TIFFs, PIL's 4:2:0 stream (quality
+# 75) in strips of 64 rows at its restart intervals
+TIFF_OJPEG_PAIR = ("zoom2x_1_ojpeg.tif", "zoom2x_2_ojpeg.tif")
+# The JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# 14s's pair, on the CPU: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_ojpeg.py --jax-tiff-ojpeg``
+JAX_TIFF_OJPEG_REFERENCE = dict(steps=1, tentatives=130, matches=29,
+                                gt_consistent=29, corner_error_px=46.987)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -5194,6 +5235,59 @@ def _match_tiff_zstd_pair(held, work: Path) -> list:
     return failures
 
 
+def _decode_tiff_ojpeg(work: Path) -> list:
+    """14r: each old-style JPEG TIFF of ``TIFF_OJPEG_FIXTURES`` and
+    ``TIFF_OJPEG_PAIR`` decoded on the host (``io/tiff.py``'s tif_ojpeg.c
+    rules, ``csrc/jpeg_decode.cpp``'s raw planes), its array's shape, mode
+    and SHA-256 against PIL's, the median decode ms of three; zoom2x_1 as
+    14s's 1000x598 old-style JPEG TIFF beside the same view as an LZW TIFF
+    (``tiff_lzw_file``), the median ms of three."""
+    from mods_tpu_torch.io.image import read_image
+    failures = []
+    out = _hold_tiff_fixtures("14r", TIFF_OJPEG_FIXTURES + TIFF_OJPEG_PAIR,
+                              failures)
+    lzw = work / "zoom2x_1_lzw.tif"
+    lzw.write_bytes(tiff_lzw_file(read_image(PAIRS / "zoom2x_1.png")))
+    large = {}
+    for path in (IMAGE_FIXTURES / TIFF_OJPEG_PAIR[0], lzw):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            read_image(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        large[path.name] = dict(read_ms=statistics.median(ms))
+    print(f"[14] r, old-style JPEG TIFFs decoded on the host: "
+          f"{json.dumps(out)}; 1000x598 reads: {json.dumps(large)}",
+          flush=True)
+    return failures
+
+
+def _match_tiff_ojpeg_pair(held, work: Path) -> list:
+    """14s: ``cli match`` on zoom2x's pair as old-style JPEG TIFFs in
+    strips (``TIFF_OJPEG_PAIR``) against ``JAX_TIFF_OJPEG_REFERENCE``
+    (``_held_cli_match``, tentatives within 20 %), its drawings named
+    .tif read back to ``viz``'s canvases."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x old-style JPEG TIFF",
+        [IMAGE_FIXTURES / name for name in TIFF_OJPEG_PAIR],
+        (work / "o1.tif", work / "o2.tif"), JAX_TIFF_OJPEG_REFERENCE)
+    ref = JAX_TIFF_OJPEG_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14s: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        got = read_image(path)
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14s {path.name} is not viz's drawing")
+    print(f"[14] s, cli match on the old-style JPEG TIFF pair: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _encode_jpegs() -> list:
     """14f: zoom2x_1 as L, and zoom2x_1, zoom2x_2 and tilt4_1 as the R,
     G and B of one canvas, each encoded by ``csrc/jpeg_encode.cpp``: the
@@ -5531,9 +5625,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14q), on the card machine without PIL.  Raises with
+    """Phase 14 (14a-14s), on the card machine without PIL.  Raises with
     every failure of its parts; returns each kernel's launches in 14c, 14g,
-    14k, 14m, 14o and 14q."""
+    14k, 14m, 14o, 14q and 14s."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -5560,6 +5654,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _decode_tiff_codecs(Path(d))
         failures += _match_tiff_zstd_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_tiff_ojpeg(Path(d))
+        failures += _match_tiff_ojpeg_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -5744,7 +5841,8 @@ def main() -> int:
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
-          f"JPEG-in-TIFF and Zstandard TIFF pairs' commands: "
+          f"JPEG-in-TIFF, Zstandard TIFF and old-style JPEG TIFF pairs' "
+          f"commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -85,12 +85,20 @@ class Decoder {
   void decode();
   void output(uint8_t *out);
   void check_tiff_sampling(int hs, int vs) const;
+  void raw_planes(uint8_t *out);
+  int64_t raw_size() const;
+  void raw_info(int32_t *info) const;
 
   // -1: the colour transform from the markers; 0: none (the components
   // as stored); 1: YCbCr -> RGB (a JPEG-in-TIFF strip or tile)
   int transform = -1;
 
   int width = 0, height = 0, ncomp = 0;
+  // tif_ojpeg.c's resync_to_restart fails: a restart marker other than
+  // the next RSTn ends the decoding at that MCU (fail_mcu, else -1)
+  bool strict_restarts = false;
+  int64_t fail_mcu = -1;
+  int mcus_per_row() const { return mcux_; }
 
  private:
   const uint8_t *d_;
@@ -110,8 +118,8 @@ class Decoder {
   // bit reader (jdhuff.c's fill_bit_buffer: a marker ends the data and
   // zeros are supplied after it)
   uint32_t bits_ = 0;
-  int nbits_ = 0;
-  bool marker_hit_ = false;
+  int nbits_ = 0, real_bits_ = 0;
+  bool marker_hit_ = false, insufficient_ = false;
 
   uint8_t byte() {
     if (pos_ >= n_) throw Error{"JPEG: the file ends inside a header"};
@@ -130,24 +138,33 @@ class Decoder {
           uint8_t next = pos_ + 1 < n_ ? d_[pos_ + 1] : 0;
           if (next == 0x00) {
             pos_ += 2;
+            real_bits_ += 8;
           } else {
             marker_hit_ = true;
             b = 0;
           }
         } else {
           pos_++;
+          real_bits_ += 8;
         }
       }
       bits_ |= b << (24 - nbits_);
       nbits_ += 8;
     }
   }
+  // jdhuff.c's insufficient_data: set once a code reads past the data
+  // (zeros stuffed after a marker); the MCUs after it are left zero
+  void consume(int k) {
+    bits_ <<= k;
+    nbits_ -= k;
+    if (k > real_bits_) insufficient_ = true;
+    real_bits_ = k > real_bits_ ? 0 : real_bits_ - k;
+  }
   int get_bits(int k) {
     if (k == 0) return 0;
     fill();
     int v = static_cast<int>(bits_ >> (32 - k));
-    bits_ <<= k;
-    nbits_ -= k;
+    consume(k);
     return v;
   }
   int get_bit() { return get_bits(1); }
@@ -156,14 +173,14 @@ class Decoder {
     for (int len = 1; len <= 16; len++) {
       int code = static_cast<int>(bits_ >> (32 - len));
       if (code <= t.maxcode[len]) {
-        bits_ <<= len;
-        nbits_ -= len;
+        consume(len);
         return t.vals[(t.valoffset[len] + code) & 0xFF];
       }
     }
-    // a corrupt code: libjpeg warns and returns 0
-    bits_ <<= 16;
-    nbits_ -= 16;
+    // a corrupt code: libjpeg reads a 17th bit, warns and returns 0
+    consume(16);
+    fill();
+    consume(1);
     return 0;
   }
   static int extend(int v, int s) {
@@ -172,9 +189,12 @@ class Decoder {
   void reset_bits() {
     bits_ = 0;
     nbits_ = 0;
+    real_bits_ = 0;
     marker_hit_ = false;
   }
   void restart();
+  bool restart_strict();
+  int next_rst_ = 0;
 
   void read_sof(int marker);
   void read_dht();
@@ -380,6 +400,22 @@ void Decoder::restart() {
   eobrun_ = 0;
 }
 
+// jdmarker.c read_restart_marker with tif_ojpeg.c's resync_to_restart:
+// the next marker (next_marker skips the bytes before it) must be the
+// next RSTn in turn, or libjpeg's error ends the decoding
+bool Decoder::restart_strict() {
+  reset_bits();
+  while (pos_ + 1 < n_ &&
+         !(d_[pos_] == 0xFF && d_[pos_ + 1] != 0x00 && d_[pos_ + 1] != 0xFF))
+    pos_++;
+  if (pos_ + 1 >= n_ || d_[pos_ + 1] != 0xD0 + next_rst_) return false;
+  pos_ += 2;
+  next_rst_ = (next_rst_ + 1) & 7;
+  for (int i = 0; i < ncomp; i++) comp_[i].pred = 0;
+  eobrun_ = 0;
+  return true;
+}
+
 void Decoder::decode_block(Component &c, int16_t *blk) {
   const Huffman &dct = dc_[c.dc_tbl];
   const Huffman &act = ac_[c.ac_tbl];
@@ -487,26 +523,40 @@ void Decoder::decode_scan() {
   eobrun_ = 0;
   reset_bits();
   int restarts_left = restart_interval_;
+  int64_t mcu = -1;
+  next_rst_ = 0;
+  insufficient_ = false;
   auto next_mcu = [&]() {
-    if (!restart_interval_) return;
+    mcu++;
+    if (!restart_interval_) return true;
     if (restarts_left == 0) {
-      restart();
+      if (strict_restarts) {
+        if (!restart_strict()) {
+          fail_mcu = mcu;
+          return false;
+        }
+      } else {
+        restart();
+      }
+      insufficient_ = false;
       restarts_left = restart_interval_;
     }
     restarts_left--;
+    return true;
   };
   if (scan_n_ == 1) {
     // non-interleaved: one block an MCU over the component's own blocks
     Component &c = comp_[scan_comp_[0]];
     for (int by = 0; by < c.height_in_blocks; by++)
       for (int bx = 0; bx < c.width_in_blocks; bx++) {
-        next_mcu();
-        decode_block(c, c.block(by, bx));
+        if (!next_mcu()) return;
+        if (!insufficient_) decode_block(c, c.block(by, bx));
       }
   } else {
     for (int my = 0; my < mcuy_; my++)
       for (int mx = 0; mx < mcux_; mx++) {
-        next_mcu();
+        if (!next_mcu()) return;
+        if (insufficient_) continue;
         for (int i = 0; i < scan_n_; i++) {
           Component &c = comp_[scan_comp_[i]];
           for (int v = 0; v < c.v; v++)
@@ -618,6 +668,7 @@ void Decoder::decode() {
     if (m == 0xDA) {
       read_sos();
       decode_scan();
+      if (fail_mcu >= 0) break;
     } else if (m == 0xC4) {
       read_dht();
     } else if (m == 0xDB) {
@@ -933,6 +984,37 @@ void Decoder::output(uint8_t *out) {
   }
 }
 
+// libjpeg's raw_data_out: each component's samples as the inverse DCT
+// leaves them, not upsampled, in a plane of whole MCUs (blocks_h * 8 rows
+// of blocks_w * 8 samples), one plane after another
+int64_t Decoder::raw_size() const {
+  int64_t n = 0;
+  for (int i = 0; i < ncomp; i++)
+    n += static_cast<int64_t>(comp_[i].blocks_w) * comp_[i].blocks_h * 64;
+  return n;
+}
+
+void Decoder::raw_info(int32_t *info) const {
+  info[0] = width;
+  info[1] = height;
+  info[2] = ncomp;
+  for (int i = 0; i < ncomp; i++) {
+    info[3 + 4 * i] = comp_[i].h;
+    info[4 + 4 * i] = comp_[i].v;
+    info[5 + 4 * i] = comp_[i].blocks_w;
+    info[6 + 4 * i] = comp_[i].blocks_h;
+  }
+}
+
+void Decoder::raw_planes(uint8_t *out) {
+  for (int i = 0; i < ncomp; i++) {
+    std::vector<uint8_t> plane;
+    idct_plane(comp_[i], plane);
+    memcpy(out, plane.data(), plane.size());
+    out += plane.size();
+  }
+}
+
 void set_error(char *err, int errlen, const std::string &msg) {
   if (err && errlen > 0) snprintf(err, errlen, "%s", msg.c_str());
 }
@@ -1001,6 +1083,44 @@ extern "C" int mods_jpeg_decode_tiff(const uint8_t *tables, int64_t n_tables,
     if (need > cap) throw Error{"JPEG: the output buffer is too small"};
     dec.decode();
     dec.output(out);
+    return 0;
+  } catch (const Error &e) {
+    set_error(err, errlen, e.msg);
+  } catch (const std::exception &e) {
+    set_error(err, errlen, std::string("JPEG: ") + e.what());
+  }
+  return -1;
+}
+
+// An old-style JPEG TIFF's stream, as tif_ojpeg.c rebuilds it and hands it
+// to libjpeg: `raw` 1 puts out the components as libjpeg's raw_data_out
+// does (Decoder::raw_planes; info gets width, height, components, then
+// each component's h, v, blocks_w, blocks_h), `raw` 0 as jpeg_read_scanlines
+// does with no colour conversion (JCS_UNKNOWN: the components upsampled
+// and interleaved); info[19] gets the MCU at which a wrong restart marker
+// ended the decoding (Decoder::fail_mcu), info[20] the MCUs a row.  With
+// out null, only info is filled.
+extern "C" int mods_jpeg_decode_ojpeg(const uint8_t *data, int64_t n, int raw,
+                                      uint8_t *out, int64_t cap,
+                                      int32_t *info, char *err, int errlen) {
+  try {
+    Decoder dec(data, static_cast<size_t>(n));
+    dec.read_headers();
+    dec.raw_info(info);
+    if (!out) return 0;
+    dec.transform = 0;
+    dec.strict_restarts = true;
+    int64_t need = raw ? dec.raw_size()
+                       : static_cast<int64_t>(dec.width) * dec.height *
+                             dec.ncomp;
+    if (need > cap) throw Error{"JPEG: the output buffer is too small"};
+    dec.decode();
+    if (raw)
+      dec.raw_planes(out);
+    else
+      dec.output(out);
+    info[19] = static_cast<int32_t>(dec.fail_mcu);
+    info[20] = dec.mcus_per_row();
     return 0;
   } catch (const Error &e) {
     set_error(err, errlen, e.msg);

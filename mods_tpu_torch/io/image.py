@@ -33,9 +33,11 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     samples, gray, palette, RGB, RGBA and associated alpha, CMYK, LAB,
     YCbCr), strips or tiles, both planar configurations as PIL reads
     them, the Orientation tag; no compression, CCITT modified Huffman,
-    Group 3 and Group 4, LZW (both bit orders), JPEG (with JPEGTables;
-    YCbCr to RGB), Deflate, PackBits and LZMA, predictors 2 and 3
-    (``csrc/tiff_decode.cpp``, ``csrc/jpeg_decode.cpp``);
+    Group 3 and Group 4, tiff_raw_16, LZW (both bit orders), old-style
+    JPEG (libtiff's tif_ojpeg.c), JPEG (with JPEGTables; YCbCr to RGB),
+    Deflate, PackBits, LZMA, Zstandard and ThunderScan, predictors 2 and
+    3 (``csrc/tiff_decode.cpp``, ``csrc/jpeg_decode.cpp``,
+    ``csrc/zstd_decode.cpp``);
   - GIF (PIL's GifImagePlugin), the first frame: its palette indices
     ("P"), or "L" where the frame's palette is the identity gray ramp
     or missing; LZW (``csrc/tiff_decode.cpp``), interlaced or not,
@@ -46,10 +48,11 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     of an animation on its zero-filled canvas, by
     ``csrc/webp_decode.cpp`` (built like the JPEG decoder); RGB, or RGBA
     where libwebp's WebPGetFeatures reports alpha (never "L").
-  Anything else (ICO, PSD, ...) raises a ``ValueError`` naming the
+  Anything else (ICO, PSD, AVIF, ...) raises a ``ValueError`` naming the
   format, as do the variants the readers leave out (a VP8 inter frame,
-  which PIL refuses too, and the TIFF compressions Zstandard, WebP,
-  old-style JPEG, SGILog, ThunderScan and tiff_raw_16, among them).
+  which PIL refuses too, and the TIFF compressions WebP, JBIG and JPEG
+  2000, among them) and the files that PIL refuses (SGILog TIFFs among
+  them).
 * ``image_size(path)``: ``Image.open(path).size``, (width, height), from
   the header.
 * ``save_image(path, array)``: the format that the extension names, as
@@ -106,6 +109,8 @@ _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
                   (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"qoif", "QOI"),
                   (b"DDS ", "DDS"), (b"icns", "ICNS"),
                   (b"\x0a", "PCX"), (b"#?RADIANCE", "HDR"))
+# the major brands of an ftyp box that AvifImagePlugin._accept takes
+_AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 
 
 def _format(head: bytes, path) -> str:
@@ -125,6 +130,8 @@ def _format(head: bytes, path) -> str:
     if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
         return "WEBP"
     name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
+    if head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS:
+        name = "AVIF"
     if name:
         raise ValueError(f"{path}: {name} images are not supported (PNG, "
                          f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF and WebP "
@@ -546,6 +553,11 @@ def _jpeg_lib():
     lib.mods_jpeg_decode_tiff.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
+        ctypes.c_int]
+    lib.mods_jpeg_decode_ojpeg.restype = ctypes.c_int
+    lib.mods_jpeg_decode_ojpeg.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p,
         ctypes.c_int]
     return lib

@@ -40,6 +40,13 @@ are followed one by one:
   through libtiff's RGBA interface (TIFFRGBAImageGet: its subsampling
   blocks and integer YCbCr tables); an uncompressed one through PIL's
   "RGBX" raw mode, as PIL misreads it;
+* old-style JPEG (compression 6, ``_OJpeg``) as libtiff's tif_ojpeg.c
+  reads it: the stream rebuilt from JPEGInterchangeFormat's markers or
+  from the tables of tags 512-521, the strips or tiles read on as one
+  stream with an RSTn between them, the frame's sampling factors over
+  YCbCrSubsampling; YCbCr as libjpeg's raw_data_out leaves it
+  (``csrc/jpeg_decode.cpp``), in libtiff's sampling blocks, through the
+  RGBA interface; one component through its scanlines;
 * the Orientation tag transposes the result (``ImageOps.exif_transpose``
   in ``TiffImageFile.load_end``).
 
@@ -149,12 +156,16 @@ COMPRESSION_INFO = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                     34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                     50001: "webp"}
 # the compressions this module decodes
-READ_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34925,
-                     50000)
+READ_COMPRESSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946,
+                     34925, 50000)
 # the names of the others, for their refusal, and of the CCITT ones
-_COMPRESSION_NAMES = {6: "old-style JPEG", 34661: "JBIG",
+_COMPRESSION_NAMES = {34661: "JBIG",
                       34676: "SGILog (LogLuv)", 34677: "SGILog24 (LogLuv)",
                       34712: "JPEG 2000", 50001: "WebP"}
+# SGILog: PIL has no mode for LogL and LogLuv (32844, 32845), the only
+# photometric interpretations that libtiff's LogLuvSetupDecode takes
+_SGILOG = (34676, 34677)
+_LOG_PHOTOMETRIC = {32844: "LogL", 32845: "LogLuv"}
 _CCITT_NAMES = {2: "CCITT", 3: "CCITT Group 3", 4: "CCITT Group 4",
                 32771: "tiff_raw_16 (CCITT RLEW)"}
 # the phrases of every refusal
@@ -529,16 +540,17 @@ class _Info:
         if self.comp not in COMPRESSION_INFO:
             name = _COMPRESSION_NAMES.get(self.comp, self.comp)
             raise _refuse(path, f"compression {name}: PIL does not open it")
-        if self.comp not in READ_COMPRESSIONS:
+        if self.comp not in READ_COMPRESSIONS + _SGILOG:
             name = _COMPRESSION_NAMES.get(self.comp,
                                           COMPRESSION_INFO[self.comp])
             raise _refuse(path, f"compression {name} is not supported "
-                          f"(none, CCITT, LZW, JPEG, Deflate, PackBits, LZMA, "
-                          f"Zstandard and ThunderScan are)")
+                          f"(none, CCITT, LZW, old-style and new JPEG, "
+                          f"Deflate, PackBits, LZMA, Zstandard and "
+                          f"ThunderScan are)")
         self.planar = tags.get(284, (1,))[0]
-        # (old-style JPEG, refused above, is the one compression for which
-        # _setup would take photometric 6 and 3 samples by default)
-        self.photo = photo = tags.get(262, (0,))[0]
+        # _setup takes old-style JPEG for YCbCr, whatever the tag says, and
+        # its pixels for 3 samples by default
+        self.photo = photo = 6 if self.comp == 6 else tags.get(262, (0,))[0]
         self.fill = tags.get(266, (1,))[0]
         self.w, self.h = tags[256][0], tags[257][0]
         if self.w <= 0 or self.h <= 0:
@@ -551,7 +563,8 @@ class _Info:
         if len(sf) > 1 and max(sf) == min(sf) == 1:
             sf = (1,)
         bps, extra = tags.get(258, (1,)), tags.get(338, ())
-        spp = tags.get(277, (1,))[0]
+        spp = tags.get(277, (3 if photo in (2, 6) and self.comp == 6
+                             else 1,))[0]
         if spp > _MAX_SAMPLES:
             raise _refuse(path, f"of {spp} samples per pixel: PIL refuses "
                           f"it")
@@ -566,6 +579,11 @@ class _Info:
         self.spp, self.bps, self.bits = spp, bps, bps[0]
         self.key = (II if self.bo == "<" else MM, photo, tuple(sf),
                     self.fill, tuple(bps), tuple(extra))
+        if self.comp in _SGILOG and photo in _LOG_PHOTOMETRIC:
+            raise _refuse(path, f"compression {_COMPRESSION_NAMES[self.comp]}"
+                          f" of photometric interpretation {photo} "
+                          f"({_LOG_PHOTOMETRIC[photo]}): PIL does not open "
+                          f"it (no mode of its OPEN_INFO)")
         if self.key not in OPEN_INFO:
             raise _refuse(path, f"of photometric interpretation {photo}, "
                           f"sample format {sf}, fill order {self.fill}, bits "
@@ -573,6 +591,11 @@ class _Info:
                           f"{self.key[0].decode()}: PIL refuses it (unknown "
                           f"pixel mode)")
         self.mode, self.rawmode = OPEN_INFO[self.key]
+        if self.comp in _SGILOG:
+            raise _refuse(path, f"compression {_COMPRESSION_NAMES[self.comp]}"
+                          f" of photometric interpretation {photo}: PIL "
+                          f"refuses it (libtiff's LogLuvSetupDecode takes "
+                          f"LogL or LogLuv only)")
         if self.mode in ("P", "PA") and 320 not in tags:
             raise _refuse(path, "of palette indices without a ColorMap: "
                           "PIL does not open it")
@@ -594,6 +617,8 @@ def read_tiff(data: bytes, path) -> tuple[np.ndarray, str]:
                       f"or refuses it")
     if info.comp == 1:
         a = _read_raw(data, info, path)
+    elif info.comp == 6:
+        a = _read_ojpeg(data, info, path)
     else:
         a = _read_libtiff(data, info, path)
     return _orient(a, info.orientation), info.mode
@@ -929,17 +954,20 @@ def _jpeg_subsampling(data: bytes, info: _Info, path) -> tuple[int, int]:
     return 2, 2
 
 
-def _read_rgba(data: bytes, info: _Info, path, rawmode: str) -> np.ndarray:
+def _read_rgba(data: bytes, info: _Info, path, rawmode: str,
+               sub=None, decoded=None) -> np.ndarray:
     """libtiff's RGBA interface on YCbCr, as TiffDecode.c's
     _decodeAsRGBA calls it: each strip's or tile's sampling blocks through
-    the integer YCbCr tables, then PIL's raw mode over the RGBA pixels."""
+    the integer YCbCr tables, then PIL's raw mode over the RGBA pixels.
+    Old-style JPEG gives its subsampling ``sub`` and each chunk's blocks
+    ``decoded``."""
     if info.bits != 8 or info.spp != 3:
         raise _refuse(path, f"YCbCr of {info.spp} {info.bits}-bit samples: "
                       f"PIL refuses it (libtiff's RGBA interface cannot "
                       f"read it)")
     tags = info.tags
-    hs, vs = (tags[530][0], tags[530][1] if len(tags[530]) > 1 else
-              tags[530][0]) if 530 in tags else (2, 2)
+    hs, vs = sub or ((tags[530][0], tags[530][1] if len(tags[530]) > 1 else
+                      tags[530][0]) if 530 in tags else (2, 2))
     if info.planar == 2 and (hs, vs) != (1, 1):
         raise _refuse(path, f"YCbCr in planar configuration 2 subsampled "
                       f"{hs}x{vs}: PIL refuses it (libtiff reads 1x1 only)")
@@ -962,7 +990,7 @@ def _read_rgba(data: bytes, info: _Info, path, rawmode: str) -> np.ndarray:
     err = ctypes.create_string_buffer(256)
     keep, keep_row = bytearray(), -1
     tiled = 322 in tags or 324 in tags
-    for group in todo:
+    for k, group in enumerate(todo):
         _, _, rows, cols, y0, x0, _ = group[0]
         if info.planar == 2:
             planes = []
@@ -990,7 +1018,8 @@ def _read_rgba(data: bytes, info: _Info, path, rawmode: str) -> np.ndarray:
                 row_bytes = -(-cols // hs) * block // vs
                 need = min(size, -(-rows // vs) * vs * row_bytes)
             got = _decode_any(raw, info, need // row_bytes, cols, row_bytes,
-                              3, path, need)
+                              3, path, need) if decoded is None else \
+                decoded[k][:need]
             if len(keep) < size:
                 keep.extend(bytes(size - len(keep)))
             keep[:len(got)] = got
@@ -1013,3 +1042,477 @@ def _decode_any(raw, info, rows, cols, row_bytes, samples, path, need=None):
         return _jpeg_chunk(raw, info, rows, cols, False, 1, 1, path)[:need]
     return _decode_chunk(raw, info, need, rows, cols, row_bytes, samples,
                          path, short_ok=True)
+
+
+# ---------------------------------------------------------------------------
+# old-style JPEG (compression 6): libtiff 4.7's tif_ojpeg.c
+
+# the frames that OJPEGReadHeaderInfoSec takes: SOF0, SOF1, SOF3
+_OJPEG_SOF = (0xC0, 0xC1, 0xC3)
+
+
+def _ojpeg_error(path, what: str) -> ValueError:
+    return _refuse(path, f"old-style JPEG {what}: PIL refuses it")
+
+
+class _OJpeg:
+    """What tif_ojpeg.c reads of a file, and the stream that its
+    OJPEGWriteStream hands to libjpeg: TIFFReadDirectory's repairs (a
+    missing or RGB photometric interpretation is YCbCr; 3 samples by
+    default), OJPEGSubsamplingCorrect (the frame's sampling wins over
+    YCbCrSubsampling), OJPEGReadHeaderInfo (the strips or tiles as one
+    stream, a restart interval each) and OJPEGReadHeaderInfoSec (the
+    markers of JPEGInterchangeFormat or of the first strip, else the
+    tables of tags 519-521)."""
+
+    def __init__(self, data: bytes, info: _Info, path):
+        tags, self.path = info.tags, path
+        photo = tags.get(262, (6,))[0]
+        self.photo = 6 if photo == 2 else photo
+        self.spp = tags.get(277, (3 if self.photo == 6 else 1,))[0]
+        self.tiled = 322 in tags or 324 in tags
+        self.chunks = chunks = _chunks(info, path)
+        if self.tiled:
+            self.strile_w, self.strile_h = tags[322][0], tags[323][0]
+            total = -(-info.h // self.strile_h) * self.strile_h
+        else:
+            self.strile_w, self.strile_h = info.w, chunks[0][2]
+            total = info.h
+        self.strile_h_total, self.info = total, info
+        # the bytes in_buffer reads: JPEGInterchangeFormat, then each strip
+        # or tile (a zero offset, or one past the end, reads nothing; a zero
+        # byte count reads to the end of the file)
+        size = len(data)
+        jif = tags.get(513, (0,))[0]
+        jif_len = tags.get(514, (0,))[0]
+        if jif >= size:
+            jif = jif_len = 0
+        elif jif and (jif_len == 0 or jif + jif_len > size):
+            jif_len = size - jif
+        self.parts = [data[jif:jif + jif_len] if jif else b""]
+        for offset, count, *_ in chunks:
+            if offset == 0 or offset >= size:
+                self.parts.append(None)
+                continue
+            end = size if count == 0 else min(size, offset + count)
+            self.parts.append(data[offset:end])
+        self.data = data
+        sub = tags.get(530, (2, 2))
+        self.hs, self.vs = sub[0], sub[1] if len(sub) > 1 else sub[0]
+        self.force = False
+        self.restart = tags.get(515, (0,))[0] & 0xFFFF
+        self.qt, self.dc, self.ac = [None] * 4, [None] * 4, [None] * 4
+        self.sof, self.sos = None, [(0, 0)] * 3
+        self._correct()
+
+    # in_buffer: the parts read one after another
+    def _reader(self):
+        self.flat = b"".join(p for p in self.parts if p)
+        self.ends = np.cumsum([len(p) if p else 0 for p in self.parts])
+        self.pos = 0
+
+    def _byte(self):
+        if self.pos >= len(self.flat):
+            raise EOFError
+        self.pos += 1
+        return self.flat[self.pos - 1]
+
+    def _word(self):
+        return self._byte() << 8 | self._byte()
+
+    def _block(self, n):
+        if self.pos + n > len(self.flat):
+            raise EOFError
+        self.pos += n
+        return self.flat[self.pos - n:self.pos]
+
+    def _skip(self, n):
+        # OJPEGReadSkip does not cross into the next strip
+        end = int(self.ends[np.searchsorted(self.ends, self.pos,
+                                            side="right")]) \
+            if self.pos < len(self.flat) else self.pos
+        self.pos = min(self.pos + n, end)
+
+    def _correct(self):
+        """OJPEGSubsamplingCorrect."""
+        if self.spp != 3 or self.photo not in (6, 10):
+            self.hs = self.vs = 1
+            return
+        try:
+            self._markers(correct=True)
+        except (EOFError, ValueError):
+            pass                    # the first pass gives up quietly
+        if self.force:
+            self.hs = self.vs = 1
+
+    def read_header(self):
+        """OJPEGReadHeaderInfo and OJPEGReadHeaderInfoSec."""
+        path = self.path
+        if self.spp == 1:
+            self.hs = self.vs = 1
+        elif self.spp != 3:
+            raise _ojpeg_error(path, f"of {self.spp} samples per pixel "
+                               f"(libtiff reads 1 or 3)")
+        self.per_plane = 1 if self.spp == 1 or self.info.planar == 2 else 3
+        if self.strile_h < self.info.h:
+            if self.hs not in (1, 2, 4) or self.vs not in (1, 2, 4):
+                raise _ojpeg_error(path, f"subsampled {self.hs}x{self.vs} "
+                                   f"in several strips (libtiff: invalid "
+                                   f"subsampling values)")
+            if self.strile_h % (self.vs * 8):
+                raise _ojpeg_error(path, f"in strips or tiles of "
+                                   f"{self.strile_h} rows, subsampled "
+                                   f"{self.hs}x{self.vs} (libtiff: "
+                                   f"incompatible vertical subsampling and "
+                                   f"image strip/tile length)")
+            self.restart = -(-self.strile_w // (self.hs * 8)) * (
+                self.strile_h // (self.vs * 8))
+        try:
+            self._markers(correct=False)
+        except EOFError:
+            raise _ojpeg_error(path, "whose JPEG header ends early "
+                               "(libtiff's OJPEGReadHeaderInfoSec fails)") \
+                from None
+        if self.sof is None:
+            self._tables()
+
+    def _markers(self, correct: bool):
+        """OJPEGReadHeaderInfoSec's loop over the markers (with ``correct``,
+        its first pass for OJPEGSubsamplingCorrect, to the frame)."""
+        self._reader()
+        path = self.path
+        while True:
+            if self.pos >= len(self.flat):
+                raise EOFError
+            m = self.flat[self.pos]
+            if m != 0xFF:
+                return
+            self.pos += 1
+            while m == 0xFF:
+                m = self._byte()
+            if m == 0xD8:
+                continue
+            if m == 0xFE or 0xE0 <= m <= 0xEF:
+                n = self._word()
+                if n < 2:
+                    raise _ojpeg_error(path, "with corrupt JPEG data")
+                self._skip(n - 2)
+            elif m == 0xDD:
+                if self._word() != 4:
+                    raise _ojpeg_error(path, "with a corrupt DRI marker")
+                self.restart = self._word()
+            elif m in (0xDB, 0xC4):
+                n = self._word()
+                kind = "DQT" if m == 0xDB else "DHT"
+                if n <= 2:
+                    raise _ojpeg_error(path, f"with a corrupt {kind} marker")
+                if correct:
+                    self._skip(n - 2)
+                elif m == 0xDB:
+                    n -= 2
+                    while n > 0:
+                        if n < 65:
+                            raise _ojpeg_error(path, "with a corrupt DQT "
+                                               "marker")
+                        t = self._block(65)
+                        if t[0] & 15 > 3:
+                            raise _ojpeg_error(path, "with a corrupt DQT "
+                                               "marker")
+                        self.qt[t[0] & 15] = b"\xff\xdb\x00\x43" + t
+                        n -= 65
+                else:
+                    t = self._block(n - 2)
+                    seg = b"\xff\xc4" + n.to_bytes(2, "big") + t
+                    if t[0] >> 4 not in (0, 1) or t[0] & 15 > 3:
+                        raise _ojpeg_error(path, "with a corrupt DHT marker")
+                    (self.ac if t[0] >> 4 else self.dc)[t[0] & 15] = seg
+            elif m in _OJPEG_SOF:
+                self._frame(m, correct)
+                if correct:
+                    return
+            elif m == 0xDA:
+                if correct:
+                    return
+                self._scan()
+                return
+            else:
+                raise _ojpeg_error(path, f"with a JPEG marker 0x{m:02X} "
+                                   f"that libtiff does not take (unknown "
+                                   f"marker type)")
+
+    def _frame(self, marker: int, correct: bool):
+        """OJPEGReadHeaderInfoSecStreamSof."""
+        path = self.path
+        if self.sof is not None:
+            raise _ojpeg_error(path, "with two JPEG frames")
+        n = self._word()
+        if n < 11 or (n - 8) % 3:
+            raise _ojpeg_error(path, "with a corrupt SOF marker")
+        n = (n - 8) // 3
+        if not correct and n != self.spp:
+            raise _ojpeg_error(path, f"whose JPEG frame has {n} components "
+                               f"for {self.spp} samples")
+        if self._byte() != 8:
+            raise _ojpeg_error(path, "whose JPEG frame is not of 8-bit "
+                               "samples")
+        y, x = self._word(), self._word()
+        if not correct:
+            info = self.info
+            if y < info.h and y < self.strile_h_total:
+                raise _ojpeg_error(path, f"whose JPEG frame of {y} rows is "
+                                   f"shorter than the image")
+            if x < info.w and x < self.strile_w:
+                raise _ojpeg_error(path, f"whose JPEG frame of {x} columns "
+                                   f"is narrower than the image")
+            if x > self.strile_w:
+                raise _ojpeg_error(path, f"whose JPEG frame of {x} columns "
+                                   f"is wider than a strip or tile")
+        if self._byte() != n:
+            raise _ojpeg_error(path, "with a corrupt SOF marker")
+        comps = [tuple(self._block(3)) for _ in range(n)]
+        if correct:
+            hv = comps[0][1]
+            self.hs, self.vs = hv >> 4, hv & 15
+            self.force = self.hs not in (1, 2, 4) or self.vs not in (
+                1, 2, 4) or any(c[1] != 0x11 for c in comps[1:])
+            return
+        if not self.force:
+            want = [self.hs << 4 | self.vs] + [0x11] * (n - 1)
+            if [c[1] for c in comps] != want:
+                raise _ojpeg_error(path, f"whose JPEG sampling factors "
+                                   f"{[c[1] >> 4 for c in comps]}x"
+                                   f"{[c[1] & 15 for c in comps]} are not "
+                                   f"{self.hs}x{self.vs} (libtiff: "
+                                   f"unexpected subsampling values)")
+        self.sof = (marker, y, x, comps)
+
+    def _scan(self):
+        """OJPEGReadHeaderInfoSecStreamSos."""
+        path = self.path
+        if self.sof is None:
+            raise _ojpeg_error(path, "with a corrupt SOS marker")
+        if self._word() != 6 + 2 * self.per_plane or \
+                self._byte() != self.per_plane:
+            raise _ojpeg_error(path, "with a corrupt SOS marker")
+        self.sos = [tuple(self._block(2)) for _ in range(self.per_plane)]
+        self._block(3)
+
+    def _tables(self):
+        """OJPEGReadHeaderInfoSecTables{Q,Dc,Ac}Table: the frame and scan
+        headers from the tags, the tables from the offsets of 519-521."""
+        tags, data, path, spp = self.info.tags, self.data, self.path, self.spp
+
+        def offsets(tag):
+            v = tags.get(tag, ())
+            v = v if 0 < len(v) <= 3 else ()     # more than 3: not set
+            return [v[i] if i < len(v) else 0 for i in range(spp)]
+
+        def read(at, n):
+            if at + n > len(data):
+                raise _ojpeg_error(path, "whose JPEG tables run past the "
+                                   "end of the file")
+            return data[at:at + n]
+
+        tq, tda = [0] * spp, [0] * spp
+        for tag, name in ((519, "QTables"), (520, "DcTables"),
+                          (521, "AcTables")):
+            offs = offsets(tag)
+            if offs[0] == 0:
+                raise _ojpeg_error(path, "without JPEG tables (libtiff: "
+                                   "missing JPEG tables)")
+            for m in range(spp):
+                if offs[m] == 0 or (m and offs[m] == offs[m - 1]):
+                    if tag == 519:
+                        tq[m] = tq[m - 1]
+                    elif tag == 520:
+                        tda[m] = tda[m - 1]
+                    else:
+                        tda[m] |= tda[m - 1] & 15
+                    continue
+                if m == 2 and offs[2] == offs[0]:
+                    raise _ojpeg_error(path, f"with a corrupt Jpeg{name} "
+                                       f"tag value")
+                if tag == 519:
+                    self.qt[m] = b"\xff\xdb\x00\x43" + bytes([m]) + read(
+                        offs[m], 64)
+                    tq[m] = m
+                    continue
+                counts = read(offs[m], 16)
+                q = sum(counts)
+                seg = bytes([tag - 520 << 4 | m]) + counts + read(
+                    offs[m] + 16, q)
+                (self.dc if tag == 520 else self.ac)[m] = \
+                    b"\xff\xc4" + (19 + q).to_bytes(2, "big") + seg
+                tda[m] = m << 4 if tag == 520 else tda[m] | m
+        hv = [self.hs << 4 | self.vs] + [0x11] * (spp - 1)
+        self.sof = (0xC0, self.strile_h_total, self.strile_w,
+                    [(c, hv[c], tq[c]) for c in range(spp)])
+        self.sos = [(c, tda[c]) for c in range(spp)]
+
+    def stream(self) -> bytes:
+        """OJPEGWriteStream: SOI, the tables, DRI, SOF, SOS, the rest of
+        the bytes read with an RSTn after each strip or tile but the last,
+        EOI."""
+        marker, y, x, comps = self.sof
+        n = self.per_plane
+        head = [b"\xff\xd8"] + [t for t in self.qt + self.dc + self.ac if t]
+        if self.restart:
+            head.append(b"\xff\xdd\x00\x04" + self.restart.to_bytes(2, "big"))
+        head.append(bytes([0xFF, marker, 0, 8 + 3 * n, 8]) +
+                    y.to_bytes(2, "big") + x.to_bytes(2, "big") +
+                    bytes([n]) + b"".join(bytes(c) for c in comps[:n]))
+        head.append(bytes([0xFF, 0xDA, 0, 6 + 2 * n, n]) +
+                    b"".join(bytes(s) for s in self.sos[:n]) + b"\x00\x3f\x00")
+        body, rst, start = [], 0, 0
+        last = len(self.parts) - 1
+        for k, part in enumerate(self.parts):
+            end = start + (len(part) if part else 0)
+            if part and end > self.pos:
+                body.append(self.flat[max(start, self.pos):end])
+                if k and k < last:
+                    body.append(bytes([0xFF, 0xD0 + rst]))
+                    rst = (rst + 1) % 8
+            start = end
+        return b"".join(head + body) + b"\xff\xd9"
+
+
+def _ojpeg_decode(stream: bytes, raw: bool, path):
+    """libjpeg on the rebuilt stream (csrc/jpeg_decode.cpp): the
+    components' planes as raw_data_out leaves them, or the (h, w, 1)
+    samples of one component that jpeg_read_scanlines gives; and the row
+    of MCUs where a wrong restart marker stopped it, or None."""
+    from mods_tpu_torch.io.image import _jpeg_lib
+    lib = _jpeg_lib()
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int32 * 21)()
+    _check(lib.mods_jpeg_decode_ojpeg(stream, len(stream), int(raw), None, 0,
+                                      info, err, len(err)), err, path)
+    w, h, n = info[0], info[1], info[2]
+    comps = [tuple(info[3 + 4 * i:7 + 4 * i]) for i in range(n)]
+    cap = sum(bw * bh * 64 for _, _, bw, bh in comps) if raw else w * h * n
+    out = np.empty(max(cap, 1), np.uint8)
+    _check(lib.mods_jpeg_decode_ojpeg(stream, len(stream), int(raw),
+                                      out.ctypes.data, cap, info, err,
+                                      len(err)), err, path)
+    # the first row of whole MCUs that a wrong restart marker left undone
+    fail = info[19] // info[20] if info[19] >= 0 else None
+    if not raw:
+        return out[:w * h * n].reshape(h, w, n), fail
+    planes, at = [], 0
+    for _, _, bw, bh in comps:
+        planes.append(out[at:at + bw * bh * 64].reshape(bh * 8, bw * 8))
+        at += bw * bh * 64
+    return planes, fail
+
+
+def _read_ojpeg(data: bytes, info: _Info, path) -> np.ndarray:
+    """PIL's libtiff decoder on an old-style JPEG file: one sample of a
+    photometric interpretation other than YCbCr through libtiff's strips
+    or tiles (jpeg_read_scanlines), or YCbCr through its RGBA interface
+    (the components as libjpeg's raw_data_out leaves them, in libtiff's
+    sampling blocks)."""
+    oj = _OJpeg(data, info, path)
+    if oj.photo == 6 and oj.spp != 3:
+        raise _ojpeg_error(path, f"YCbCr of {oj.spp} samples (libtiff's "
+                           f"directory is refused)")
+    if oj.photo != 6 and (oj.spp != 1 or info.spp != 1):
+        raise _ojpeg_error(path, f"of photometric interpretation "
+                           f"{oj.photo} with {oj.spp} samples (PIL's mode "
+                           f"{info.mode} is not what libtiff decodes)")
+    if info.planar == 2 and oj.spp > 1:
+        raise _refuse(path, "old-style JPEG in planar configuration 2 is "
+                      "not supported")
+    oj.read_header()
+    if oj.force:
+        # libtiff decodes such a stream upsampled, as 1x1, and then finds
+        # that libjpeg's largest sampling factors are not 1
+        raise _ojpeg_error(path, "whose JPEG sampling factors libtiff "
+                           "cannot take as YCbCr subsampling (libtiff: "
+                           "unexpected max_h/v_samp_factor)")
+    stream = oj.stream()
+    chunks = oj.chunks
+    # the first line that libtiff reads for each strip or tile: the stream
+    # is read on from one to the next, but in a file of the other byte
+    # order the BitsPerSample tag replaces OJPEGPostDecode by
+    # _TIFFNoPostDecode, so OJPEGPreDecode skips one strip or tile more
+    # before each after the first
+    swab = info.bo != ("<" if _HOST else ">")
+    starts = [k * (2 if swab and k else 1) for k in range(len(chunks))]
+    raw = oj.spp == 3
+    planes, fail = _ojpeg_decode(stream, raw, path)
+    if raw:
+        lines = _ojpeg_block_rows(planes, oj)
+        per, width = -(-oj.strile_h // oj.vs), lines.shape[1]
+    else:
+        lines = planes.reshape(planes.shape[0], -1)
+        per, width = oj.strile_h, oj.strile_w
+    # the first line that the failed restart leaves unwritten
+    fail = np.inf if fail is None else fail * (8 if raw else 8 * oj.vs)
+    buf = np.zeros((per, width), np.uint8)
+    got = []
+    for k, (_, _, rows, cols, y0, x0, _) in enumerate(chunks):
+        want = per if oj.tiled else -(-rows // oj.vs) if raw else rows
+        idx = starts[k] * per + np.arange(want)
+        if idx[-1] >= fail and (not raw or swab and k):
+            # PIL fails where libtiff's strip read fails, and where a read
+            # of a file of the other byte order skips on from a failure
+            # (through libjpeg's broken state)
+            raise _ojpeg_error(path, "whose JPEG stream has a wrong restart "
+                               "marker (libtiff: unexpected error)")
+        if raw:
+            # a read past the stream's end (libjpeg's JWRN_TOO_MUCH_DATA)
+            # leaves libtiff's buffer of the last iMCU row as it was; a
+            # failed read (and every one after it) is zeroed by
+            # TIFFReadEncodedStrip
+            if idx[-1] >= fail:
+                got.append(bytes(want * width))
+                continue
+            last = len(lines) - 8
+            got.append(lines[np.where(idx < len(lines), idx,
+                                      last + idx % 8)].tobytes())
+            continue
+        # a line past the stream's end is not written: PIL's strip or tile
+        # buffer keeps what the last read left there
+        ok = idx < len(lines)
+        n = min(width, lines.shape[1])
+        buf[np.nonzero(ok)[0], :n] = lines[idx[ok], :n]
+        got.append(buf[:want].tobytes())
+    if oj.spp == 1:
+        out = _new("L", info.h, info.w)
+        for (_, _, rows, cols, y0, x0, _), g in zip(chunks, got):
+            v = np.frombuffer(g, np.uint8).reshape(-1, width)
+            vr, vc = min(rows, info.h - y0), min(cols, info.w - x0)
+            out[y0:y0 + vr, x0:x0 + vc] = v[:vr, :vc]
+        return out
+    return _read_rgba(data, info, path, info.rawmode, (oj.hs, oj.vs), got)
+
+
+def _ojpeg_block_rows(planes, oj: _OJpeg) -> np.ndarray:
+    """OJPEGDecodeRaw's rows of sampling blocks (hs x vs Y samples, then Cb
+    and Cr), strile_w wide, of the whole stream: the last 8 are libtiff's
+    buffer of the last iMCU row as jpeg_read_raw_data leaves it, where the
+    dummy blocks below the image are not written and keep the iMCU row
+    before."""
+    hs, vs = oj.hs, oj.vs
+    per_row = -(-oj.strile_w // hs)
+    sof_y = oj.sof[1]
+    n = planes[0].shape[0] // (8 * vs)            # iMCU rows
+    out = []
+    for p, v, h, width in (
+            (planes[0], vs, sof_y, per_row * hs),
+            (planes[1], 1, -(-sof_y // vs), per_row),
+            (planes[2], 1, -(-sof_y // vs), per_row)):
+        p = p.copy()
+        rows = 8 * v                               # an iMCU row's
+        dummy = np.arange((n - 1) * rows, n * rows) >= -(-h // 8) * 8
+        p[(n - 1) * rows:][dummy] = p[(n - 2) * rows:(n - 1) * rows][
+            dummy] if n > 1 else 0
+        if p.shape[1] < width:
+            p = np.pad(p, ((0, 0), (0, width - p.shape[1])))
+        out.append(p[:, :width])
+    y, cb, cr = out
+    nb = len(cb)
+    y = y.reshape(nb, vs, per_row, hs).transpose(0, 2, 1, 3).reshape(
+        nb, per_row, vs * hs)
+    return np.concatenate([y, cb[..., None], cr[..., None]], -1).reshape(
+        nb, -1)

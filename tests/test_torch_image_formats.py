@@ -491,26 +491,31 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """ICO and YCCK JPEG: PIL reads each; old-style JPEG and SGILog TIFFs
-    (PIL hands them to libtiff), ThunderScan and tiff_raw_16 TIFFs of
-    8-bit samples (libtiff refuses those) and WebP in TIFF (this libtiff
-    lacks it): the port raises a ValueError that names each (ROADMAP C3's
-    next slices).  A Zstandard TIFF of PIL's is read as PIL reads it."""
+    """ICO, AVIF and YCCK JPEG: PIL reads each; SGILog TIFFs (libtiff's
+    LogLuvSetupDecode refuses what PIL hands it), ThunderScan and
+    tiff_raw_16 TIFFs of 8-bit samples (libtiff refuses those) and WebP in
+    TIFF (this libtiff lacks it): the port raises a ValueError that names
+    each.  A Zstandard TIFF of PIL's and an old-style JPEG TIFF are read
+    as PIL reads them."""
     p = tmp_path / "z.tif"
     Image.fromarray(GRAY).save(p, compression="zstd")
     got, mode = read_image(p), Image.open(p).mode
     np.testing.assert_array_equal(got, np.asarray(Image.open(p)))
     assert mode == "L"
-    cases = [("x.ico", {}, RGB, "ICO")]
+    from test_torch_ojpeg import ojpeg_tiff
+    p = tmp_path / "o.tif"
+    p.write_bytes(ojpeg_tiff(GRAY, (1, 1), photometric=1))
+    np.testing.assert_array_equal(read_image(p), np.asarray(Image.open(p)))
+    cases = [("x.ico", {}, RGB, "ICO"), ("x.avif", {}, RGB, "AVIF")]
     for name, kw, a, match in cases:
         p = tmp_path / name
         Image.fromarray(a).save(p, **kw)
         np.asarray(Image.open(p))
         with pytest.raises(ValueError, match=match):
             read_image(p)
-    for comp, match in ((6, "old-style JPEG"), (32809, "ThunderScan"),
-                        (34676, "SGILog"), (32771, "tiff_raw_16"),
-                        (50001, "WebP")):
+    for comp, match in ((32809, "ThunderScan"),
+                        (34676, "SGILog.*PIL refuses it"),
+                        (32771, "tiff_raw_16"), (50001, "WebP")):
         p = tmp_path / "c.tif"
         p.write_bytes(_tiff(GRAY, compression=8).replace(
             struct.pack("<HHII", 259, 3, 1, 8),

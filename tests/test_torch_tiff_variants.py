@@ -589,7 +589,7 @@ def test_coverage_of_pils_tables(tmp_path):
             hold(tmp_path, key_file(key, 5, 7, compression,
                                     rows_per_strip=2))
     read = set(tiff.READ_COMPRESSIONS)
-    assert read == {1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946,
+    assert read == {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946,
                     34925, 50000}
     for comp in sorted(set(TiffImagePlugin.COMPRESSION_INFO) - read) + [
             34661, 34712, 9]:
@@ -1249,16 +1249,17 @@ REFUSED = {6: "old-style JPEG", 32771: "tiff_raw_16", 32809: "ThunderScan",
            34676: "SGILog", 34677: "SGILog24", 50000: "Zstandard",
            50001: "WebP", 34661: "JBIG", 34712: "JPEG 2000"}
 # the compressions of REFUSED that the port now reads
-READ_NOW = (32771, 32809, 50000)
+READ_NOW = (6, 32771, 32809, 50000)
 
 
 @pytest.mark.parametrize("compression", sorted(REFUSED))
 def test_refused_compressions(tmp_path, compression):
     """Each compression the port does not read raises a ValueError that
-    names it: old-style JPEG and SGILog, which PIL's libtiff reads (ROADMAP
-    C3.1); WebP in TIFF, which this libtiff lacks; JBIG and JPEG 2000,
-    which PIL does not open.  Zstandard (PIL's own file), ThunderScan and
-    tiff_raw_16 (written here) are read as PIL reads them."""
+    names it: SGILog, which PIL never reads (libtiff's LogLuvSetupDecode
+    refuses every photometric interpretation that PIL has a mode for);
+    WebP in TIFF, which this libtiff lacks; JBIG and JPEG 2000, which PIL
+    does not open.  Zstandard (PIL's own file), ThunderScan, tiff_raw_16
+    and old-style JPEG (written here) are read as PIL reads them."""
     g = GRAY_SMALL
     if compression in READ_NOW:
         if compression == 50000:
@@ -1266,6 +1267,9 @@ def test_refused_compressions(tmp_path, compression):
         elif compression == 32809:
             data = thunder_file(9, 7, [bytes([0xC0 | v >> 4 for v in row])
                                        for row in g])
+        elif compression == 6:
+            from test_torch_ojpeg import ojpeg_tiff
+            data = ojpeg_tiff(g, (1, 1), photometric=1)
         else:
             data = rlew_file(g > 100, lambda y, n: n % 2)
         arr = hold(tmp_path, data)
@@ -1274,9 +1278,11 @@ def test_refused_compressions(tmp_path, compression):
             np.testing.assert_array_equal(arr, g)
         return
     data = tiff_file(g, compression=8, tags={259: (3, [compression])})
-    if compression in (50001, 34661, 34712):
+    if compression in (50001, 34661, 34712, 34676, 34677):
         assert isinstance(pil_read(data), Exception)
-    hold_refusal(tmp_path, data, REFUSED[compression])
+    msg = hold_refusal(tmp_path, data, REFUSED[compression])
+    if compression in (34676, 34677):
+        assert "PIL refuses it" in msg and "is not supported" not in msg
 
 
 # ---------------------------------------------------------------------------
