@@ -134,29 +134,31 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    pending; (f) the device ``clahe`` and ``densify_by_homography`` on
    zoom2x, card vs CPU.  The commands run in this process, so their
    launches are counted;
-13. ROADMAP items 22 and 23: (a) ``MultiMatcher`` (the pairs' shared
-   image 1 against their four image 2s) and ``PairBatchMatcher`` (the
-   four pairs) on the CVIU-shaped ladder over a one-rank ``nccl`` mesh,
-   equal to ``mesh=None``, and ``cli match_multi`` under ``torchrun
-   --nproc-per-node 1`` equal to its run in this process; (b) the same
-   two runs on two ``gloo`` ranks sharing the card (``python3
-   chip_smoke.py --mesh-rank RANK PORT OUT``), within phase 10's bounds
-   of the unsharded run; (c) 8 noisy tilt4 copies as one batch verified
-   by LORANSACF and by ORSA against the serial matcher pair by pair, by
-   phase 10b's rule or, for a pair that breaks it, over 50 seeds of its
-   serial rung's verification (batched against alone), the serial runs'
-   rung-4 tentatives verified as one batch and pair by pair, and the
-   host's waits for the card a batch (``HostSyncs``); (d)
-   ``TwoViewMatcher(monolith=True)`` on ``LADDER`` (the four pairs) and
-   the CVIU-shaped ladder (all but tilt6_rot45): each rung's CUDA graph
-   captured at its first pair, its launches held to the plan, the result
-   held to the JAX figures and to the per-group run, replay against the
-   eager program on tilt4, seconds a pair and one profiled pair of each
-   path (not on tilt6_rot45), in which each hand-written kernel's runs
-   on the card must equal the launches counted.  The kernels line adds
-   phase 13's launches: the wrappers' and, where a graph is replayed,
-   those it holds (``monolith.REPLAYED``); the launches that captures
-   recorded without running them stand apart;
+13. ROADMAP items 22 and 23, on phase 10's three pairs
+   (``PHASE13_PAIRS``: tilt6_rot45's depth is phases 6 and 7's): (a)
+   ``MultiMatcher`` (the pairs' shared image 1 against their image 2s)
+   and ``PairBatchMatcher`` (the pairs) on the CVIU-shaped ladder over a
+   one-rank ``nccl`` mesh, equal to ``mesh=None``, and ``cli
+   match_multi`` under ``torchrun --nproc-per-node 1`` equal to its run
+   in this process; (b) the same two runs on two ``gloo`` ranks sharing
+   the card (``python3 chip_smoke.py --mesh-rank RANK PORT OUT``), within
+   phase 10's bounds of the unsharded run; the three processes of (a) and
+   (b) start first and load while this process runs; (c) 8 noisy tilt4
+   copies as one batch verified by LORANSACF and by ORSA against the
+   serial matcher pair by pair, by phase 10b's rule or, for a pair that
+   breaks it, over 50 seeds of its serial rung's verification (batched
+   against alone), the serial runs' rung-4 tentatives verified as one
+   batch and pair by pair, and the host's waits for the card a batch
+   (``HostSyncs``); (d) ``TwoViewMatcher(monolith=True)`` on ``LADDER``
+   and the CVIU-shaped ladder: each rung's CUDA graph captured at its
+   first pair, its launches held to the plan, the result held to the JAX
+   figures and to phase 6's and 7's per-group runs, replay against the
+   eager program on tilt4, seconds a pair and one profiled pair, in which
+   each hand-written kernel's runs on the card must equal the launches
+   counted.  The kernels line adds phase 13's launches: the wrappers'
+   and, where a graph is replayed, those it holds
+   (``monolith.REPLAYED``); the launches that captures recorded without
+   running them stand apart;
 14. image files on the card machine, which has no PIL (ROADMAP C1):
    (a) the JPEG fixtures of ``tests/data/image_io`` decoded on the host
    by ``io/image.py`` (``csrc/jpeg_decode.cpp``), each array's SHA-256
@@ -236,7 +238,18 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    TIFFs in strips (``TIFF_OJPEG_PAIR``): its launches held to the plan,
    its figures to ``JAX_TIFF_OJPEG_REFERENCE`` by phase 6's rule and its
    tentatives within 20 %, its drawings named .tif read back to
-   ``viz``'s canvases.
+   ``viz``'s canvases; (t) the JPEG 2000 files of ``J2K_FIXTURES``,
+   ``J2K_PAIR`` and ``J2K_LOSSLESS`` (PIL's saves: 5/3 and 9/7, quality
+   layers, tiles with offsets, RPCL and CPRL, "I;16" tiles and a signed
+   "LA" that PIL reads back otherwise than written, CMYK, .j2k and .jp2)
+   decoded on the host by ``csrc/j2k_decode.cpp`` (OpenJPEG's decode,
+   Pillow's unpack), each array's shape, mode and SHA-256 held to PIL's
+   (``FORMAT_FIXTURE_SHA256``), the decode ms printed, and zoom2x_1 as a
+   1000x598 lossless JP2 read in ms beside the same view as an LZW TIFF;
+   (u) ``cli match`` on zoom2x's pair as PIL's lossy JP2 (``J2K_PAIR``):
+   its launches held to the plan, its figures to ``JAX_J2K_REFERENCE`` by
+   phase 6's rule and its tentatives within 20 %, its drawings named .tif
+   read back to ``viz``'s canvases.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1583,12 +1596,18 @@ def readings_differ(a: dict, b: dict, rel: float = 1e-6) -> list:
 
 
 def _profile(label: str, run, n: int, stages,
-             check_events: bool = False, phase: int = 5) -> dict:
+             check_events: bool = False, phase: int = 5,
+             hold_launches: bool = False) -> dict:
     """One ``torch.profiler`` window over ``n`` calls of ``run()`` (after
     a warm-up call), read by ``profile_readings`` and returned.  With
-    ``check_events``, also read from ``prof.events()`` and held equal."""
+    ``check_events``, also read from ``prof.events()`` and held equal.
+    With ``hold_launches``, each hand-written kernel's runs on the card
+    in the window are held equal to the launches its wrappers counted
+    there."""
     from torch.profiler import ProfilerActivity, profile
+    from mods_tpu_torch import monolith
     run()                                              # warm-up
+    before = monolith.kernel_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1596,10 +1615,19 @@ def _profile(label: str, run, n: int, stages,
             run()
         wall_us = (time.perf_counter() - t0) * 1e6
     t0 = time.perf_counter()
-    res = profile_readings(_raw_events(prof), stages, n, wall_us)
+    ev = _raw_events(prof)
+    res = profile_readings(ev, stages, n, wall_us)
     raw_s = time.perf_counter() - t0
     if not res["kernel_launches"]:
         raise RuntimeError(f"{label}: the profiler saw no kernel")
+    if hold_launches:
+        res["launches_counted"] = {
+            k: c - before[k] for k, c in monolith.kernel_launches().items()}
+        res["hand_written_kernels_run"] = _kernels_run(ev)
+        if res["launches_counted"] != res["hand_written_kernels_run"]:
+            raise RuntimeError(
+                f"{label}: counted {res['launches_counted']} launches, the "
+                f"card ran {res['hand_written_kernels_run']}")
     if check_events:
         t0 = time.perf_counter()
         slow = profile_readings(_function_events(prof), stages, n, wall_us)
@@ -1703,8 +1731,10 @@ def _gt_consistent(H_gt, xy1, xy2, px: float = 3.0) -> int:
     return int((d < px).sum())
 
 
-def _drive_ladder(wrappers: dict) -> dict:
-    """Phase 6.  Returns each kernel's launches over the whole drive."""
+def _drive_ladder(wrappers: dict) -> tuple:
+    """Phase 6.  Returns each kernel's launches over the whole drive and
+    each pair's result (``per_group_result``), which 13d holds the
+    monolith to."""
     import numpy as np
     import torch
 
@@ -1713,6 +1743,7 @@ def _drive_ladder(wrappers: dict) -> dict:
 
     matcher = _ladder_matcher()
     min_matches = matcher.cfg.min_matches
+    results = {}
     for ws in wrappers.values():  # every kernel's count, just before
         for w in ws:
             w.launches = 0
@@ -1758,7 +1789,15 @@ def _drive_ladder(wrappers: dict) -> dict:
             time_log_s={k: round(v, 4) for k, v in r.log.times.items()})
         print(f"[6] {pair}: {json.dumps(res)}", flush=True)
         _hold_to_jax(pair, r, true, err, ref, min_matches)
-    return counts()                                    # read just after
+        results[pair] = per_group_result(r, res["median_pair_s"])
+    return counts(), results                           # read just after
+
+
+def per_group_result(r, pair_s: float) -> dict:
+    """What 13d holds the monolith to of a per-group pair (phases 6 and
+    7 run the same ladder, seed and ``EngineConfig``)."""
+    return dict(matches=r.n_matches, tentatives=r.n_tentatives,
+                steps_used=r.steps_used, pair_s=pair_s)
 
 
 def _rule_failure(pair: str, steps: int, n: int, true: int, err: float,
@@ -1814,7 +1853,8 @@ def spread_figures(outcomes: list, ref: dict, min_matches: int) -> dict:
 
 
 def _profile_ladder() -> None:
-    """Where the time of one ladder pair goes (tilt4: all five rungs)."""
+    """Where the time of one ladder pair goes (tilt4: all five rungs),
+    with each kernel's runs on the card held to its counted launches."""
     import torch
     matcher = _ladder_matcher()
     img1, img2, _ = _load_pair_np("tilt4")
@@ -1823,7 +1863,7 @@ def _profile_ladder() -> None:
         matcher.match(img1, img2)
         torch.cuda.synchronize()
 
-    _profile("ladder, tilt4", run, 1, LADDER_PHASES)
+    _profile("ladder, tilt4", run, 1, LADDER_PHASES, hold_launches=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1836,8 +1876,9 @@ def _build_native() -> None:
     encoder ``csrc/jpeg_encode.cpp``, the WebP decoder
     ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp``, the
     GIF writer's ``csrc/gif_encode.cpp``, the TIFF and GIF codecs of
-    ``csrc/tiff_decode.cpp`` and the Zstandard decoder
-    ``csrc/zstd_decode.cpp`` (g++,
+    ``csrc/tiff_decode.cpp``, the Zstandard decoder
+    ``csrc/zstd_decode.cpp`` and the JPEG 2000 decoder
+    ``csrc/j2k_decode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
@@ -1853,14 +1894,15 @@ def _build_native() -> None:
     t0 = time.perf_counter()
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
-              image._gif_encoder, tiff._lib, tiff._zstd_lib)
+              image._gif_encoder, tiff._lib, tiff._zstd_lib, image._j2k_lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
     print(f"[1] g++: {out.stdout.splitlines()[0]}; native/mser.cpp, "
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
-          f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp built into "
+          f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp, "
+          f"j2k_decode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -1914,8 +1956,9 @@ def _check_host_render(pair: str) -> list:
     return out
 
 
-def _drive_cviu(wrappers: dict) -> dict:
-    """Phase 7.  Returns each kernel's launches over the whole drive."""
+def _drive_cviu(wrappers: dict) -> tuple:
+    """Phase 7.  Returns each kernel's launches over the whole drive and
+    each pair's result of the ``sync`` matcher (``per_group_result``)."""
     import numpy as np
     import torch
 
@@ -1925,6 +1968,7 @@ def _drive_cviu(wrappers: dict) -> dict:
     matchers = {mode: _cviu_matcher(mode) for mode in ("sync", "pipelined")}
     ladder = _ladder_matcher()
     min_matches = matchers["sync"].cfg.min_matches
+    results = {}
     for ws in wrappers.values():  # every kernel's count, just before
         for w in ws:
             w.launches = 0
@@ -1995,9 +2039,10 @@ def _drive_cviu(wrappers: dict) -> dict:
                          JAX_CVIU_SPREAD[pair], min_matches)
         else:
             _hold_to_jax(pair, r, true, err, ref, min_matches)
+        results[pair] = per_group_result(r, res["median_pair_s"])
     for m in matchers.values():
         m.close()
-    return counts()                                    # read just after
+    return counts(), results                           # read just after
 
 
 def _alternate(matchers: dict, img1, img2, rounds: int = 3) -> dict:
@@ -2086,7 +2131,8 @@ def _profile_detectors() -> None:
 
 def _profile_cviu() -> None:
     """Phase 5: where the time of one CVIU-shaped ladder pair goes
-    (tilt6_rot45, every rung, ``sync`` mode), and the host reads of the
+    (tilt6_rot45, every rung, ``sync`` mode, with each kernel's runs on
+    the card held to its counted launches), and the host reads of the
     same pair in ``pipelined`` mode, counted as ``_profile`` counts them
     but without the device trace (a second full profile would double the
     phase: 270k launches a pair)."""
@@ -2101,7 +2147,7 @@ def _profile_cviu() -> None:
 
         label = f"CVIU ladder ({mode}), tilt6_rot45"
         if mode == "sync":
-            _profile(label, run, 1, LADDER_PHASES)
+            _profile(label, run, 1, LADDER_PHASES, hold_launches=True)
         else:
             _count_host_reads(5, label, run)
         m.close()
@@ -3960,27 +4006,41 @@ def _drive_phase12(wrappers: dict) -> dict:
 # phase 13: matching over several processes (ROADMAP item 22) and the
 # monolith ladder as CUDA graphs (item 23)
 
-MESH_PAIRS = ("zoom2x", "rot90", "tilt4", "tilt6_rot45")
+# 13a, 13b and 13d: phase 10's three pairs.  tilt6_rot45, whose depth
+# phases 6 and 7 hold, kept a sharded batch running the HessianAffine
+# tilt rungs after the others had stopped, and its monolith captures took
+# 17-19 s; over two ranks three pairs also pad a shard.
+PHASE13_PAIRS = BATCH_PAIRS
 F_MODES = ("LORANSACF", "ORSA")
-# phase 10b's LORANSACH batch of 8 noisy tilt4 copies as PERF.md section 5
-# records it (NVIDIA H100 80GB HBM3, 700 W): seconds a batch (8 / 1.7037
-# pairs/s) and host reads a batch
-LORANSACH_TILT4_BATCH = dict(batch_s=8 / 1.7037, host_reads=134)
 MONOLITH_TIMED_PAIRS = 1
-# 13d's pairs a ladder: tilt6_rot45, whose captures take 12-15 s a
-# ladder, on LADDER only (phase 7 holds the CVIU-shaped ladder's draws
-# on it)
-MONOLITH_PAIRS = dict(LADDER=MESH_PAIRS, CVIU_LADDER=MESH_PAIRS[:3])
 # the CUDA runtime calls that launch work from the host
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
-def _free_port() -> int:
+def _free_ports(n: int) -> list:
+    """``n`` distinct ports that are free now, below the host's ephemeral
+    range: a ``bind`` to port 0 (``torchrun --standalone``'s rendezvous)
+    or an outgoing connection never takes one, so each stays free until
+    its own rendezvous binds it while the others start."""
+    import random
     import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range")
+                  .read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    ports: list = []
+    while len(ports) < n:
+        p = random.randrange(max(1024, low - 20000), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", p))
+            except OSError:
+                continue
+        if p not in ports:
+            ports.append(p)
+    return ports
 
 
 def _sharded_runs(mesh) -> dict:
@@ -3993,7 +4053,7 @@ def _sharded_runs(mesh) -> dict:
     from mods_tpu_torch import config
     from mods_tpu_torch.parallel.multi import MultiMatcher, PairBatchMatcher
     from mods_tpu_torch.pipeline import EngineConfig
-    data = [_load_pair_np(p) for p in MESH_PAIRS]
+    data = [_load_pair_np(p) for p in PHASE13_PAIRS]
     mm = MultiMatcher(cviu_rungs(config), EngineConfig(), mesh=mesh,
                       device="cuda")
     r = mm.match(data[0][0], [d[1] for d in data])
@@ -4007,9 +4067,9 @@ def _sharded_runs(mesh) -> dict:
         return [dict(pair=p, steps=int(steps[i]), matches=int(res.counts[i]),
                      tentatives=int(res.n_tentatives[i]),
                      H=[float(v) for v in res.H[i].reshape(-1)])
-                for i, p in enumerate(MESH_PAIRS)]
+                for i, p in enumerate(PHASE13_PAIRS)]
 
-    return dict(multi=rows(r, [r.steps_used] * len(MESH_PAIRS)),
+    return dict(multi=rows(r, [r.steps_used] * len(PHASE13_PAIRS)),
                 batch=rows(b, b.steps_used))
 
 
@@ -4054,58 +4114,70 @@ def mesh_rank(rank: int, port: int, out: str) -> int:
 
 
 def _drive_mesh(work: Path, min_matches: int) -> dict:
-    """13a and 13b.  Returns the unsharded runs."""
+    """13a and 13b.  The three processes they start (``torchrun``'s
+    ``match_multi`` and 13b's two ``gloo`` ranks) each load torch, the
+    kernels and the ladder's programs anew, so they start first and run
+    while this process computes the runs they are held to.  Returns the
+    unsharded runs."""
     import subprocess
-    import torch
     import torch.distributed as dist
     from mods_tpu_torch.parallel.mesh import init_distributed, make_mesh
     t0 = time.perf_counter()
-    ref = _sharded_runs(None)
-    # 13a: a one-rank nccl mesh in this process
-    init_distributed(f"localhost:{_free_port()}", 1, 0)
-    try:
-        if dist.get_backend() != "nccl":
-            raise RuntimeError(f"13a: backend {dist.get_backend()}, not nccl")
-        got = _sharded_runs(make_mesh(device_type="cuda"))
-    finally:
-        dist.destroy_process_group()
-    _hold_sharded("13a nccl", got, ref, True, min_matches)
-    print(f"[13] 13a one-rank nccl mesh = unsharded: {json.dumps(got)}",
-          flush=True)
-    # 13a: cmd_match_multi under torchrun, one process, against this one
     argv = ["match_multi"] + match_multi_files(work / "13a")
-    _, out = _run_cli(argv)
-    proc = subprocess.run(
+    res_path = work / "13b.json"
+    port, port13a = _free_ports(2)
+    # each process writes to a file: a full pipe would stop it until
+    # this process reads it
+    logs = {k: open(work / f"13_{k}.log", "w+")
+            for k in ("torchrun", "rank0", "rank1")}
+    procs = {"torchrun": subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "1", "-m", "mods_tpu_torch.cli", *argv],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=str(ROOT)))
-    lines = [ln for ln in proc.stdout.splitlines()
+        cwd=ROOT, stdout=logs["torchrun"], stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))}
+    for i in range(2):
+        procs[f"rank{i}"] = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(i), str(port), str(res_path)], cwd=ROOT,
+            stdout=logs[f"rank{i}"], stderr=subprocess.STDOUT)
+    try:
+        ref = _sharded_runs(None)
+        # 13a: a one-rank nccl mesh in this process
+        init_distributed(f"localhost:{port13a}", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise RuntimeError(f"13a: backend {dist.get_backend()}, "
+                                   "not nccl")
+            got = _sharded_runs(make_mesh(device_type="cuda"))
+        finally:
+            dist.destroy_process_group()
+        _hold_sharded("13a nccl", got, ref, True, min_matches)
+        print(f"[13] 13a one-rank nccl mesh = unsharded: {json.dumps(got)}",
+              flush=True)
+        # 13a: cmd_match_multi in this process, against torchrun's
+        _, out = _run_cli(argv)
+        rcs = {k: p.wait(timeout=600) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    outs = {}
+    for k, f in logs.items():
+        f.seek(0)
+        outs[k] = f.read()
+        f.close()
+    lines = [ln for ln in outs["torchrun"].splitlines()
              if ln.endswith("tentatives)") or "images matched" in ln]
     want = [ln for ln in out.splitlines()
             if ln.endswith("tentatives)") or "images matched" in ln]
-    if proc.returncode != 0 or lines != want:
+    if rcs["torchrun"] != 0 or lines != want:
         raise RuntimeError(f"13a torchrun match_multi: exit "
-                           f"{proc.returncode}, {lines} != {want}\n"
-                           f"{proc.stderr[-2000:]}")
+                           f"{rcs['torchrun']}, {lines} != {want}\n"
+                           f"{outs['torchrun'][-2000:]}")
     print(f"[13] 13a torchrun match_multi = in-process: {lines}", flush=True)
     # 13b: two gloo ranks on cuda:0
-    res_path = work / "13b.json"
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(i),
-         str(port), str(res_path)], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=400)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    if any(p.returncode != 0 for p in procs):
+    if rcs["rank0"] != 0 or rcs["rank1"] != 0:
         raise RuntimeError("13b: a rank failed:\n" + "\n".join(
-            o[-2000:] for o in outs))
+            outs[f"rank{i}"][-2000:] for i in range(2)))
     got = json.loads(res_path.read_text())
     print(f"[13] 13b two gloo ranks on cuda:0: {json.dumps(got)}; "
           f"unsharded: {json.dumps(ref)}", flush=True)
@@ -4147,10 +4219,14 @@ def _profiled(run) -> dict:
                 device_kernels=res["kernel_launches"],
                 device_busy_ms=res["device_busy_ms"],
                 device_idle_share=res["device_idle_share"],
-                hand_written_kernels_run={
-                    k: sum(1 for e in ev if e[1] and not e[4]
-                           and symbol in e[0])
-                    for k, symbol in KERNEL_SYMBOLS.items()})
+                hand_written_kernels_run=_kernels_run(ev))
+
+
+def _kernels_run(ev: list) -> dict:
+    """How many times each hand-written kernel ran on the card in a
+    profiler window's events (tuples of ``_raw_events``)."""
+    return {k: sum(1 for e in ev if e[1] and not e[4] and symbol in e[0])
+            for k, symbol in KERNEL_SYMBOLS.items()}
 
 
 class HostSyncs:
@@ -4212,27 +4288,34 @@ def _verified(cfg, wh, bank: dict, generators) -> list:
     return [int(c) for c in out.reshape(-1).tolist()]
 
 
-def _f_spread(cfg, wh, batch_bank: dict, serial_bank: dict, i: int,
-              seeds) -> dict:
-    """Pair ``i``'s verified counts over ``seeds``: verified in the batch
-    (the whole batch's bank, a generator a pair, each seeded alike) and
-    alone (its serial run's bank at the same rung) -> the shares that
-    reach ``min_matches`` and the means."""
+def _f_spread(cfg, wh, batch_bank: dict, serial_banks: dict, seeds) -> dict:
+    """The verified counts over ``seeds`` of each pair ``i`` of
+    ``serial_banks`` (its serial run's bank at the rung of ``batch_bank``):
+    verified in the batch (the whole batch's bank, a generator a pair,
+    each seeded alike; one batched verification a seed serves every such
+    pair) and alone -> per pair the shares that reach ``min_matches`` and
+    the means."""
     import numpy as np
     import torch
     P = batch_bank["mask"].shape[0]
-    b, a = [], []
+    b = {i: [] for i in serial_banks}
+    a = {i: [] for i in serial_banks}
     for k in seeds:
         gens = [torch.Generator(device="cuda").manual_seed(k)
                 for _ in range(P)]
-        b.append(_verified(cfg, wh, batch_bank, gens)[i])
-        a.append(_verified(cfg, wh, serial_bank, gens[0])[0])
-    b, a = np.asarray(b), np.asarray(a)
+        got = _verified(cfg, wh, batch_bank, gens)
+        for i, bank in serial_banks.items():
+            b[i].append(got[i])
+            a[i].append(_verified(cfg, wh, bank, torch.Generator(
+                device="cuda").manual_seed(k))[0])
     mm = cfg.min_matches
-    return dict(batched=dict(share_stops=float((b >= mm).mean()),
-                             mean_verified=float(b.mean())),
-                alone=dict(share_stops=float((a >= mm).mean()),
-                           mean_verified=float(a.mean())))
+
+    def figures(x):
+        x = np.asarray(x)
+        return dict(share_stops=float((x >= mm).mean()),
+                    mean_verified=float(x.mean()))
+    return {i: dict(batched=figures(b[i]), alone=figures(a[i]))
+            for i in serial_banks}
 
 
 def _drive_batched_f(counts, tally) -> list:
@@ -4251,9 +4334,8 @@ def _drive_batched_f(counts, tally) -> list:
     all ran, verified as one batch and pair by pair with the same seeds
     (equal on the CPU, ``tests/test_torch_batch_f.py``).  Reported too:
     seconds a batch and a serial pair, the host's waits for the card
-    (``HostSyncs``), and the same batch verified by LORANSACH (LO-RANSAC
-    H, batched since phase 10 was written) beside phase 10b's figures as
-    PERF.md records them."""
+    (``HostSyncs``).  Phase 10b times 8 noisy tilt4 copies verified by
+    LORANSACH."""
     import numpy as np
     import torch
     from mods_tpu_torch import config
@@ -4262,18 +4344,6 @@ def _drive_batched_f(counts, tally) -> list:
     img1, img2, _ = _load_pair_np("tilt4")
     pairs = _noisy_copies(img1, img2, BATCH_SIZE, np.random.default_rng(7))
     out = []
-    bm = PairBatchMatcher(cviu_rungs(config), EngineConfig(), device="cuda")
-    with HostSyncs() as syncs:
-        t0 = time.perf_counter()
-        r = bm.match_batch(pairs)
-        torch.cuda.synchronize()
-        batch_s = time.perf_counter() - t0
-    bm.close()
-    res = dict(batch_s=batch_s, host_syncs_per_batch=syncs.n,
-               batched_steps=[int(c) for c in r.steps_used],
-               batched_verified=[int(c) for c in r.counts],
-               recorded=LORANSACH_TILT4_BATCH)
-    print(f"[13] 13c LORANSACH: {json.dumps(res)}", flush=True)
     for ver in F_MODES:
         cfg = EngineConfig(ver_type=ver)
         mm, tcap = cfg.min_matches, cfg.caps.tentatives
@@ -4324,7 +4394,7 @@ def _drive_batched_f(counts, tally) -> list:
                                                torch.Generator(
                                                    device="cuda").manual_seed(0))[0]
                                      for x in s_banks])
-        rule, failures = [], []
+        rule, failures, spread = [], [], defaultdict(dict)
         for i, s in enumerate(sr):
             if s.n_matches < mm:
                 rule.append(None)
@@ -4337,18 +4407,22 @@ def _drive_batched_f(counts, tally) -> list:
             if k > len(b_banks) or b_banks[k - 1] is None:
                 failures.append(f"pair {i}: the batch verified no rung "
                                 f"{k}, its serial rung")
+                rule.append(None)
                 continue
-            got = _f_spread(cfg, wh[0], b_banks[k - 1], s_banks[i][k - 1],
-                            i, range(F_SPREAD_SEEDS))
-            rule.append(dict(rung=k, seeds=F_SPREAD_SEEDS, **got))
-            if got["batched"]["share_stops"] < \
-                    0.8 * got["alone"]["share_stops"] or \
-                    got["batched"]["mean_verified"] < \
-                    0.8 * got["alone"]["mean_verified"]:
-                failures.append(
-                    f"pair {i}: rung {r.steps_used[i]}, {r.counts[i]} "
-                    f"verified; serial rung {k}, {s.n_matches}; over "
-                    f"{F_SPREAD_SEEDS} seeds at rung {k} {got}")
+            spread[k][i] = s_banks[i][k - 1]
+            rule.append(k)
+        for k, banks in spread.items():
+            for i, got in _f_spread(cfg, wh[0], b_banks[k - 1], banks,
+                                    range(F_SPREAD_SEEDS)).items():
+                rule[i] = dict(rung=k, seeds=F_SPREAD_SEEDS, **got)
+                if got["batched"]["share_stops"] < \
+                        0.8 * got["alone"]["share_stops"] or \
+                        got["batched"]["mean_verified"] < \
+                        0.8 * got["alone"]["mean_verified"]:
+                    failures.append(
+                        f"pair {i}: rung {r.steps_used[i]}, {r.counts[i]} "
+                        f"verified; serial rung {k}, {sr[i].n_matches}; "
+                        f"over {F_SPREAD_SEEDS} seeds at rung {k} {got}")
         res = dict(
             ver_type=ver, batch_size=BATCH_SIZE, batch_s=batch_s,
             batched_pairs_per_sec=BATCH_SIZE / batch_s,
@@ -4391,38 +4465,33 @@ def _monolith_eager(matcher, img1, img2) -> tuple:
     return out["n_inl"], out["n_tent"], out["steps_used"], out["model"]
 
 
-def _drive_monolith(label: str, make, refs: dict, spread: dict,
-                    min_matches: int) -> dict:
+def _drive_monolith(label: str, make, refs: dict, min_matches: int,
+                    per_group: dict) -> dict:
     """13d on one ladder (``make(**kw)`` builds its matcher): on each of
-    its pairs (``MONOLITH_PAIRS``) ``TwoViewMatcher(monolith=True)``, its
-    first pair capturing the graphs of the rungs it runs; their captured launches
+    ``PHASE13_PAIRS`` ``TwoViewMatcher(monolith=True)``, its first pair
+    capturing the graphs of the rungs it runs; their captured launches
     held to the plan rung by rung; its result held to the JAX figures by
-    ``_rule_failure`` (where the JAX matcher's own seeds break that
-    rule, ``spread``, the rung only: phase 7 held the per-group path's
-    tentatives of that pair over RANSAC draws) and to the per-group run
-    by tests/test_monolith.py's rule; on tilt4, the deepest pair both
-    ladders solve, the replay equal to the eager monolith on the card;
-    seconds a pair of each (the per-group run after the monolith's
-    first, which captures, then the monolith's), and one profiled pair
-    of each but on tilt6_rot45: host reads, launches from the host, idle
-    share, and each hand-written kernel's runs on the card held equal to
-    the launches counted in that pair (the wrappers' eager ones and
-    ``monolith.REPLAYED``'s, which a replay adds)."""
+    ``_rule_failure`` and to the per-group run by tests/test_monolith.py's
+    rule (``per_group``: phase 6's or 7's run of the same ladder, seed and
+    configuration, with its seconds a pair); on tilt4, the deepest pair
+    both ladders solve, the replay equal to the eager monolith on the
+    card; seconds a pair, and one profiled pair: host reads, launches from
+    the host, idle share, and each hand-written kernel's runs on the card
+    held equal to the launches counted in that pair (the wrappers' eager
+    ones and ``monolith.REPLAYED``'s, which a replay adds).  Phase 5
+    profiles the per-group path of both ladders and holds its kernel runs
+    to its counted launches the same way."""
     import numpy as np
     import torch
     from mods_tpu_torch import monolith
     mono = make(monolith=True)
-    # the per-group matcher reuses the groups' geometry the program
-    # uploaded
-    pg = make()
-    pg._prep_cache = mono._prep_cache
 
     def counted():
         eager = monolith.kernel_launches()
         return {k: n + monolith.REPLAYED[k] for k, n in eager.items()}
 
     out = {}
-    for pair in MONOLITH_PAIRS[label]:
+    for pair in PHASE13_PAIRS:
         img1, img2, H_gt = _load_pair_np(pair)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4438,10 +4507,7 @@ def _drive_monolith(label: str, make, refs: dict, spread: dict,
             if got != want:
                 raise RuntimeError(f"13d {label} {pair}: rung {k + 1}'s "
                                    f"graph launches {got}, the plan {want}")
-        t0 = time.perf_counter()
-        a = pg.match(img1, img2)
-        torch.cuda.synchronize()
-        times = {"per_group": [time.perf_counter() - t0], "monolith": []}
+        a = per_group[pair]
         eager = None
         if pair == "tilt4":
             # on the deepest pair both ladders solve: the replay against
@@ -4452,73 +4518,60 @@ def _drive_monolith(label: str, make, refs: dict, spread: dict,
                     f"13d {label} {pair}: replay "
                     f"{(r.n_matches, r.n_tentatives, r.steps_used)}, eager "
                     f"{eager[:3]}")
-        if abs(a.n_tentatives - r.n_tentatives) > 2 or \
-                abs(a.n_matches - r.n_matches) > max(3, a.n_matches // 5) \
-                or a.steps_used != r.steps_used:
+        if abs(a["tentatives"] - r.n_tentatives) > 2 or \
+                abs(a["matches"] - r.n_matches) > max(3, a["matches"] // 5) \
+                or a["steps_used"] != r.steps_used:
             raise RuntimeError(
                 f"13d {label} {pair}: monolith "
                 f"{(r.n_matches, r.n_tentatives, r.steps_used)}, per group "
-                f"{(a.n_matches, a.n_tentatives, a.steps_used)}")
+                f"{(a['matches'], a['tentatives'], a['steps_used'])}")
         err = _corner_error(r.H, H_gt, img1.shape[1], img1.shape[0])
         true = _gt_consistent(H_gt, r.xy1, r.xy2)
         ref = refs[pair]
-        if pair in spread:
-            if r.steps_used < ref["steps"] - 1:
-                raise RuntimeError(f"13d {label} {pair}: rung "
-                                   f"{r.steps_used}, JAX {ref['steps']}")
-        else:
-            _hold_to_jax(pair, r, true, err, ref, min_matches)
+        _hold_to_jax(pair, r, true, err, ref, min_matches)
+        times = []
         for _ in range(MONOLITH_TIMED_PAIRS):
             t0 = time.perf_counter()
             mono.match(img1, img2)
             torch.cuda.synchronize()
-            times["monolith"].append(time.perf_counter() - t0)
-        # one profiled pair of each but on tilt6_rot45: reading a window
-        # takes ~50 us an event, and its pair runs 2.6-2.7 x 10^5 kernels
-        # a path (phase 5 profiles the per-group path of the CVIU-shaped
-        # ladder's)
-        prof = None
-        if pair != "tilt6_rot45":
-            prof = {}
-            for k, m in (("monolith", mono), ("per_group", pg)):
-                before = counted()
-                prof[k] = _profiled(lambda m=m: (m.match(img1, img2),
-                                                 torch.cuda.synchronize()))
-                prof[k]["launches_counted"] = {
-                    n: c - before[n] for n, c in counted().items()}
-                if prof[k]["launches_counted"] != \
-                        prof[k]["hand_written_kernels_run"]:
-                    raise RuntimeError(
-                        f"13d {label} {pair} {k}: counted "
-                        f"{prof[k]['launches_counted']} launches, the card "
-                        f"ran {prof[k]['hand_written_kernels_run']}")
+            times.append(time.perf_counter() - t0)
+        before = counted()
+        prof = _profiled(lambda: (mono.match(img1, img2),
+                                  torch.cuda.synchronize()))
+        prof["launches_counted"] = {
+            n: c - before[n] for n, c in counted().items()}
+        if prof["launches_counted"] != prof["hand_written_kernels_run"]:
+            raise RuntimeError(
+                f"13d {label} {pair}: counted {prof['launches_counted']} "
+                f"launches, the card ran {prof['hand_written_kernels_run']}")
         res = dict(
             steps_used=r.steps_used, matches=r.n_matches,
             tentatives=r.n_tentatives, gt_consistent_3px=true,
             corner_error_px=err, jax_cpu=ref,
-            per_group=[a.n_matches, a.n_tentatives, a.steps_used],
+            per_group=[a["matches"], a["tentatives"], a["steps_used"]],
             eager_monolith=eager and list(eager[:3]),
             max_abs_H_replay_vs_eager=eager and float(np.abs(
                 np.asarray(eager[3]) - r.H).max()),
             first_pair_s=first_s, capture_s=prog.capture_s,
             peak_mem_bytes=peak, rung_graphs=len(prog.graphs),
             captured_launches=prog.captured_launches,
-            median_pair_s={k: statistics.median(v) for k, v in times.items()},
+            median_pair_s=dict(monolith=statistics.median(times),
+                               per_group=a["pair_s"]),
             pair_s=times, profiled=prof)
         print(f"[13] 13d {label} {pair}: {json.dumps(res)}", flush=True)
         out[pair] = res
-    for m in (mono, pg):
-        m.close()
+    mono.close()
     return out
 
 
-def _drive_phase13(wrappers: dict, work: Path) -> tuple:
+def _drive_phase13(wrappers: dict, work: Path, per_group: dict) -> tuple:
     """Phase 13: 13a and 13b (``_drive_mesh``), 13c
     (``_drive_batched_f``) and 13d (``_drive_monolith`` on LADDER and the
-    CVIU-shaped ladder).  Returns each kernel's launches over the phase:
-    those its wrappers ran, those the monolith's graph replays ran
-    (``monolith.REPLAYED``), and apart those the captures recorded
-    without running them."""
+    CVIU-shaped ladder, held to ``per_group``: per ladder and pair,
+    ``per_group_result`` of phase 6 or 7).  Returns each kernel's
+    launches over the phase: those its wrappers ran, those the
+    monolith's graph replays ran (``monolith.REPLAYED``), and apart those
+    the captures recorded without running them."""
     from mods_tpu_torch import config, monolith
     from mods_tpu_torch.pipeline import EngineConfig, TwoViewMatcher
 
@@ -4538,12 +4591,12 @@ def _drive_phase13(wrappers: dict, work: Path) -> tuple:
     ladders = dict(
         LADDER=(lambda **kw: TwoViewMatcher(
             [config.IterationParams(**it) for it in LADDER], EngineConfig(),
-            seed=0, device="cuda", **kw), JAX_LADDER_REFERENCE, {}),
+            seed=0, device="cuda", **kw), JAX_LADDER_REFERENCE),
         CVIU_LADDER=(lambda **kw: TwoViewMatcher(
             cviu_rungs(config), EngineConfig(), seed=0, device="cuda", **kw),
-            JAX_CVIU_REFERENCE, JAX_CVIU_SPREAD))
-    for label, (make, refs, spread) in ladders.items():
-        _drive_monolith(label, make, refs, spread, mm)
+            JAX_CVIU_REFERENCE))
+    for label, (make, refs) in ladders.items():
+        _drive_monolith(label, make, refs, mm, per_group[label])
         print(f"[13] 13d {label} done {time.perf_counter() - t0:.1f} s "
               "after 13a", flush=True)
     print(f"[13] phase 13 {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4673,6 +4726,24 @@ FORMAT_FIXTURE_SHA256 = {
                            "1a582cad06771ebf24b24e32e54111861aa88d8"),
     "zoom2x_2_ojpeg.tif": ((1000, 598, 3), "RGB", "27479847723b1006bcdc0a098"
                            "bc17bf0512cf033cb773caef69f94e5cfda75b3"),
+    "j2k_gray_53.j2k": ((96, 128), "L", "770429154756dec71dc5b7701b182272c771"
+                        "418e6bcc94cd4b384b4958da9777"),
+    "j2k_rgb_97_layers.jp2": ((96, 128, 3), "RGB", "cb2c7095d71e832e22408954b"
+                              "70458900e4fb5c13777183933485b0768384cd9"),
+    "j2k_rgba_tiles_rpcl.jp2": ((96, 128, 4), "RGBA", "615e3e5e70698eba578657"
+                                "f2b7ade6b40160691e95b6730ab15103d2d01d90b5"),
+    "j2k_i16_tiles.jp2": ((96, 128), "I;16", "47b753f08d9a19ed9866df33437d898"
+                          "f6b735e39f89ad7b703c6d96b20dd4673"),
+    "j2k_la_signed.j2k": ((96, 128, 2), "LA", "a1d740eaa732e6ac3a80a5fbec08e2"
+                          "402c75834ab8171d47a3207a9453867f99"),
+    "j2k_cmyk_cprl.jp2": ((96, 128, 4), "CMYK", "38b44c64c706a715268f0680c02d"
+                          "d61eab3f9fca88056ee16624e4088fe68901"),
+    "zoom2x_1_lossless.jp2": ((1000, 598), "L", "a53d012da441415f894352cf63ae"
+                              "4c1b6b1293522900692bf6282fd1fe4a7cae"),
+    "zoom2x_1_97.jp2": ((1000, 598), "L", "eef423de3ae9788846afa985fe2adb0708"
+                        "d2b49685944b1e5dd596ecadd692cd"),
+    "zoom2x_2_97.jp2": ((1000, 598), "L", "f8d325615cd2e9d480074dec16ba7b1b6d"
+                        "94ab922a2d94cc43f2b1caf448e1b0"),
 }
 # 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
 # (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
@@ -4851,6 +4922,22 @@ TIFF_OJPEG_PAIR = ("zoom2x_1_ojpeg.tif", "zoom2x_2_ojpeg.tif")
 # tests/test_torch_ojpeg.py --jax-tiff-ojpeg``
 JAX_TIFF_OJPEG_REFERENCE = dict(steps=1, tentatives=130, matches=29,
                                 gt_consistent=29, corner_error_px=46.987)
+# 14t: PIL's JPEG 2000 saves of tests/test_torch_j2k.py::fixture_files
+# (5/3 and 9/7, quality layers, tiles with offsets, RPCL and CPRL, "I;16"
+# tiles and a signed "LA", which PIL reads back otherwise than written,
+# CMYK), held to the hashes above; zoom2x_1 as PIL's lossless JP2
+J2K_FIXTURES = (
+    "j2k_gray_53.j2k", "j2k_rgb_97_layers.jp2", "j2k_rgba_tiles_rpcl.jp2",
+    "j2k_i16_tiles.jp2", "j2k_la_signed.j2k", "j2k_cmyk_cprl.jp2")
+J2K_LOSSLESS = "zoom2x_1_lossless.jp2"
+# 14u's pair: zoom2x as PIL's lossy JP2 (irreversible=True,
+# quality_layers=[20, 10], tile_size=(256, 256), progression="RPCL")
+J2K_PAIR = ("zoom2x_1_97.jp2", "zoom2x_2_97.jp2")
+# The JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# 14u's pair, on the CPU: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_j2k.py --jax-j2k``
+JAX_J2K_REFERENCE = dict(steps=1, tentatives=128, matches=28,
+                         gt_consistent=27, corner_error_px=104.163)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -5288,6 +5375,62 @@ def _match_tiff_ojpeg_pair(held, work: Path) -> list:
     return failures
 
 
+def _decode_j2k(work: Path) -> list:
+    """14t: each JPEG 2000 fixture of ``J2K_FIXTURES``, ``J2K_PAIR`` and
+    ``J2K_LOSSLESS`` decoded on the host (``csrc/j2k_decode.cpp``:
+    OpenJPEG's decode and Pillow's unpack), its array's shape, mode and
+    SHA-256 against PIL's, the median decode ms of three; zoom2x_1 as the
+    1000x598 lossless JP2 beside the same view as an LZW TIFF
+    (``tiff_lzw_file``), the median ms of three."""
+    from mods_tpu_torch.io.image import read_image
+    failures = []
+    out = _hold_tiff_fixtures("14t", J2K_FIXTURES + J2K_PAIR
+                              + (J2K_LOSSLESS,), failures)
+    lzw = work / "zoom2x_1_lzw.tif"
+    view = read_image(PAIRS / "zoom2x_1.png")
+    lzw.write_bytes(tiff_lzw_file(view))
+    large = {}
+    for path in (IMAGE_FIXTURES / J2K_LOSSLESS, lzw):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a = read_image(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        large[path.name] = dict(read_ms=statistics.median(ms),
+                                equal_to_the_view=bool((a == view).all()))
+        if not large[path.name]["equal_to_the_view"]:
+            failures.append(f"14t {path.name} is not the view")
+    print(f"[14] t, JPEG 2000 files decoded on the host: {json.dumps(out)}; "
+          f"1000x598 reads: {json.dumps(large)}", flush=True)
+    return failures
+
+
+def _match_j2k_pair(held, work: Path) -> list:
+    """14u: ``cli match`` on zoom2x's pair as PIL's lossy JP2 files
+    (``J2K_PAIR``) against ``JAX_J2K_REFERENCE`` (``_held_cli_match``,
+    tentatives within 20 %), its drawings named .tif read back to
+    ``viz``'s canvases."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x JPEG 2000",
+        [IMAGE_FIXTURES / name for name in J2K_PAIR],
+        (work / "o1.tif", work / "o2.tif"), JAX_J2K_REFERENCE)
+    ref = JAX_J2K_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14u: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        got = read_image(path)
+        ok = got.shape == want.shape and np.array_equal(got, want)
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14u {path.name} is not viz's drawing")
+    print(f"[14] u, cli match on the JPEG 2000 pair: {json.dumps(res)}",
+          flush=True)
+    return failures
+
+
 def _encode_jpegs() -> list:
     """14f: zoom2x_1 as L, and zoom2x_1, zoom2x_2 and tilt4_1 as the R,
     G and B of one canvas, each encoded by ``csrc/jpeg_encode.cpp``: the
@@ -5625,9 +5768,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14s), on the card machine without PIL.  Raises with
+    """Phase 14 (14a-14u), on the card machine without PIL.  Raises with
     every failure of its parts; returns each kernel's launches in 14c, 14g,
-    14k, 14m, 14o, 14q and 14s."""
+    14k, 14m, 14o, 14q, 14s and 14u."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -5657,6 +5800,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _decode_tiff_ojpeg(Path(d))
         failures += _match_tiff_ojpeg_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_j2k(Path(d))
+        failures += _match_j2k_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -5778,13 +5924,14 @@ def main() -> int:
     _profile_detectors()
     clock("5")
 
-    ladder_launches = _drive_ladder(wrappers)
+    ladder_launches, ladder_per_group = _drive_ladder(wrappers)
     print(f"[6] kernel launches on the ladder's path: "
           f"{json.dumps(ladder_launches)}", flush=True)
     clock("6")
     for pair in ("tilt4", "tilt6_rot45"):
         _check_host_render(pair)
-    cviu_launches = _drive_cviu(wrappers)
+    cviu_launches, cviu_per_group = _drive_cviu(wrappers)
+    per_group = dict(LADDER=ladder_per_group, CVIU_LADDER=cviu_per_group)
     print(f"[7] kernel launches on the CVIU-shaped ladder's path: "
           f"{json.dumps(cviu_launches)}", flush=True)
     for name in wrappers:
@@ -5828,8 +5975,8 @@ def main() -> int:
     clock("12")
     import tempfile
     with tempfile.TemporaryDirectory() as d:
-        phase13_launches, replayed, captured = _drive_phase13(wrappers,
-                                                              Path(d))
+        phase13_launches, replayed, captured = _drive_phase13(
+            wrappers, Path(d), per_group)
     print(f"[13] kernel launches on phase 13's paths: run by the wrappers "
           f"{json.dumps(phase13_launches)}, run by graph replays "
           f"{json.dumps(replayed)}; recorded by captures, not run "
@@ -5841,8 +5988,8 @@ def main() -> int:
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
-          f"JPEG-in-TIFF, Zstandard TIFF and old-style JPEG TIFF pairs' "
-          f"commands: "
+          f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF and JPEG 2000 "
+          f"pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -47,12 +47,22 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     lossless VP8L, ALPH in every coding and filter, and the first frame
     of an animation on its zero-filled canvas, by
     ``csrc/webp_decode.cpp`` (built like the JPEG decoder); RGB, or RGBA
-    where libwebp's WebPGetFeatures reports alpha (never "L").
+    where libwebp's WebPGetFeatures reports alpha (never "L");
+  - JPEG 2000 (PIL's Jpeg2KImagePlugin on OpenJPEG 2.5's tile interface):
+    a .j2k codestream or a .jp2 file, by ``csrc/j2k_decode.cpp`` (built
+    like the others, with -ffp-contract=off): every marker, progression
+    order, code-block style, the 5/3 and 9/7 wavelets, RCT and ICT,
+    precisions of 1 to 16 bits, signed and subsampled components, tiles
+    and offsets, decoded as OpenJPEG decodes them, then unpacked as
+    Pillow's Jpeg2KDecode.c unpacks each tile ("L", "I;16", "LA", "RGB",
+    "RGBA", "CMYK", "P" and "PA" from a pclr box, sYCC to RGB); PIL's
+    mode and size from the header as the plugin reads them.
   Anything else (ICO, PSD, AVIF, ...) raises a ``ValueError`` naming the
   format, as do the variants the readers leave out (a VP8 inter frame,
   which PIL refuses too, and the TIFF compressions WebP, JBIG and JPEG
-  2000, among them) and the files that PIL refuses (SGILog TIFFs among
-  them).
+  2000, among them) and the files that PIL refuses (SGILog TIFFs and the
+  JPEG 2000 files that OpenJPEG or Pillow fail on among them, with PIL's
+  reason).
 * ``image_size(path)``: ``Image.open(path).size``, (width, height), from
   the header.
 * ``save_image(path, array)``: the format that the extension names, as
@@ -102,11 +112,11 @@ JPEG_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "jpeg_encode.cpp")
 WEBP_SOURCE = os.path.join(_PKG, "csrc", "webp_decode.cpp")
 WEBP_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "webp_encode.cpp")
 GIF_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "gif_encode.cpp")
+J2K_SOURCE = os.path.join(_PKG, "csrc", "j2k_decode.cpp")
 
 # magic bytes of formats that PIL opens and this module does not
 _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
-                  (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
-                  (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"qoif", "QOI"),
+                  (b"qoif", "QOI"),
                   (b"DDS ", "DDS"), (b"icns", "ICNS"),
                   (b"\x0a", "PCX"), (b"#?RADIANCE", "HDR"))
 # the major brands of an ftyp box that AvifImagePlugin._accept takes
@@ -129,17 +139,19 @@ def _format(head: bytes, path) -> str:
         return "GIF"
     if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
         return "WEBP"
+    if head.startswith((_J2K_CODESTREAM, _JP2_SIGNATURE)):
+        return "JPEG2000"
     name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
     if head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS:
         name = "AVIF"
     if name:
         raise ValueError(f"{path}: {name} images are not supported (PNG, "
-                         f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF and WebP "
-                         f"are)")
+                         f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP and "
+                         f"JPEG 2000 are)")
     if len(head) >= 4 and _u32(head, 0) in _BMP_HEADER_SIZES:
         return "DIB"
     raise ValueError(f"{path}: not an image format this reader knows (PNG, "
-                     f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP)")
+                     f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP, JPEG 2000)")
 
 
 def _array_mode(a: np.ndarray) -> str:
@@ -177,6 +189,8 @@ def _read(path) -> tuple[np.ndarray, str]:
     if fmt == "WEBP":
         a = _read_webp(data, path)
         return a, _array_mode(a)
+    if fmt == "JPEG2000":
+        return _read_j2k(data, path)
     a = _read_pnm(data, path)
     return a, _array_mode(a)
 
@@ -207,6 +221,9 @@ def image_size(path) -> tuple[int, int]:
     if fmt == "WEBP":
         with open(path, "rb") as f:
             return _webp_info(f.read(), path)[:2]
+    if fmt == "JPEG2000":
+        with open(path, "rb") as f:
+            return _j2k_pil_header(f.read(), path)["size"]
     return _pnm_header(data, path)["size"]
 
 
@@ -634,6 +651,242 @@ def _read_webp(data: bytes, path) -> np.ndarray:
                                     out.size, err, len(err)):
         raise ValueError(f"{path}: {err.value.decode()}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000 (PIL's Jpeg2KImagePlugin, then OpenJPEG's tile interface and
+# Pillow's Jpeg2KDecode.c in csrc/j2k_decode.cpp)
+
+_J2K_CODESTREAM = b"\xff\x4f\xff\x51"
+_JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
+# the modes in csrc/j2k_decode.cpp's order, and Pillow's bytes a pixel
+_J2K_MODES = ("L", "P", "PA", "I;16", "LA", "RGB", "RGBA", "CMYK")
+# OpenJPEG's colour space (OPJ_COLOR_SPACE) of a colr box's EnumCS:
+# sRGB, greyscale, sYCC, e-sYCC, CMYK; any other is OPJ_CLRSPC_UNKNOWN
+_JP2_COLOUR = {16: 1, 17: 2, 18: 3, 24: 4, 12: 5}
+_J2K_BROKEN = "broken data stream when reading image file"
+
+
+def _j2k_refused(path, why: str) -> ValueError:
+    return ValueError(f"{path}: JPEG 2000 file that PIL refuses: {why}")
+
+
+def _j2k_codestream_mode(data: bytes, at: int, path) -> tuple:
+    """Jpeg2KImagePlugin._parse_codestream on the SIZ segment at ``at``
+    (after SOC and the SIZ marker): PIL's size and mode."""
+    try:
+        lsiz = struct.unpack_from(">H", data, at)[0]
+        siz = data[at:at + lsiz]
+        (_, _, xsiz, ysiz, xosiz, yosiz, _, _, _, _,
+         csiz) = struct.unpack_from(">HHIIIIIIIIH", siz)
+        if csiz == 1:
+            prec = (struct.unpack_from(">B", siz, 38)[0] & 0x7F) + 1
+            mode = "I;16" if prec > 8 else "L"
+        elif csiz in (2, 3, 4):
+            mode = {2: "LA", 3: "RGB", 4: "RGBA"}[csiz]
+        else:
+            raise _j2k_refused(path, "unable to determine J2K image mode")
+    except struct.error as e:
+        raise _j2k_refused(path, f"cannot identify image file ({e})") from e
+    return (xsiz - xosiz, ysiz - yosiz), mode
+
+
+def _pil_boxes(data: bytes, pos: int, end):
+    """PIL's BoxReader from ``pos`` up to ``end`` (None: no length known):
+    (type, content start, content end) of each box, raising where
+    BoxReader raises."""
+    def need(at, k):
+        if end is None and at + k > len(data):
+            raise OSError(f"Expected to read {k} bytes but only got "
+                          f"{max(0, len(data) - at)}.")
+        if end is not None and at + k > end:
+            raise SyntaxError("Not enough data in header")
+    while end is None or pos < end:
+        need(pos, 8)
+        lbox, tbox = struct.unpack_from(">I4s", data, pos)
+        hlen = 8
+        if lbox == 1:
+            need(pos + 8, 8)
+            lbox, hlen = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        if lbox < hlen or (end is not None and pos + lbox > end):
+            raise SyntaxError("Invalid header length")
+        yield tbox, pos + hlen, pos + lbox
+        pos += lbox
+
+
+def _j2k_pil_header(data: bytes, path) -> dict:
+    """What Jpeg2KImageFile._open reads: the size and the mode, and for
+    JP2 the palette's presence."""
+    if data.startswith(_J2K_CODESTREAM):
+        size, mode = _j2k_codestream_mode(data, 4, path)
+        return dict(size=size, mode=mode)
+    try:
+        header = None
+        for tbox, lo, hi in _pil_boxes(data, 12, None):
+            if tbox == b"jp2h":
+                if hi > len(data):              # BoxReader.read_boxes
+                    raise OSError(f"Expected to read {hi - lo} bytes but "
+                                  f"only got {len(data) - lo}.")
+                header = (lo, hi)
+                break
+        size = mode = nc = None
+        for tbox, lo, hi in _pil_boxes(data, header[0], header[1]):
+            def fields(fmt, at=lo):
+                if at + struct.calcsize(fmt) > hi:
+                    raise SyntaxError("Not enough data in header")
+                return struct.unpack_from(fmt, data, at)
+            if tbox == b"ihdr":
+                height, width, nc, bpc = fields(">IIHB")
+                size = (width, height)
+                mode = ("I;16" if nc == 1 and (bpc & 0x7F) > 8 else
+                        {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode))
+            elif tbox == b"colr" and nc == 4:
+                meth, _, _, enumcs = fields(">BBBI")
+                if meth == 1 and enumcs == 12:
+                    mode = "CMYK"
+            elif tbox == b"pclr" and mode in ("L", "LA"):
+                ne, npc = fields(">HB")
+                depths = fields(">" + "B" * npc, lo + 3)
+                if max(depths, default=0) <= 8:
+                    fields(">" + "B" * (npc * ne), lo + 3 + npc)
+                    mode = "P" if mode == "L" else "PA"
+        if size is None or mode is None:
+            raise SyntaxError("Malformed JP2 header")
+    except (SyntaxError, OSError, TypeError, struct.error) as e:
+        raise _j2k_refused(path, str(e) or "cannot identify image file") \
+            from e
+    return dict(size=size, mode=mode)
+
+
+def _openjpeg_jp2(data: bytes, path) -> tuple[bytes, int, tuple]:
+    """OpenJPEG's opj_jp2_read_header: the codestream of the jp2c box,
+    the colour space of the first colr box (opj_jp2_read_colr; -1 where
+    there is none, an ICC profile or an EnumCS it does not map) and
+    ihdr's (width, height), which SIZ must match; its refusals of the
+    jp2h sub-boxes (a second pclr, cmap or cdef, a cmap before pclr, bad
+    sizes)."""
+    def broken(why):
+        return _j2k_refused(path, f"{_J2K_BROKEN} ({why})")
+    pos, n, state, enumcs, size = 0, len(data), 0, None, None
+    while pos + 8 <= n:
+        lbox, tbox = struct.unpack_from(">I4s", data, pos)
+        hlen = 8
+        if lbox == 1:
+            if pos + 16 > n:
+                break
+            lbox, hlen = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif lbox == 0:
+            lbox = n - pos
+        if lbox < hlen:
+            raise broken("Box length is inconsistent")
+        if state == 0 and tbox != b"jP  ":
+            raise broken("the first box must be the JPEG 2000 signature "
+                         "box")
+        if state == 1 and tbox != b"ftyp":
+            raise broken("the second box must be the file type box")
+        if tbox == b"jp2c":
+            if size is None:
+                raise broken("JP2H box missing")
+            return data[pos + hlen:], _JP2_COLOUR.get(enumcs, -1), size
+        if pos + lbox > n:
+            raise broken("a box runs past the end of the file")
+        if tbox == b"jp2h":
+            seen = set()
+            for sub, lo, hi in _openjpeg_subboxes(data, pos + hlen,
+                                                  pos + lbox, broken):
+                body = hi - lo
+                if sub == b"ihdr" and size is None:
+                    if body != 14:
+                        raise broken("Bad image header box (bad size)")
+                    h, w, nc = struct.unpack_from(">IIH", data, lo)
+                    if h < 1 or w < 1 or nc < 1 or nc > 16384:
+                        raise broken("Wrong values for ihdr")
+                    size = (w, h)
+                elif sub == b"colr" and b"colr" not in seen:
+                    if body < 3 or (data[lo] == 1 and body < 7):
+                        raise broken("Bad COLR header box (bad size)")
+                    if data[lo] == 1:
+                        enumcs = struct.unpack_from(">I", data, lo + 3)[0]
+                elif sub in (b"pclr", b"cdef") and sub in seen:
+                    raise broken(f"a second {sub.decode()} box")
+                elif sub == b"cmap":
+                    if b"pclr" not in seen:
+                        raise broken("Need to read a PCLR box before the "
+                                     "CMAP box.")
+                    if b"cmap" in seen:
+                        raise broken("Only one CMAP box is allowed.")
+                elif sub == b"cdef" and (body < 2 or body < 2 + 6 * (
+                        struct.unpack_from(">H", data, lo)[0] or 1)):
+                    raise broken("Insufficient data for CDEF box.")
+                seen.add(sub)
+            if size is None:
+                raise broken("no 'ihdr' box")
+            state = 3
+        else:
+            state = max(state, {b"jP  ": 1, b"ftyp": 2}.get(tbox, state))
+        pos += lbox
+    raise broken("no codestream box")
+
+
+def _openjpeg_subboxes(data: bytes, pos: int, end: int, broken):
+    while pos + 8 <= end:
+        lbox, tbox = struct.unpack_from(">I4s", data, pos)
+        hlen = 8
+        if lbox == 1:
+            lbox, hlen = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        if lbox < hlen or pos + lbox > end:
+            raise broken("Box length is inconsistent")
+        yield tbox, pos + hlen, pos + lbox
+        pos += lbox
+
+
+@functools.lru_cache(maxsize=1)
+def _j2k_lib():
+    from mods_tpu_torch.detectors.mser import build_native
+    # OpenJPEG's float arithmetic has no fused multiply-adds
+    lib = ctypes.CDLL(build_native(J2K_SOURCE, "libmods_j2k.so",
+                                   ("-ffp-contract=off",)))
+    lib.mods_j2k_decode.restype = ctypes.c_int
+    lib.mods_j2k_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_int]
+    return lib
+
+
+def _read_j2k(data: bytes, path) -> tuple[np.ndarray, str]:
+    """``np.asarray(Image.open(path))`` and its mode for a .j2k
+    codestream or a .jp2 file."""
+    head = _j2k_pil_header(data, path)
+    (w, h), mode = head["size"], head["mode"]
+    if data.startswith(_J2K_CODESTREAM):
+        cs, colour = data, 0                 # OPJ_CLRSPC_UNSPECIFIED
+    else:
+        cs, colour, ihdr = _openjpeg_jp2(data, path)
+        # OpenJPEG holds SIZ's image area to ihdr's
+        try:
+            if not cs.startswith(_J2K_CODESTREAM):
+                raise struct.error("expected SOC and SIZ markers")
+            x1, y1, x0, y0 = struct.unpack_from(">4I", cs, 8)
+        except struct.error as e:
+            raise _j2k_refused(path, f"{_J2K_BROKEN} ({e})") from e
+        if ihdr != (x1 - x0, y1 - y0):
+            raise _j2k_refused(path, f"{_J2K_BROKEN} (Error with SIZ "
+                               f"marker: IHDR {ihdr} vs. SIZ "
+                               f"{(x1 - x0, y1 - y0)})")
+    bpp = 1 if mode in ("L", "P") else 2 if mode == "I;16" else 4
+    mem = np.zeros((h, w, bpp), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if _j2k_lib().mods_j2k_decode(cs, len(cs), _J2K_MODES.index(mode), colour,
+                                  w, h, mem.ctypes.data, err, len(err)):
+        raise _j2k_refused(path, f"{_J2K_BROKEN} ({err.value.decode()})")
+    if mode in ("L", "P"):
+        return mem[..., 0], mode
+    if mode == "I;16":
+        return mem.view("<u2")[..., 0], mode
+    bands = {"LA": [0, 3], "PA": [0, 3], "RGB": [0, 1, 2]}.get(mode,
+                                                              [0, 1, 2, 3])
+    return np.ascontiguousarray(mem[..., bands]), mode
 
 
 # ---------------------------------------------------------------------------
