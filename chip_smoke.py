@@ -248,8 +248,14 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    1000x598 lossless JP2 read in ms beside the same view as an LZW TIFF;
    (u) ``cli match`` on zoom2x's pair as PIL's lossy JP2 (``J2K_PAIR``):
    its launches held to the plan, its figures to ``JAX_J2K_REFERENCE`` by
-   phase 6's rule and its tentatives within 20 %, its drawings named .tif
-   read back to ``viz``'s canvases.
+   phase 6's rule and its tentatives within 20 %, its drawings named .jp2
+   (``csrc/j2k_encode.cpp``) read back to ``viz``'s canvases; (v)
+   zoom2x_1 written as .jp2 by ``save_image`` (``csrc/j2k_encode.cpp``:
+   OpenJPEG's lossless encode as PIL's default save drives it) held byte
+   for byte to ``J2K_LOSSLESS``, PIL's file, and 14l's six canvases
+   written as .j2k and .jp2, each file's SHA-256 held to PIL's
+   (``J2K_ENCODE_SHA256``) and read back by the port to the canvas, the
+   median encode ms of three and the decode ms printed.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1878,7 +1884,7 @@ def _build_native() -> None:
     GIF writer's ``csrc/gif_encode.cpp``, the TIFF and GIF codecs of
     ``csrc/tiff_decode.cpp``, the Zstandard decoder
     ``csrc/zstd_decode.cpp`` and the JPEG 2000 decoder
-    ``csrc/j2k_decode.cpp`` (g++,
+    ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
@@ -1894,7 +1900,8 @@ def _build_native() -> None:
     t0 = time.perf_counter()
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
-              image._gif_encoder, tiff._lib, tiff._zstd_lib, image._j2k_lib)
+              image._gif_encoder, tiff._lib, tiff._zstd_lib, image._j2k_lib,
+              image._j2k_encoder)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
@@ -1902,7 +1909,7 @@ def _build_native() -> None:
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
           f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp, "
-          f"j2k_decode.cpp built into "
+          f"j2k_decode.cpp, j2k_encode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -4938,6 +4945,42 @@ J2K_PAIR = ("zoom2x_1_97.jp2", "zoom2x_2_97.jp2")
 # tests/test_torch_j2k.py --jax-j2k``
 JAX_J2K_REFERENCE = dict(steps=1, tentatives=128, matches=28,
                          gt_consistent=27, corner_error_px=104.163)
+# 14v: the SHA-256 of PIL 12.1.0's default JPEG 2000 save (OpenJPEG 2.5.4)
+# of each of ``gif_encode_canvases``, as .j2k and as .jp2
+# (tests/test_torch_j2k_write.py::test_j2k_encode_hashes_are_pils computes
+# them with PIL)
+J2K_ENCODE_SHA256 = {
+    "zoom2x_1 L": (
+        "7a13db11583c6aa24619c6920b03983d"
+        "03f7c33b9c7bcf1de087be20bf315155",
+        "e4f4bce4d79568aadb77d11970395d0f"
+        "cba6d69e7954ddbdd66d478fbebe5b74"),
+    "zoom2x_1 RGB with coloured lines": (
+        "c4490862696bf6b276684486565d2d19"
+        "b81ce1602e10eac5615ae835b8a5a407",
+        "86198f371436146ea32aaa64f5b76c20"
+        "dedf0ec810ac4a7e20ac99cce990106e"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        "4ab38665da6662e418dd6d867beaeed8"
+        "208b62baa9c180235f67a3dad90e9dfd",
+        "4802f828037e2e73462cb1fef81f919f"
+        "249dea95edc34efff18384126d611841"),
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": (
+        "94c205a963ee90e2f904452aedf95fa4"
+        "be261b055580a3a97b3f7e1506317e37",
+        "aed6a1613ba22326d7c36b5889dd4a42"
+        "0e6af2e841eabc7e458a65cf129bd3ec"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+        "11928c00e143e91dbb660ee8303d759c"
+        "00c3f781447f98d13bfa9916c9983f2d",
+        "1119e880939e28b0786b5a89ebdbf1dc"
+        "05efa056dca4af0ed060a31a9611b5c0"),
+    "a 12-row strip of the RGB canvas": (
+        "dc4c7cc0a1d8881ca84e42f82d48360b"
+        "0761191f2cc50dbe886677d66bb00992",
+        "82a593437302a1ceb61f7fae70fa13ee"
+        "00b5b6f15f7b9cab3ceaf2e6cb1eb576"),
+}
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -5408,14 +5451,14 @@ def _decode_j2k(work: Path) -> list:
 def _match_j2k_pair(held, work: Path) -> list:
     """14u: ``cli match`` on zoom2x's pair as PIL's lossy JP2 files
     (``J2K_PAIR``) against ``JAX_J2K_REFERENCE`` (``_held_cli_match``,
-    tentatives within 20 %), its drawings named .tif read back to
-    ``viz``'s canvases."""
+    tentatives within 20 %), its drawings named .jp2 (lossless, by
+    ``csrc/j2k_encode.cpp``) read back to ``viz``'s canvases."""
     import numpy as np
     from mods_tpu_torch.io.image import read_image
     res, failures, drawings = _held_cli_match(
         held, work, "zoom2x JPEG 2000",
         [IMAGE_FIXTURES / name for name in J2K_PAIR],
-        (work / "o1.tif", work / "o2.tif"), JAX_J2K_REFERENCE)
+        (work / "o1.jp2", work / "o2.jp2"), JAX_J2K_REFERENCE)
     ref = JAX_J2K_REFERENCE["tentatives"]
     if abs(res["tentatives"] - ref) > 0.2 * ref:
         failures.append(f"14u: {res['tentatives']} tentatives, JAX {ref} "
@@ -5427,6 +5470,54 @@ def _match_j2k_pair(held, work: Path) -> list:
         if not ok:
             failures.append(f"14u {path.name} is not viz's drawing")
     print(f"[14] u, cli match on the JPEG 2000 pair: {json.dumps(res)}",
+          flush=True)
+    return failures
+
+
+def _encode_j2ks(work: Path) -> list:
+    """14v: zoom2x_1 written as .jp2 by ``save_image``
+    (``csrc/j2k_encode.cpp``) against ``J2K_LOSSLESS``, PIL's file of the
+    same view, byte for byte; each of ``gif_encode_canvases`` written as
+    .j2k and as .jp2, each file's SHA-256 against PIL's
+    (``J2K_ENCODE_SHA256``) and read back by the port to the canvas; the
+    median encode ms of three, the decode ms of one."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    failures = []
+
+    def encode(path: Path, canvas) -> dict:
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_image(path, canvas)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back = read_image(path)
+        dec = (time.perf_counter() - t0) * 1e3
+        return dict(bytes=path.stat().st_size,
+                    encode_ms=statistics.median(ms), decode_ms=dec,
+                    read_back_equal=back.shape == canvas.shape
+                    and bool(np.array_equal(back, canvas)))
+
+    lossless = work / "zoom2x_1.jp2"
+    out = {"zoom2x_1 .jp2": encode(lossless, views[0])}
+    out["zoom2x_1 .jp2"]["bytes_equal_to_pil"] = same = \
+        lossless.read_bytes() == (IMAGE_FIXTURES / J2K_LOSSLESS).read_bytes()
+    if not (same and out["zoom2x_1 .jp2"]["read_back_equal"]):
+        failures.append(f"14v zoom2x_1 .jp2: {out['zoom2x_1 .jp2']}")
+    for i, (name, canvas) in enumerate(gif_encode_canvases(views).items()):
+        for ext, want in zip((".j2k", ".jp2"), J2K_ENCODE_SHA256[name]):
+            p = work / f"canvas_{i}{ext}"
+            r = encode(p, canvas)
+            r["sha256_equal_to_pil"] = \
+                hashlib.sha256(p.read_bytes()).hexdigest() == want
+            out[f"{name} {ext}"] = r
+            if not (r["sha256_equal_to_pil"] and r["read_back_equal"]):
+                failures.append(f"14v {name} {ext}: {r}")
+    print(f"[14] v, JPEG 2000 encode on the host: {json.dumps(out)}",
           flush=True)
     return failures
 
@@ -5768,7 +5859,7 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14u), on the card machine without PIL.  Raises with
+    """Phase 14 (14a-14v), on the card machine without PIL.  Raises with
     every failure of its parts; returns each kernel's launches in 14c, 14g,
     14k, 14m, 14o, 14q, 14s and 14u."""
     import tempfile
@@ -5803,6 +5894,7 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _decode_j2k(Path(d))
         failures += _match_j2k_pair(held, Path(d))
+        failures += _encode_j2ks(Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")

@@ -84,11 +84,17 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   ``.gif`` byte for byte PIL's (GifImagePlugin's rules here, the
   quantiser and the LZW in ``csrc/gif_encode.cpp``, built like the
   others): bool and gray raw, RGB and RGBA through ``adaptive_palette``,
-  the other modes converted to gray.  int8 arrays are PIL's unsigned
-  "I;8" and uint32 arrays its "I;32", their bits as int32, in every
-  format that writes "I".  Every other extension (``.ico``, ...) and
-  every array that PIL refuses to write in that format raise a
-  ``ValueError`` naming them.
+  the other modes converted to gray; ``.j2k`` (a codestream) and
+  ``.jp2`` byte for byte PIL's default save through OpenJPEG 2.5.4
+  (``csrc/j2k_encode.cpp``: one tile, one lossless layer, the 5/3
+  wavelet, no component transform): gray, gray+alpha, RGB, RGBA and
+  uint16 at 16 bits; a path that ends in ".j2k" (case and all, as
+  Pillow tests it) is written as a codestream, every other as JP2, and
+  bool, int32 and float raise as PIL refuses them.  int8 arrays are
+  PIL's unsigned "I;8" and uint32 arrays its "I;32", their bits as
+  int32, in every format that writes "I".  Every other extension
+  (``.ico``, ...) and every array that PIL refuses to write in that
+  format raise a ``ValueError`` naming them.
 * ``adaptive_palette(array)``: the indices and the palette of
   ``Image.fromarray(array).convert("P", palette=Image.Palette.ADAPTIVE)``
   (Pillow's median cut for gray and RGB, its fast octree for RGBA).
@@ -113,6 +119,7 @@ WEBP_SOURCE = os.path.join(_PKG, "csrc", "webp_decode.cpp")
 WEBP_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "webp_encode.cpp")
 GIF_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "gif_encode.cpp")
 J2K_SOURCE = os.path.join(_PKG, "csrc", "j2k_decode.cpp")
+J2K_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "j2k_encode.cpp")
 
 # magic bytes of formats that PIL opens and this module does not
 _OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
@@ -988,8 +995,9 @@ _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PNM", ".bmp": "BMP",
                  ".dib": "DIB", ".jpg": "JPEG", ".jpeg": "JPEG",
                  ".jpe": "JPEG", ".jfif": "JPEG", ".tif": "TIFF",
-                 ".tiff": "TIFF", ".webp": "WEBP", ".gif": "GIF"}
-_NOT_WRITTEN = {".ico": "ICO", ".j2k": "JPEG 2000", ".jp2": "JPEG 2000"}
+                 ".tiff": "TIFF", ".webp": "WEBP", ".gif": "GIF",
+                 ".j2k": "JPEG2000", ".jp2": "JPEG2000"}
+_NOT_WRITTEN = {".ico": "ICO"}
 
 
 def _mode(a: np.ndarray) -> str:
@@ -1338,6 +1346,47 @@ def _gif_bytes(a: np.ndarray, mode: str) -> bytes:
     return head + out[:n].tobytes() + b"\x00;"
 
 
+@functools.lru_cache(maxsize=1)
+def _j2k_encoder():
+    from mods_tpu_torch.detectors.mser import build_native
+    lib = ctypes.CDLL(build_native(J2K_ENCODER_SOURCE,
+                                   "libmods_j2k_encode.so",
+                                   ("-ffp-contract=off", "-pthread")))
+    lib.mods_j2k_encode.restype = ctypes.c_int64
+    lib.mods_j2k_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int]
+    return lib
+
+
+def _j2k_bytes(a: np.ndarray, mode: str, jp2: bool = True) -> bytes:
+    """PIL's default JPEG 2000 save (``csrc/j2k_encode.cpp``): a .jp2
+    file, or with ``jp2`` false a .j2k codestream.  Jpeg2KEncode.c packs
+    "L", "LA", "RGB" and "RGBA" as 8-bit components in channel order and
+    "I;16" as one 16-bit component; it refuses the other modes."""
+    if mode not in ("L", "LA", "RGB", "RGBA", "I;16"):
+        raise ValueError(f"cannot write mode {mode} as JPEG 2000")
+    h, w = a.shape[:2]
+    planes = np.ascontiguousarray(np.moveaxis(a, -1, 0) if a.ndim == 3
+                                  else a[None])
+    # a lossless stream is about the size of its samples; the encoder
+    # gives the length where it needs more room
+    cap = planes.nbytes + planes.nbytes // 2 + 4096
+    err = ctypes.create_string_buffer(256)
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = _j2k_encoder().mods_j2k_encode(
+            planes.ctypes.data, w, h, planes.shape[0],
+            16 if mode == "I;16" else 8, int(jp2), out.ctypes.data, cap,
+            err, len(err))
+        if n < 0:
+            raise ValueError(err.value.decode())
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n
+
+
 def save_image(path, array) -> None:
     """``Image.fromarray(array).save(path)`` (module docstring)."""
     ext = os.path.splitext(str(path))[1].lower()
@@ -1347,7 +1396,7 @@ def save_image(path, array) -> None:
         raise ValueError(
             f"{path}: writing {name} images is not supported (.png, .pbm, "
             f".pgm, .ppm, .pnm, .pfm, .bmp, .dib, .jpg, .jpeg, .jpe, .jfif, "
-            f".tif, .tiff, .webp and .gif are)" if name else
+            f".tif, .tiff, .webp, .gif, .j2k and .jp2 are)" if name else
             f"{path}: unknown image file extension {ext!r}")
     a = np.asarray(array)
     mode = _mode(a)
@@ -1363,9 +1412,12 @@ def save_image(path, array) -> None:
                       if mode == "I" else a)
         return
     try:
-        data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "DIB": _dib_bytes,
-                "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes, "WEBP": _webp_bytes,
-                "GIF": _gif_bytes}[fmt](a, mode)
+        if fmt == "JPEG2000":                  # Jpeg2KImagePlugin._save
+            data = _j2k_bytes(a, mode, not str(path).endswith(".j2k"))
+        else:
+            data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "DIB": _dib_bytes,
+                    "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes,
+                    "WEBP": _webp_bytes, "GIF": _gif_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

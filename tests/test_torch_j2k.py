@@ -689,9 +689,19 @@ def test_five_components_refused_with_pils_reason(tmp_path):
 
 
 def test_writing_stays_refused(tmp_path):
-    for name in ("x.j2k", "x.jp2"):
-        with pytest.raises(ValueError, match="JPEG 2000"):
-            save_image(tmp_path / name, np.zeros((4, 4), np.uint8))
+    """Writing modes "1", "I" and "F" stays refused to both extensions,
+    as PIL refuses them ("broken data stream when writing image file"),
+    and leaves no file; tests/test_torch_j2k_write.py holds the modes PIL
+    writes."""
+    for a in (np.zeros((4, 4), bool), np.zeros((4, 4), np.int32),
+              np.zeros((4, 4), np.float32)):
+        for name in ("x.j2k", "x.jp2"):
+            p = tmp_path / name
+            with pytest.raises(ValueError, match="as JPEG 2000"):
+                save_image(p, a)
+            assert not p.exists()
+            with pytest.raises(OSError):
+                Image.fromarray(a).save(tmp_path / f"pil_{name}")
 
 
 def test_jpeg2000_in_tiff_stays_refused(tmp_path):
