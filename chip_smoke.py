@@ -255,7 +255,23 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    for byte to ``J2K_LOSSLESS``, PIL's file, and 14l's six canvases
    written as .j2k and .jp2, each file's SHA-256 held to PIL's
    (``J2K_ENCODE_SHA256``) and read back by the port to the canvas, the
-   median encode ms of three and the decode ms printed.
+   median encode ms of three and the decode ms printed; (w) the ICO,
+   CUR, TGA, SGI, PCX and QOI files of ``RASTER_FIXTURES`` (PIL's saves,
+   a 16-bit TGA and RLE SGIs built by the tests) decoded on the host by
+   ``io/raster.py``, each array's shape, mode and SHA-256 held to PIL's
+   (``FORMAT_FIXTURE_SHA256``), the decode ms printed; (x) 14l's six
+   canvases and zoom2x_1 as "1", "LA", "I;16" and "I" written as .tga,
+   .sgi, .pcx and .qoi where PIL takes the mode (each file's SHA-256
+   held to PIL's, ``RASTER_ENCODE_SHA256``, and read back to the
+   canvas) and as .ico (every entry's size and bit count and every
+   frame's SHA-256 held to what PIL reads from its own file,
+   ``ICO_ENCODE_FRAMES``: Pillow's Lanczos thumbnails, by
+   ``csrc/resample.cpp``), the median encode ms of three printed; (y)
+   ``cli match`` on zoom2x's pair written as .tga: its launches held to
+   the plan, its figures to ``JAX_TGA_REFERENCE`` by phase 6's rule and
+   its tentatives within 20 %, its drawings named .ico (the largest
+   frame held to the Lanczos thumbnail of ``viz``'s canvas) and .tga
+   (read back to the canvas).
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1883,15 +1899,17 @@ def _build_native() -> None:
     ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp``, the
     GIF writer's ``csrc/gif_encode.cpp``, the TIFF and GIF codecs of
     ``csrc/tiff_decode.cpp``, the Zstandard decoder
-    ``csrc/zstd_decode.cpp`` and the JPEG 2000 decoder
-    ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp`` (g++,
+    ``csrc/zstd_decode.cpp``, the JPEG 2000 decoder
+    ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``, the RLE
+    and QOI codecs ``csrc/raster_codec.cpp`` and the ICO writer's Lanczos
+    resampler ``csrc/resample.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
     import os
     from concurrent.futures import ThreadPoolExecutor
     from mods_tpu_torch.detectors import mser
-    from mods_tpu_torch.io import image, tiff
+    from mods_tpu_torch.io import image, raster, tiff
     from mods_tpu_torch.ops import host_render
     out = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True, timeout=60)
@@ -1901,7 +1919,7 @@ def _build_native() -> None:
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
               image._gif_encoder, tiff._lib, tiff._zstd_lib, image._j2k_lib,
-              image._j2k_encoder)
+              image._j2k_encoder, raster._codec, raster._resampler)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
@@ -1909,7 +1927,8 @@ def _build_native() -> None:
           f"native/render.cpp and mods_tpu_torch/csrc/jpeg_decode.cpp, "
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
           f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp, "
-          f"j2k_decode.cpp, j2k_encode.cpp built into "
+          f"j2k_decode.cpp, j2k_encode.cpp, raster_codec.cpp, "
+          f"resample.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -4751,6 +4770,60 @@ FORMAT_FIXTURE_SHA256 = {
                         "d2b49685944b1e5dd596ecadd692cd"),
     "zoom2x_2_97.jp2": ((1000, 598), "L", "f8d325615cd2e9d480074dec16ba7b1b6d"
                         "94ab922a2d94cc43f2b1caf448e1b0"),
+    "ico_png.ico": ((25, 32, 4), "RGBA",
+        "694ce7e5490940ae17449b4275f625c7"
+        "606a5906f1678179c83c152066b6b5d2"),
+    "ico_bmp.ico": ((25, 32, 4), "RGBA",
+        "2b9c103cd4edea951a227bdfe66cca2d"
+        "cf46a3caa273659bf1a2417aef58d754"),
+    "ico_bmp_rgba.ico": ((25, 32, 4), "RGBA",
+        "694ce7e5490940ae17449b4275f625c7"
+        "606a5906f1678179c83c152066b6b5d2"),
+    "cursor.cur": ((25, 32), "L",
+        "e529e68c4906b928953c6fbbbce048e9"
+        "31f1d27bb34abff297b5182b2b568b14"),
+    "tga_l_rle.tga": ((47, 61), "L",
+        "37055efb30350e6ce19e8d7d361e8dbe"
+        "76f1abc913cbcc288747e50dfa17ddf4"),
+    "tga_rgb.tga": ((47, 61, 3), "RGB",
+        "e5568dd17512101ca216758d5c40b80a"
+        "74a3a3aaecc49084d6bac742f6ed1b2d"),
+    "tga_rgba_rle.tga": ((47, 61, 4), "RGBA",
+        "0a567198f0d3dbfa025ad8912ce1aba7"
+        "2436803dc8f54c4347b20fa2d9bd56c4"),
+    "tga_bgr5.tga": ((6, 13, 4), "RGBA",
+        "0c6dcfed800b20fd084a84c44f5e9d41"
+        "f89be7939a72922e03ea303609627a79"),
+    "sgi_rgb.sgi": ((47, 61, 3), "RGB",
+        "e5568dd17512101ca216758d5c40b80a"
+        "74a3a3aaecc49084d6bac742f6ed1b2d"),
+    "sgi_l16.sgi": ((47, 61), "L",
+        "37055efb30350e6ce19e8d7d361e8dbe"
+        "76f1abc913cbcc288747e50dfa17ddf4"),
+    "sgi_rgba_rle.sgi": ((47, 61, 4), "RGBA",
+        "0a567198f0d3dbfa025ad8912ce1aba7"
+        "2436803dc8f54c4347b20fa2d9bd56c4"),
+    "sgi_rgb16_rle.sgi": ((47, 61, 3), "RGB",
+        "583ab9259494304c0d1a86583fb2c716"
+        "82e3adf89ef37fe33e7762378201063c"),
+    "pcx_1.pcx": ((47, 61), "1",
+        "9087afffebd11a7ed9157166b5349a70"
+        "a82f657c705af1b0a2abda1fc6cfc48e"),
+    "pcx_l.pcx": ((47, 61), "L",
+        "37055efb30350e6ce19e8d7d361e8dbe"
+        "76f1abc913cbcc288747e50dfa17ddf4"),
+    "pcx_p.pcx": ((47, 61), "P",
+        "eef668d3c930cbe572e76cf7686e0a72"
+        "80f625ce5da41458cc341a6748f8e586"),
+    "pcx_rgb.pcx": ((47, 61, 3), "RGB",
+        "e5568dd17512101ca216758d5c40b80a"
+        "74a3a3aaecc49084d6bac742f6ed1b2d"),
+    "qoi_rgb.qoi": ((47, 61, 3), "RGB",
+        "e5568dd17512101ca216758d5c40b80a"
+        "74a3a3aaecc49084d6bac742f6ed1b2d"),
+    "qoi_rgba.qoi": ((47, 61, 4), "RGBA",
+        "0a567198f0d3dbfa025ad8912ce1aba7"
+        "2436803dc8f54c4347b20fa2d9bd56c4"),
 }
 # 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
 # (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
@@ -4981,6 +5054,239 @@ J2K_ENCODE_SHA256 = {
         "82a593437302a1ceb61f7fae70fa13ee"
         "00b5b6f15f7b9cab3ceaf2e6cb1eb576"),
 }
+# 14w: the ICO, CUR, TGA, SGI, PCX and QOI files of
+# tests/test_torch_raster_formats.py::fixture_files (PIL's saves; a 16-bit
+# TGA and RLE SGIs of 1 and 2 bytes a sample built there), held to the
+# hashes of FORMAT_FIXTURE_SHA256
+RASTER_FIXTURES = (
+    "ico_png.ico", "ico_bmp.ico", "ico_bmp_rgba.ico", "cursor.cur",
+    "tga_l_rle.tga", "tga_rgb.tga", "tga_rgba_rle.tga", "tga_bgr5.tga",
+    "sgi_rgb.sgi", "sgi_l16.sgi", "sgi_rgba_rle.sgi", "sgi_rgb16_rle.sgi",
+    "pcx_1.pcx", "pcx_l.pcx", "pcx_p.pcx", "pcx_rgb.pcx", "qoi_rgb.qoi",
+    "qoi_rgba.qoi")
+# 14x: the SHA-256 of PIL 12.1.0's file of each of ``raster_encode_canvases``
+# in each of its formats that takes the canvas's mode (QOI, PIL's
+# pure-Python encoder, on three canvases), written as canvas_<i><ext>
+# (the SGI header holds the name), and of each frame that PIL reads from
+# its ICO with its size and bit count, in PIL's order of entries
+# (tests/test_torch_ico.py::test_raster_encode_hashes_are_pils computes
+# them with PIL)
+RASTER_ENCODE_SHA256 = {
+    "zoom2x_1 L": {
+        ".tga": "bab0fd9e155b3559ee4abed43cacc6c3"
+                  "9dbe486c816a796bfd8614dd1eb4fc76",
+        ".sgi": "bfda0918eb78a554e4f1bad67b3fcb0e"
+                  "b3ca836ea4dda92e7f413c31c0998efd",
+        ".pcx": "f1d8b7202a16a5191fa74dc771c778b6"
+                  "4cda532a31e4322f172e696ecf3415c3",
+    },
+    "zoom2x_1 RGB with coloured lines": {
+        ".tga": "cec6f60ca9e41009bd8e344db88045c1"
+                  "cb8ac10fd09c2c6d533950d38aae019b",
+        ".sgi": "6fae80677feb7d2d9e9441d88d2f7d62"
+                  "7c6e999f25c0665c4a1df2037706f52b",
+        ".pcx": "e0bfcd7f4cd65b4fb0254dc7e1b1721f"
+                  "1fdde1515a3f93b3872bed066d58bfbf",
+    },
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": {
+        ".tga": "7993d3291d1d90ca0e8e3b4d07769a8a"
+                  "ccad4de35d68fe0a9300fc7847f64caf",
+        ".sgi": "4e455f6dab3d3b281876fc7d50bc5aa2"
+                  "88561b509c7b5ffc2b91a1a5e28f4c39",
+        ".pcx": "86f2e9e45b6fe3b5c163fcf43081cc5a"
+                  "be3505d84ee33a7e3ccc91f19f838894",
+        ".qoi": "7a82224d35022c1299078f49f519e925"
+                  "ecdc7b236e749004d19fd134335849c2",
+    },
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": {
+        ".tga": "bbd10761c871305b3d0759f9048b6a91"
+                  "589ba7293fd0de88c34991a7959eb499",
+        ".sgi": "a015627cb3dde32a2e8c0fd901e1aa36"
+                  "b91474ba5dd1a9ccded3fc783a82834d",
+        ".pcx": "702919a0edcd15caef43b11ec62a589f"
+                  "2242fcf34f2a15ddea4c8cd385f799f9",
+    },
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": {
+        ".tga": "e01e99400e6b8036508d3c963d490fb8"
+                  "5e2156f1af2ea793d46522f80d52024f",
+        ".sgi": "d299f0c951567b9f76a48778c6dc27d0"
+                  "5920783e72f1c942ea116ac812d9ee7b",
+        ".qoi": "bb2be28c52dbabbdb0bccfa217ff0d0a"
+                  "a61d8fb5ab82cf5f54e21b7cbbe246e6",
+    },
+    "a 12-row strip of the RGB canvas": {
+        ".tga": "85d78d87bff217fa1e9e3e521517c1c6"
+                  "e338d0b46b2d6b4b4073a3050e096c07",
+        ".sgi": "4c877b88dcbbe1f2ef3c9715e76ab26b"
+                  "60f849662ef23d233acb52b76c1dc98e",
+        ".pcx": "656a85208a1caa5458c647edbf9b3dff"
+                  "1647d4e75f8aa7011e939352721b5729",
+        ".qoi": "29ff4fa187f9ff656cccc19e556a6794"
+                  "e861a21d775c41b529e1b38877f56bcf",
+    },
+    "zoom2x_1 1": {
+        ".tga": "9484f300cab5a3e486af00ad763ee280"
+                  "f35b3e1950d6d2ef769679b170bab6d7",
+        ".pcx": "5b24a6df1abcff9e8bc64bd45065f6b9"
+                  "29e3eee49c804cbdb4e5e6d5aa47189a",
+    },
+    "zoom2x_1, zoom2x_2 LA": {
+        ".tga": "a1aa7d6c4d4bff0fda44fa4a8d9f4231"
+                  "06cb4a113320fcdf05febe65d92fac3b",
+    },
+}
+ICO_ENCODE_FRAMES = {
+    "zoom2x_1 L": (
+        (153, 256, 32, "93fe9ce111d6b3cad21c22b2425ba181"
+                       "803a81b802f9e03d9d4885c3c4b5b2c0"),
+        (77, 128, 32, "bd46407abf8f570a539cc38a47a59e65"
+                       "6ea785e92f59cf817c8e5f206db6c919"),
+        (38, 64, 32, "ce0c41d82ed89db01ecbb5aea9a9fc38"
+                       "0d251db259ec517ba6f47b5a1b4b2b83"),
+        (29, 48, 32, "3812cff5865811ae7bf1c7374e8720d1"
+                       "eb6b05150a5109960f7490870791b468"),
+        (19, 32, 32, "3fb50f6f8ac38274650a7f0232545e2c"
+                       "c95481af2aac878b1985d501402c545f"),
+        (14, 24, 32, "f36b54f345d8747225f3669323b598c3"
+                       "ecd5b679ff2b65caa2d665bc3f8f7afe"),
+        (10, 16, 32, "59595ff11c95919aff945488c57cc7b7"
+                       "afea48b6a4f98e55c3ec10edc9421c8a"),
+    ),
+    "zoom2x_1 RGB with coloured lines": (
+        (153, 256, 32, "a04221925f4aa9319961ad2f09e0010d"
+                       "e7c0bb5a3666cb0f858123f84722a091"),
+        (77, 128, 32, "a6f6c53f6691ad08ca95792e3dea8593"
+                       "7fdc6969faf01a2bd323442dce205bc7"),
+        (38, 64, 32, "50b77674b914e611ece0888f05930fbb"
+                       "e4cf8746c97037f9dd709655186bae78"),
+        (29, 48, 32, "923238eefcfaa9ddbe61a9436addf5f2"
+                       "d57309b05f480411a969d1da8e49d3e7"),
+        (19, 32, 32, "49903d50dc67277102fbfcf6567deda8"
+                       "00f8a09d46597d7d42c3291539a8d28e"),
+        (14, 24, 32, "dbff4fc9f66993a88d4db3d21f726684"
+                       "27964867c9e2a29e0425dcc6b61f215a"),
+        (10, 16, 32, "a29d47dad9a200fb993924de549aa9ea"
+                       "4e9c6b07b4225d5c863fdd1a6df34d9b"),
+    ),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        (153, 256, 32, "5957a54526426c19e638e229ef57ab93"
+                       "3d6b28f451e07ac18ddc00885f37c5ad"),
+        (77, 128, 32, "62f775aeb889dcb9f3e21f0372a28b3e"
+                       "5881ea73a7cabebce8112a07380e2263"),
+        (38, 64, 32, "04d67a0cd9e678552cffe0933cc9b12b"
+                       "30e8a5927fb0756ce204d435b915c396"),
+        (29, 48, 32, "1b351699f57b8a3e5f0c9175b971a0fc"
+                       "6f69087e24a392ea231039955a598d1d"),
+        (19, 32, 32, "971d787c067089c4f5cab247fe2fa12c"
+                       "1e89543687df559213291a3b7f94a20b"),
+        (14, 24, 32, "e850c3f200518b6eae90fa21627072fa"
+                       "85dbc9cfb891b8dfdd43ec0a52faa0f0"),
+        (10, 16, 32, "b99bf3b08fc8ef7fc22ae4b2b5987eac"
+                       "abfaa327233e3df2f952d49f54ec37db"),
+    ),
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": (
+        (153, 256, 32, "633d3891e704873c91972d405e508a0c"
+                       "e102a1ef410ac518fc2a4ef0a004afa4"),
+        (77, 128, 32, "3876797d20a86c67ce1cc3316d6ea222"
+                       "483080309e783cd1ddb846009743bb35"),
+        (38, 64, 32, "25ce19578c66da6202ca8f1a9a8f01b3"
+                       "a499eb7a3a5994aa1eb0a59b086432f9"),
+        (29, 48, 32, "e5d3a88f258f3ec78fef0272787982e8"
+                       "f70ec5b429a592061cdc064eef9f2ac1"),
+        (19, 32, 32, "5690546aad4fdc4cf23c8d7dfadea8c4"
+                       "ad8e4ed7d52000f8e1a0d2f90d79161d"),
+        (14, 24, 32, "99fab67c62c55af83d67a13e3f972f8b"
+                       "a2a3aaac280513ec055958a4cfea693c"),
+        (10, 16, 32, "802f7e4e36cb0b1c22f14af6b0326c5c"
+                       "86a182d03d38ae3119583e531ac7048b"),
+    ),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+        (153, 256, 32, "e37f34d293ddd61f3501318eaad6b4b8"
+                       "d217ef1990964d4cafb665885f5917b0"),
+        (77, 128, 32, "830c490ac10b0288253f030932194f79"
+                       "3092ad7d3e246df8bc90ba450f9ce53f"),
+        (38, 64, 32, "ed7307991ff5743a289d160c0f5bbe53"
+                       "db8429dc94d1f59663899dd3ccc97fb1"),
+        (29, 48, 32, "170c62852030ecccd409478a6c06b2b6"
+                       "c21d7a0f744182ad65aaf75183a45cb9"),
+        (19, 32, 32, "c4b2bc5213f1fb8d889c166db1eb4cdb"
+                       "039a841581406e199896110f628195ab"),
+        (14, 24, 32, "7aca0b2a0e3cdcfc5fff6cb5a40bb0b6"
+                       "f7a8af6f6fd3fe15044682e877f8a583"),
+        (10, 16, 32, "8d144070e416a4041f777ae9fd86b7fc"
+                       "24cfab3f01c49dc94478555ac1ef41fc"),
+    ),
+    "a 12-row strip of the RGB canvas": (),
+    "zoom2x_1 1": (
+        (153, 256, 32, "ac213f85f9d6864bf716656f518db4bd"
+                       "2210984b4e771f88f07013ed0456976c"),
+        (77, 128, 32, "a66d5f8cabdb8849a920c5187784279a"
+                       "ae90ec8488a3acfa2b8b9abd69ff14b8"),
+        (38, 64, 32, "0bebc2044da1d76eb1ad583bf562bb4b"
+                       "80b460656ef428b73d81619eda360c00"),
+        (29, 48, 32, "1439d1310f218f681a747845457f5b69"
+                       "7bc92fd551868803f1d804eaa2a06c09"),
+        (19, 32, 32, "7f6d6b0d7abc5310a949216ff9180bf9"
+                       "76d973f54230a0aaff3fa906d06cebd4"),
+        (14, 24, 32, "bc4b517e7d6eb2751ceb8bce2be94493"
+                       "54056dc3bf7846b1872c1252aa59b524"),
+        (10, 16, 32, "c28ec34ca251c0d3a19f017bda6e0450"
+                       "dbfcf81efa1f46da134bee3ceff0fbb6"),
+    ),
+    "zoom2x_1, zoom2x_2 LA": (
+        (153, 256, 32, "769c4ec3b52596e2e43acbf48129ad88"
+                       "557c120d8f98702d1272ea40fbb74864"),
+        (77, 128, 32, "bf56f5aafc3cdd71c04dd4e8d3d25214"
+                       "75743ad53536f736578aef41541fe360"),
+        (38, 64, 32, "6e78c0f85952461bb44e3c9263e184e2"
+                       "97dc90872bae5f79f498e85eaf3d8564"),
+        (29, 48, 32, "f9e03a24657eefa70035b84f9ebc3a3a"
+                       "b8b748a29c91a631f37cc19cd0ead747"),
+        (19, 32, 32, "e7e2e1a5a2e8ce7cdbcb60e1f8bd8103"
+                       "5cf26a8074b9bba59cc80669793a7211"),
+        (14, 24, 32, "a2df76c4f6debe76bac37a6f330183df"
+                       "56e4a018d1e6941ccce04f72e9ed900b"),
+        (10, 16, 32, "f0ca128cb4dcf610c014ad460db2b076"
+                       "083ebf2d5c1ef70af6dbd2d76a7dabe9"),
+    ),
+    "zoom2x_1 I;16": (
+        (153, 256, 32, "b18358388899e7a5d14d7c8f532f2160"
+                       "79b08160e378e53f09722e8642f8f36e"),
+        (77, 128, 32, "7413ab57376c0a38ff5aa594f45f92cc"
+                       "c3b194ced9e405486954fed87e316fee"),
+        (38, 64, 32, "b6c9420e8e43d3321cef6815b4472735"
+                       "864e5be21c84326fcace48cdd42c8709"),
+        (29, 48, 32, "ff380b99fbf161d07fb5443c5ce90052"
+                       "9041b0c9a0f18ad7a7530d7030e019e2"),
+        (19, 32, 32, "44b0528281eb791b281e22a6bda68dce"
+                       "e1a497f6556f31aec9f02990493b9ad3"),
+        (14, 24, 32, "e9e5e11ad9d6f261395cdcaf4c5a7ae6"
+                       "921da4fb1b3513e8bec9c71a97ed985d"),
+        (10, 16, 32, "47100fdd08f95a765dd44f78436055fd"
+                       "19aeccf13b97d129c110e4925d2dbaae"),
+    ),
+    "zoom2x_1 I": (
+        (153, 256, 32, "fc96300de44e36a7952b03bf9ddeb15a"
+                       "6b8e6a9eaab8df755df63077a16fef54"),
+        (77, 128, 32, "916390b45299224dacfe51ec078bbf14"
+                       "d9e84359a7148f6d491cbe5b578ab756"),
+        (38, 64, 32, "b9f40aa803ef6df50baeddb59319847f"
+                       "fe79a6a8b9e4e6937506743a396d6914"),
+        (29, 48, 32, "10a125ff5265ee50b2431d4afdb6b765"
+                       "92ad2c1b06872d2ec5869ca304a4923a"),
+        (19, 32, 32, "8b4bad667e57a93eed9ee2b0c618150b"
+                       "46e3043f7e74f3e325a9451f46cdec1c"),
+        (14, 24, 32, "0d528f76a8aa919d8b0974b04a35082d"
+                       "eb54470e0fad5b10025565af22ea7ca2"),
+        (10, 16, 32, "f546f023402e593a63e9cb7a3e1c61d5"
+                       "8a23c9fb1dbbbfc8b5e8213ea37f49ce"),
+    ),
+}
+# 14y, the JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# zoom2x's pair as PIL's TGAs, on the CPU: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_ico.py --jax-tga``
+JAX_TGA_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                         gt_consistent=37, corner_error_px=4.04)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -5134,7 +5440,8 @@ def _decode_format_fixtures() -> list:
     from mods_tpu_torch.io.image import _read
     out, failures = {}, []
     for name, (shape, mode, sha) in FORMAT_FIXTURE_SHA256.items():
-        if name in TIFF_VARIANT_FIXTURES + TIFF_CODEC_FIXTURES:
+        if name in TIFF_VARIANT_FIXTURES + TIFF_CODEC_FIXTURES \
+                + RASTER_FIXTURES:              # 14n, 14p and 14w hold these
             continue
         ms = []
         for _ in range(3):
@@ -5522,6 +5829,134 @@ def _encode_j2ks(work: Path) -> list:
     return failures
 
 
+def _decode_rasters() -> list:
+    """14w: each fixture of ``RASTER_FIXTURES`` decoded on the host
+    (``io/raster.py``), its array's shape, mode and SHA-256 against PIL's,
+    the median decode ms of three."""
+    failures = []
+    out = _hold_tiff_fixtures("14w", RASTER_FIXTURES, failures)
+    print(f"[14] w, ICO, CUR, TGA, SGI, PCX and QOI files decoded on the "
+          f"host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def raster_encode_canvases(views: list) -> dict:
+    """14x's canvases: 14l's six (``gif_encode_canvases``), and zoom2x_1
+    as "1" (above 127), as the gray of an "LA" whose alpha is zoom2x_2,
+    as "I;16" (x 257) and as "I" (x 300 - 9000, clipped by PNG)."""
+    import numpy as np
+    z1, z2 = views[0], views[1]
+    out = dict(gif_encode_canvases(views))
+    out.update({"zoom2x_1 1": z1 > 127,
+                "zoom2x_1, zoom2x_2 LA": np.stack([z1, z2], -1),
+                "zoom2x_1 I;16": z1.astype(np.uint16) * 257,
+                "zoom2x_1 I": z1.astype(np.int32) * 300 - 9000})
+    return out
+
+
+def _frame_sha256(a) -> str:
+    import hashlib
+    import numpy as np
+    # a mode "1" array as 0/255 bytes (PIL's own bool arrays hold 255)
+    return hashlib.sha256((a.astype(np.uint8) * 255 if a.dtype == bool
+                           else a).tobytes()).hexdigest()
+
+
+def ico_frames_of(data: bytes, path) -> tuple:
+    """Each ICO entry in PIL's order as (width, height, bit count, the
+    SHA-256 of the frame's array), read by the port; none where the image
+    is too small for a frame."""
+    from mods_tpu_torch.io import raster
+    if data[4:6] == b"\x00\x00":
+        return ()
+    return tuple((e["dim"][0], e["dim"][1], e["bpp"],
+                  _frame_sha256(raster.ico_frame(data, e, path)[0]))
+                 for e in raster.ico_entries(data))
+
+
+def _encode_rasters(work: Path) -> list:
+    """14x: each of ``raster_encode_canvases`` written by ``save_image`` in
+    each format of ``RASTER_ENCODE_SHA256``, the file's SHA-256 against
+    PIL's and read back to the canvas, and as .ico, its entries and
+    frames against PIL's (``ICO_ENCODE_FRAMES``); the median encode ms of
+    three."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    out, failures = {}, []
+    for i, (name, canvas) in enumerate(
+            raster_encode_canvases(views).items()):
+        for ext in list(RASTER_ENCODE_SHA256.get(name, {})) + [".ico"]:
+            p = work / f"canvas_{i}{ext}"
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                save_image(p, canvas)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            r = dict(bytes=p.stat().st_size, encode_ms=statistics.median(ms))
+            if ext == ".ico":
+                r["frames_equal_to_pils"] = ok = ico_frames_of(
+                    p.read_bytes(), p) == ICO_ENCODE_FRAMES[name]
+            else:
+                back = read_image(p)
+                r["sha256_equal_to_pil"] = hashlib.sha256(
+                    p.read_bytes()).hexdigest() == \
+                    RASTER_ENCODE_SHA256[name][ext]
+                r["read_back_equal"] = back.shape == canvas.shape and \
+                    bool(np.array_equal(back, canvas))
+                ok = r["sha256_equal_to_pil"] and r["read_back_equal"]
+            out[f"{name} {ext}"] = r
+            if not ok:
+                failures.append(f"14x {name} {ext}: {r}")
+    print(f"[14] x, ICO, TGA, SGI, PCX and QOI encode on the host: "
+          f"{json.dumps(out)}", flush=True)
+    return failures
+
+
+def _match_tga_pair(held, work: Path) -> list:
+    """14y: zoom2x's pair written as .tga by ``save_image``, then ``cli
+    match`` on it against ``JAX_TGA_REFERENCE`` (``_held_cli_match``,
+    tentatives within 20 %), its drawings named .ico and .tga: the TGA
+    read back to ``viz``'s canvas, the ICO's largest frame to the Lanczos
+    thumbnail of that canvas (by SHA-256)."""
+    import numpy as np
+    from mods_tpu_torch.io import raster
+    from mods_tpu_torch.io.image import read_image, save_image
+    failures, tgas = [], []
+    for i in (1, 2):
+        view = read_image(PAIRS / f"zoom2x_{i}.png")
+        tgas.append(work / f"zoom2x_{i}.tga")
+        save_image(tgas[-1], view)
+        if not np.array_equal(read_image(tgas[-1]), view):
+            failures.append(f"14y {tgas[-1].name} is not the view")
+    res, fails, drawings = _held_cli_match(
+        held, work, "zoom2x TGA", tgas, (work / "o1.ico", work / "o2.tga"),
+        JAX_TGA_REFERENCE)
+    failures += fails
+    ref = JAX_TGA_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14y: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        if path.suffix == ".ico":
+            h, w = want.shape[:2]
+            size = raster.thumbnail_size(w, h, (256, 256)) or (w, h)
+            frame = read_image(path)
+            ok = _frame_sha256(frame) == _frame_sha256(
+                raster.resize_lanczos(want, "RGB", size))
+        else:
+            got = read_image(path)
+            ok = got.shape == want.shape and bool(np.array_equal(got, want))
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14y {path.name} is not viz's drawing")
+    print(f"[14] y, cli match on the TGA pair, .ico and .tga drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _encode_jpegs() -> list:
     """14f: zoom2x_1 as L, and zoom2x_1, zoom2x_2 and tilt4_1 as the R,
     G and B of one canvas, each encoded by ``csrc/jpeg_encode.cpp``: the
@@ -5859,9 +6294,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14v), on the card machine without PIL.  Raises with
+    """Phase 14 (14a-14y), on the card machine without PIL.  Raises with
     every failure of its parts; returns each kernel's launches in 14c, 14g,
-    14k, 14m, 14o, 14q, 14s and 14u."""
+    14k, 14m, 14o, 14q, 14s, 14u and 14y."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -5895,6 +6330,10 @@ def _drive_phase14(wrappers: dict) -> dict:
         failures += _decode_j2k(Path(d))
         failures += _match_j2k_pair(held, Path(d))
         failures += _encode_j2ks(Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_rasters()
+        failures += _encode_rasters(Path(d))
+        failures += _match_tga_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -6080,8 +6519,8 @@ def main() -> int:
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
-          f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF and JPEG 2000 "
-          f"pairs' commands: "
+          f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000 "
+          f"and TGA pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

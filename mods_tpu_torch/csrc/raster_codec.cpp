@@ -1,0 +1,391 @@
+// The byte loops of the TGA, SGI, PCX and QOI files that io/raster.py reads
+// and writes as Pillow 12.1.0 does, bound with ctypes:
+//   - mods_tga_rle_decode: libImaging/TgaRleDecode.c.  A packet's header
+//     byte holds a count of 1-128 pixels of `depth` bytes: a run (high bit
+//     set) repeats one pixel and must end inside its row, else the decode
+//     fails; a literal copies its pixels and may run on into the next
+//     rows.  Rows are written in file order.
+//   - mods_sgi_rle_decode: libImaging/SgiRleDecode.c on the file after its
+//     512-byte header: the start and length tables (big-endian, one entry
+//     for each row of each band), then each row of each band expanded
+//     (expandrow, expandrow2 for 2 bytes a sample: a count byte, the high
+//     bit for a copy, 0 to end the row) into one row buffer kept from row
+//     to row; the first row read is the image's last.  A count that runs
+//     past the row or the file fails the decode; the last byte of a row's
+//     length being anything but an end stops it, the rows after it left 0.
+//   - mods_pcx_decode: libImaging/PcxDecode.c: a byte of 0xC0 and above is
+//     a run of its low six bits' count of the next byte; a line's bytes
+//     (planes x stride) moved to planes `xsize` apart where the stride is
+//     not a multiple of the width (its memmove); a run past the line fails.
+//   - mods_pcx_encode: libImaging/PcxEncode.c: each plane of each line
+//     coded alone, runs of at most 63, a single byte below 0xC0 written
+//     as itself, each plane padded to an even stride with zeros.
+//   - mods_qoi_encode / mods_qoi_decode: QoiImagePlugin's QoiEncoder and
+//     QoiDecoder (the index of 64 seen pixels starts with transparent
+//     black in the encoder and empty in the decoder, runs of at most 62).
+//
+// Every function returns 0 (or the output's length), -1 where Pillow's
+// decoder reports an overrun or a malformed file, or -2 where the data
+// ends before the image does.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+extern "C" int mods_tga_rle_decode(const uint8_t *data, int64_t n, int depth,
+                                   int row_bytes, int rows, uint8_t *out) {
+  int64_t pos = 0;
+  int x = 0, y = 0;
+  std::vector<uint8_t> buffer(row_bytes);
+  while (true) {
+    if (pos >= n) return -2;
+    int count = depth * ((data[pos] & 0x7f) + 1);
+    int extra = 0;
+    if (data[pos] & 0x80) {
+      if (n - pos < 1 + depth) return -2;
+      if (x + count > row_bytes) return -1;
+      for (int i = 0; i < count; i += depth)
+        memcpy(&buffer[x + i], data + pos + 1, depth);
+      pos += 1 + depth;
+    } else {
+      if (n - pos < 1 + count) return -2;
+      if (x + count > row_bytes) {
+        extra = count - (row_bytes - x);
+        count = row_bytes - x;
+      }
+      memcpy(&buffer[x], data + pos + 1, count);
+      pos += 1 + count;
+    }
+    while (true) {
+      x += count;
+      if (x >= row_bytes) {
+        memcpy(out + (int64_t)y * row_bytes, buffer.data(), row_bytes);
+        x = 0;
+        if (++y >= rows) return 0;
+      }
+      if (extra == 0 || x > 0) break;
+      count = extra >= row_bytes ? row_bytes : extra;
+      memcpy(&buffer[x], data + pos, count);
+      pos += count;
+      extra -= count;
+    }
+  }
+}
+
+namespace {
+
+int expandrow(uint8_t *dest, const uint8_t *src, int n, int z, int xsize,
+              const uint8_t *end) {
+  int x = 0;
+  for (; n > 0; n--) {
+    if (src > end) return -1;
+    uint8_t pixel = *src++;
+    if (n == 1 && pixel != 0) return n;
+    uint8_t count = pixel & 0x7f;
+    if (!count) return count;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (src + count > end) return -1;
+      while (count--) {
+        *dest = *src++;
+        dest += z;
+      }
+    } else {
+      if (src > end) return -1;
+      pixel = *src++;
+      while (count--) {
+        *dest = pixel;
+        dest += z;
+      }
+    }
+  }
+  return 0;
+}
+
+int expandrow2(uint8_t *dest, const uint8_t *src, int n, int z, int xsize,
+               const uint8_t *end) {
+  int x = 0;
+  for (; n > 0; n--) {
+    if (src + 1 > end) return -1;
+    uint8_t pixel = src[1];
+    src += 2;
+    if (n == 1 && pixel != 0) return n;
+    uint8_t count = pixel & 0x7f;
+    if (!count) return count;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (src + 2 * count > end) return -1;
+      while (count--) {
+        memcpy(dest, src, 2);
+        src += 2;
+        dest += z * 2;
+      }
+    } else {
+      if (src + 2 > end) return -1;
+      while (count--) {
+        memcpy(dest, src, 2);
+        dest += z * 2;
+      }
+      src += 2;
+    }
+  }
+  return 0;
+}
+
+uint32_t be32(const uint8_t *p) {
+  return (uint32_t)p[0] << 24 | (uint32_t)p[1] << 16 | (uint32_t)p[2] << 8 |
+         p[3];
+}
+
+}  // namespace
+
+// `ptr` is the file after its header: `bufsize` bytes.  `out` holds
+// ysize rows of xsize * bands * bpc bytes, top row first.
+extern "C" int mods_sgi_rle_decode(const uint8_t *ptr, int64_t bufsize,
+                                   int bands, int xsize, int ysize, int bpc,
+                                   uint8_t *out) {
+  const int64_t tablen = (int64_t)bands * ysize;
+  if (bufsize < 8 * tablen) return -1;
+  const int64_t row = (int64_t)xsize * bands * bpc;
+  std::vector<uint8_t> buffer(row, 0);
+  const uint8_t *end = ptr + bufsize - 1;
+  for (int rowno = 0; rowno < ysize; rowno++) {
+    for (int ch = 0; ch < bands; ch++) {
+      int64_t t = rowno + (int64_t)ch * ysize;
+      uint32_t offset = be32(ptr + 4 * t);
+      uint32_t length = be32(ptr + 4 * (tablen + t));
+      if (offset < 512) return -1;
+      offset -= 512;
+      if ((int64_t)(uint32_t)(offset + length) > bufsize) return -1;
+      int status = bpc == 1
+          ? expandrow(&buffer[ch], ptr + offset, (int)length, bands, xsize, end)
+          : expandrow2(&buffer[ch * 2], ptr + offset, (int)length, bands,
+                       xsize, end);
+      if (status == -1) return -1;
+      if (status == 1) return 0;
+    }
+    memcpy(out + (int64_t)(ysize - 1 - rowno) * row, buffer.data(), row);
+  }
+  return 0;
+}
+
+// `bytes` is the line's length (planes x stride), `bits` the unpacker's
+// bits a pixel; `out` holds ysize lines of `bytes` bytes.
+extern "C" int mods_pcx_decode(const uint8_t *data, int64_t n, int bytes,
+                               int xsize, int bits, int ysize, uint8_t *out) {
+  if (((int64_t)xsize * bits + 7) / 8 > bytes) return -1;
+  std::vector<uint8_t> buffer(bytes);
+  int64_t pos = 0;
+  int x = 0, y = 0;
+  bool overrun = false;
+  while (true) {
+    if (pos >= n) return -2;
+    if ((data[pos] & 0xC0) == 0xC0) {
+      if (n - pos < 2) return -2;
+      int k = data[pos] & 0x3F;
+      while (k > 0) {
+        if (x >= bytes) {
+          overrun = true;
+          break;
+        }
+        buffer[x++] = data[pos + 1];
+        k--;
+      }
+      pos += 2;
+    } else {
+      buffer[x++] = data[pos++];
+    }
+    if (x >= bytes) {
+      if (bytes % xsize && bytes > xsize) {
+        int bands = bytes / xsize;
+        int stride = bytes / bands;
+        for (int i = 1; i < bands; i++)
+          memmove(&buffer[(int64_t)i * xsize], &buffer[(int64_t)i * stride],
+                  xsize);
+      }
+      memcpy(out + (int64_t)y * bytes, buffer.data(), bytes);
+      x = 0;
+      if (++y >= ysize) return overrun ? -1 : 0;
+    }
+  }
+}
+
+// `rows` holds ysize lines of planes x ((xsize * bpp + 7) / 8) bytes, as
+// Pillow's packer gives them ("1", "L" or "RGB;L"); `bits` is 1, 8 or 24.
+extern "C" int64_t mods_pcx_encode(const uint8_t *rows, int xsize, int ysize,
+                                   int bits, uint8_t *out) {
+  int planes = 1, bpp = bits;
+  if (bits == 24) {
+    planes = 3;
+    bpp = 8;
+  }
+  const int per_line = (xsize * bpp + 7) / 8;
+  const int padding = per_line % 2;
+  uint8_t *ptr = out;
+  auto flush = [&](int count, int last) {
+    if (count == 1 && last < 0xC0) {
+      *ptr++ = last;
+    } else if (count > 0) {
+      *ptr++ = 0xC0 | count;
+      *ptr++ = last;
+    }
+  };
+  for (int y = 0; y < ysize; y++) {
+    const uint8_t *line = rows + (int64_t)y * planes * per_line;
+    int x = 1, count = 1, last = line[0];
+    do {
+      while (x % per_line) {
+        if (count == 63) {
+          *ptr++ = 0xC0 | count;
+          *ptr++ = last;
+          count = 0;
+        }
+        int cur = line[x];
+        if (cur == last) {
+          x++;
+          count++;
+        } else {
+          flush(count, last);
+          last = cur;
+          count = 1;
+          x++;
+        }
+      }
+      flush(count, last);
+      for (int i = 0; i < padding; i++) *ptr++ = 0;
+      if (x < planes * per_line) {
+        count = 1;
+        last = line[x];
+        x++;
+      }
+    } while (x < planes * per_line);
+  }
+  return ptr - out;
+}
+
+namespace {
+
+inline int qoi_hash(const uint8_t *p) {
+  return (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64;
+}
+
+inline int delta(int left, int right) {
+  int r = (left - right) & 255;
+  return r >= 128 ? r - 256 : r;
+}
+
+}  // namespace
+
+// `pixels` holds npx pixels of `channels` (3 or 4) bytes; `out` needs at
+// most npx * 5 + 8 bytes.
+extern "C" int64_t mods_qoi_encode(const uint8_t *pixels, int64_t npx,
+                                   int channels, uint8_t *out) {
+  uint8_t seen[64][4];
+  bool known[64] = {true};
+  memset(seen, 0, sizeof seen);
+  uint8_t prev[4] = {0, 0, 0, 255};
+  uint8_t *ptr = out;
+  int run = 0;
+  for (int64_t i = 0; i < npx; i++) {
+    uint8_t px[4] = {0, 0, 0, 255};
+    memcpy(px, pixels + i * channels, channels);
+    if (!memcmp(px, prev, 4)) {
+      if (++run == 62) {
+        *ptr++ = 0xC0 | (run - 1);
+        run = 0;
+      }
+    } else {
+      if (run) {
+        *ptr++ = 0xC0 | (run - 1);
+        run = 0;
+      }
+      int h = qoi_hash(px);
+      if (known[h] && !memcmp(seen[h], px, 4)) {
+        *ptr++ = h;
+      } else {
+        memcpy(seen[h], px, 4);
+        known[h] = true;
+        if (prev[3] == px[3]) {
+          int dr = delta(px[0], prev[0]), dg = delta(px[1], prev[1]),
+              db = delta(px[2], prev[2]);
+          if (-2 <= dr && dr < 2 && -2 <= dg && dg < 2 && -2 <= db && db < 2) {
+            *ptr++ = 0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2);
+          } else {
+            int dgr = delta(dr, dg), dgb = delta(db, dg);
+            if (-8 <= dgr && dgr < 8 && -32 <= dg && dg < 32 && -8 <= dgb &&
+                dgb < 8) {
+              *ptr++ = 0x80 | (dg + 32);
+              *ptr++ = (dgr + 8) << 4 | (dgb + 8);
+            } else {
+              *ptr++ = 0xFE;
+              memcpy(ptr, px, 3);
+              ptr += 3;
+            }
+          }
+        } else {
+          *ptr++ = 0xFF;
+          memcpy(ptr, px, 4);
+          ptr += 4;
+        }
+      }
+    }
+    memcpy(prev, px, 4);
+  }
+  if (run) *ptr++ = 0xC0 | (run - 1);
+  static const uint8_t padding[8] = {0, 0, 0, 0, 0, 0, 0, 1};
+  memcpy(ptr, padding, 8);
+  return ptr + 8 - out;
+}
+
+// `data` is the file after its 14-byte header; `out` holds npx pixels of
+// `channels` bytes.
+extern "C" int mods_qoi_decode(const uint8_t *data, int64_t n, int64_t npx,
+                               int channels, uint8_t *out) {
+  uint8_t seen[64][4];
+  memset(seen, 0, sizeof seen);
+  uint8_t prev[4] = {0, 0, 0, 255};
+  int64_t pos = 0, i = 0;
+  auto emit = [&](const uint8_t *v, int64_t times) {
+    for (; times > 0 && i < npx; times--, i++)
+      memcpy(out + i * channels, v, channels);
+  };
+  while (i < npx) {
+    if (pos >= n) return -2;
+    uint8_t b = data[pos++];
+    uint8_t v[4];
+    if (b == 0xFE) {
+      if (n - pos < 3) return -2;
+      memcpy(v, data + pos, 3);
+      v[3] = prev[3];
+      pos += 3;
+    } else if (b == 0xFF) {
+      if (n - pos < 4) return -2;
+      memcpy(v, data + pos, 4);
+      pos += 4;
+    } else if (b >> 6 == 0) {
+      memcpy(v, seen[b & 63], 4);
+    } else if (b >> 6 == 1) {
+      v[0] = prev[0] + ((b >> 4) & 3) - 2;
+      v[1] = prev[1] + ((b >> 2) & 3) - 2;
+      v[2] = prev[2] + (b & 3) - 2;
+      v[3] = prev[3];
+    } else if (b >> 6 == 2) {
+      if (pos >= n) return -2;
+      uint8_t second = data[pos++];
+      int dg = (b & 63) - 32;
+      v[0] = prev[0] + dg + ((second >> 4) - 8);
+      v[1] = prev[1] + dg;
+      v[2] = prev[2] + dg + ((second & 15) - 8);
+      v[3] = prev[3];
+    } else {
+      emit(prev, (b & 63) + 1);
+      continue;
+    }
+    memcpy(prev, v, 4);
+    memcpy(seen[qoi_hash(v)], v, 4);
+    emit(v, 1);
+  }
+  return 0;
+}

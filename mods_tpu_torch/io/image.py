@@ -56,9 +56,13 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     and offsets, decoded as OpenJPEG decodes them, then unpacked as
     Pillow's Jpeg2KDecode.c unpacks each tile ("L", "I;16", "LA", "RGB",
     "RGBA", "CMYK", "P" and "PA" from a pclr box, sYCC to RGB); PIL's
-    mode and size from the header as the plugin reads them.
-  Anything else (ICO, PSD, AVIF, ...) raises a ``ValueError`` naming the
-  format, as do the variants the readers leave out (a VP8 inter frame,
+    mode and size from the header as the plugin reads them;
+  - ICO, CUR, TGA, SGI, PCX and QOI as their PIL plugins read them, by
+    ``io/raster.py`` (a TGA, which has no signature, where no other
+    format claims the file, as ``Image.open`` tries TGA last).
+  Anything else that PIL opens (PSD, DDS, ICNS, AVIF, ...) raises a
+  ``ValueError`` naming the format, as do the variants the readers leave
+  out (a VP8 inter frame,
   which PIL refuses too, and the TIFF compressions WebP, JBIG and JPEG
   2000, among them) and the files that PIL refuses (SGILog TIFFs and the
   JPEG 2000 files that OpenJPEG or Pillow fail on among them, with PIL's
@@ -89,12 +93,18 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   (``csrc/j2k_encode.cpp``: one tile, one lossless layer, the 5/3
   wavelet, no component transform): gray, gray+alpha, RGB, RGBA and
   uint16 at 16 bits; a path that ends in ".j2k" (case and all, as
-  Pillow tests it) is written as a codestream, every other as JP2, and
-  bool, int32 and float raise as PIL refuses them.  int8 arrays are
-  PIL's unsigned "I;8" and uint32 arrays its "I;32", their bits as
-  int32, in every format that writes "I".  Every other extension
-  (``.ico``, ...) and every array that PIL refuses to write in that
-  format raise a ``ValueError`` naming them.
+  Pillow tests it) is written as a codestream, every other (``.jp2``,
+  ``.j2c``, ``.jpc``, ``.jpf``, ``.jpx``) as JP2, and bool, int32 and
+  float raise as PIL refuses them; ``.mpo`` as ``.jpg`` (PIL's MPO save
+  of one frame is its JPEG save); ``.ico`` (PIL's frames of each default
+  size, Lanczos thumbnails, as PNG), ``.tga``/``.icb``/``.vda``/
+  ``.vst``, ``.sgi``/``.bw``/``.rgb``/``.rgba``, ``.pcx`` and ``.qoi`` by
+  ``io/raster.py``, PIL's bytes (an ICO's frames, not its PNG bytes).
+  int8 arrays are PIL's unsigned "I;8" and uint32 arrays its "I;32",
+  their bits as int32, in every format that writes "I".  Every other
+  extension that PIL writes (``.im``, ``.msp``, ...) and every array
+  that PIL refuses to write in that format raise a ``ValueError`` naming
+  them.
 * ``adaptive_palette(array)``: the indices and the palette of
   ``Image.fromarray(array).convert("P", palette=Image.Palette.ADAPTIVE)``
   (Pillow's median cut for gray and RGB, its fast octree for RGBA).
@@ -110,7 +120,7 @@ import struct
 
 import numpy as np
 
-from mods_tpu_torch.io import png, tiff
+from mods_tpu_torch.io import png, raster, tiff
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
@@ -121,16 +131,30 @@ GIF_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "gif_encode.cpp")
 J2K_SOURCE = os.path.join(_PKG, "csrc", "j2k_decode.cpp")
 J2K_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "j2k_encode.cpp")
 
-# magic bytes of formats that PIL opens and this module does not
-_OTHER_FORMATS = ((b"\x00\x00\x01\x00", "ICO"), (b"8BPS", "PSD"),
-                  (b"qoif", "QOI"),
-                  (b"DDS ", "DDS"), (b"icns", "ICNS"),
-                  (b"\x0a", "PCX"), (b"#?RADIANCE", "HDR"))
+# magic bytes of formats that PIL 12.1.0 opens and this module does not
+_OTHER_FORMATS = ((b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
+                  (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"DanM", "MSP"),
+                  (b"LinS", "MSP"), (b"\x59\xa6\x6a\x95", "SUN"),
+                  (b"#define", "XBM"), (b"/* XPM */", "XPM"),
+                  (b"Image type:", "IM"), (b"SIMPLE", "FITS"),
+                  (b"FTEX", "FTEX"), (b"\x80\xe8\x00\x00", "PIXAR"),
+                  (b"\x00\x00\x01\xb3", "MPEG"), (b"%!PS", "EPS"),
+                  (b"\xc5\xd0\xd3\xc6", "EPS"),
+                  (b"\xb1\x68\xde\x3a", "DCX"),
+                  (b"\x89HDF\r\n\x1a\n", "HDF5"), (b"BUFR", "BUFR"),
+                  (b"ZCZC", "BUFR"), (b"GRIB", "GRIB"),
+                  (b"\xd7\xcd\xc6\x9a\x00\x00", "WMF"))
 # the major brands of an ftyp box that AvifImagePlugin._accept takes
 _AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
+_READ_NAMES = ("PNG, JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP, JPEG 2000, "
+               "ICO, CUR, TGA, SGI, PCX and QOI")
 
 
-def _format(head: bytes, path) -> str:
+def _format(data: bytes, path) -> str:
+    """The format of the file ``data`` as ``Image.open`` finds it: by its
+    magic bytes, and where a plugin passes the file on, TGA (which has
+    none, and which PIL tries last)."""
+    head = data[:16]
     if head.startswith(png._SIGNATURE):
         return "PNG"
     if head.startswith(b"\xff\xd8\xff"):
@@ -151,14 +175,43 @@ def _format(head: bytes, path) -> str:
     name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
     if head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS:
         name = "AVIF"
+    if head.startswith(b"\x01\x00\x00\x00") and data[40:44] == b" EMF":
+        name = "WMF"
     if name:
-        raise ValueError(f"{path}: {name} images are not supported (PNG, "
-                         f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP and "
-                         f"JPEG 2000 are)")
+        raise ValueError(f"{path}: {name} images are not supported "
+                         f"({_READ_NAMES} are)")
+    if head.startswith(b"#?RADIANCE"):
+        raise ValueError(f"{path}: HDR images are not supported (PIL 12.1.0 "
+                         f"does not open them either)")
     if len(head) >= 4 and _u32(head, 0) in _BMP_HEADER_SIZES:
         return "DIB"
-    raise ValueError(f"{path}: not an image format this reader knows (PNG, "
-                     f"JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP, JPEG 2000)")
+    # the plugins that accept what can also be a TGA header, in PIL's
+    # order; a file that one fails as PIL's passes it on goes on to TGA
+    probes = (
+        ("CUR", head.startswith(b"\x00\x00\x02\x00"), raster.cur_entry),
+        ("PCX", head[:1] == b"\x0a" and head[1:2] in (b"\x00", b"\x02",
+                                                      b"\x03", b"\x05"),
+         lambda d: raster.pcx_header(d, path)),
+        # IcoImageFile._open loads the frame
+        ("ICO", head.startswith(b"\x00\x00\x01\x00"),
+         lambda d: raster.read_ico(d, path)),
+        ("QOI", head.startswith(b"qoif"), raster.qoi_header),
+        ("SGI", head.startswith(b"\x01\xda"),
+         lambda d: raster.sgi_header(d, path)))
+    for fmt, accepted, probe in probes:
+        if accepted:
+            try:
+                probe(data)
+                return fmt
+            except raster.NotThisFormat:
+                pass
+    try:
+        raster.tga_header(data)
+        return "TGA"
+    except raster.NotThisFormat:
+        pass
+    raise ValueError(f"{path}: not an image format this reader knows "
+                     f"({_READ_NAMES})")
 
 
 def _array_mode(a: np.ndarray) -> str:
@@ -176,7 +229,9 @@ def _read(path) -> tuple[np.ndarray, str]:
     """``np.asarray(Image.open(path))`` and ``Image.open(path).mode``."""
     with open(path, "rb") as f:
         data = f.read()
-    fmt = _format(data[:16], path)
+    fmt = _format(data, path)
+    if fmt in _RASTER_READERS:
+        return _RASTER_READERS[fmt](data, path)
     if fmt == "PNG":
         a = png.read_png(path)
         palette = data[25:26] == b"\x03"           # IHDR colour type 3
@@ -202,16 +257,32 @@ def _read(path) -> tuple[np.ndarray, str]:
     return a, _array_mode(a)
 
 
+_RASTER_READERS = {"ICO": raster.read_ico, "CUR": raster.read_cur,
+                   "TGA": raster.read_tga, "SGI": raster.read_sgi,
+                   "PCX": raster.read_pcx, "QOI": raster.read_qoi}
+
+
 def read_image(path) -> np.ndarray:
     """``np.asarray(Image.open(path))`` (module docstring)."""
     return _read(path)[0]
 
 
 def image_size(path) -> tuple[int, int]:
-    """``Image.open(path).size``: (width, height) from the header."""
+    """``Image.open(path).size``: (width, height) from the header (an
+    icon's or a cursor's from the frame that ``Image.open`` loads)."""
     with open(path, "rb") as f:
-        data = f.read(1 << 16)
-    fmt = _format(data[:16], path)
+        data = f.read()
+    fmt = _format(data, path)
+    if fmt in ("ICO", "CUR"):
+        return _RASTER_READERS[fmt](data, path)[0].shape[1::-1]
+    if fmt == "TGA":
+        return raster.tga_header(data)["size"]
+    if fmt == "SGI":
+        return raster.sgi_header(data, path)["size"]
+    if fmt == "PCX":
+        return raster.pcx_header(data, path)["size"]
+    if fmt == "QOI":
+        return raster.qoi_header(data)["size"]
     if fmt == "PNG":
         return png.png_size(path)
     if fmt == "JPEG":
@@ -220,17 +291,13 @@ def image_size(path) -> tuple[int, int]:
         return _bmp_header(data if fmt == "BMP" else _dib_as_bmp(data, path),
                            path)["size"]
     if fmt == "TIFF":
-        with open(path, "rb") as f:
-            return tiff.tiff_size(f.read(), path)
+        return tiff.tiff_size(data, path)
     if fmt == "GIF":
-        with open(path, "rb") as f:
-            return _gif_header(f.read(), path)["size"]
+        return _gif_header(data, path)["size"]
     if fmt == "WEBP":
-        with open(path, "rb") as f:
-            return _webp_info(f.read(), path)[:2]
+        return _webp_info(data, path)[:2]
     if fmt == "JPEG2000":
-        with open(path, "rb") as f:
-            return _j2k_pil_header(f.read(), path)["size"]
+        return _j2k_pil_header(data, path)["size"]
     return _pnm_header(data, path)["size"]
 
 
@@ -485,7 +552,10 @@ def _bmp_rle(data: bytes, at: int, w: int, h: int, rle4: bool) -> bytes:
     return bytes(out[:n])
 
 
-def _read_bmp(data: bytes, path) -> tuple[np.ndarray, str]:
+def _read_bmp(data: bytes, path,
+              raw_alpha: bool = False) -> tuple[np.ndarray, str]:
+    """PIL's BmpImageFile; ``raw_alpha``: 32-bit pixels without bitfields
+    as BGRA (a cursor's DIB at byte 22, CurImagePlugin's case)."""
     hd = _bmp_header(data, path)
     (w, h), bits, comp = hd["size"], hd["bits"], hd["comp"]
     if bits not in (1, 4, 8, 16, 24, 32):
@@ -499,6 +569,8 @@ def _read_bmp(data: bytes, path) -> tuple[np.ndarray, str]:
                              f"{[hex(m) for m in masks]} is not supported")
     elif comp == 0:
         layout = None if bits <= 8 else _BMP_MASKS[(bits, ())]
+        if raw_alpha and bits == 32:
+            layout = (2, 1, 0, 3)
     elif comp in (1, 2):
         if bits != (8 if comp == 1 else 4):
             raise ValueError(f"{path}: an RLE{8 if comp == 1 else 4} BMP "
@@ -996,8 +1068,19 @@ _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".dib": "DIB", ".jpg": "JPEG", ".jpeg": "JPEG",
                  ".jpe": "JPEG", ".jfif": "JPEG", ".tif": "TIFF",
                  ".tiff": "TIFF", ".webp": "WEBP", ".gif": "GIF",
-                 ".j2k": "JPEG2000", ".jp2": "JPEG2000"}
-_NOT_WRITTEN = {".ico": "ICO"}
+                 ".j2k": "JPEG2000", ".jp2": "JPEG2000", ".j2c": "JPEG2000",
+                 ".jpc": "JPEG2000", ".jpf": "JPEG2000", ".jpx": "JPEG2000",
+                 ".mpo": "JPEG", ".ico": "ICO", ".tga": "TGA", ".icb": "TGA",
+                 ".vda": "TGA", ".vst": "TGA", ".sgi": "SGI", ".bw": "SGI",
+                 ".rgb": "SGI", ".rgba": "SGI", ".pcx": "PCX", ".qoi": "QOI"}
+# the extensions of the other formats that PIL 12.1.0 writes here
+_NOT_WRITTEN = {".im": "IM", ".msp": "MSP", ".xbm": "XBM", ".blp": "BLP",
+                ".dds": "DDS", ".icns": "ICNS", ".palm": "PALM",
+                ".pdf": "PDF", ".ps": "EPS", ".eps": "EPS", ".avif": "AVIF",
+                ".avifs": "AVIF"}
+# PIL's stubs: formats it names but cannot save without a handler
+_STUBS = {".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
+          ".wmf": "WMF", ".emf": "WMF"}
 
 
 def _mode(a: np.ndarray) -> str:
@@ -1392,11 +1475,14 @@ def save_image(path, array) -> None:
     ext = os.path.splitext(str(path))[1].lower()
     fmt = _SAVE_FORMATS.get(ext)
     if fmt is None:
+        if ext in _STUBS:
+            raise ValueError(f"{path}: writing {_STUBS[ext]} images is not "
+                             f"supported (PIL cannot write them either: no "
+                             f"save handler is installed)")
         name = _NOT_WRITTEN.get(ext)
         raise ValueError(
-            f"{path}: writing {name} images is not supported (.png, .pbm, "
-            f".pgm, .ppm, .pnm, .pfm, .bmp, .dib, .jpg, .jpeg, .jpe, .jfif, "
-            f".tif, .tiff, .webp, .gif, .j2k and .jp2 are)" if name else
+            f"{path}: writing {name} images is not supported "
+            f"({', '.join(_SAVE_FORMATS)} are)" if name else
             f"{path}: unknown image file extension {ext!r}")
     a = np.asarray(array)
     mode = _mode(a)
@@ -1414,10 +1500,15 @@ def save_image(path, array) -> None:
     try:
         if fmt == "JPEG2000":                  # Jpeg2KImagePlugin._save
             data = _j2k_bytes(a, mode, not str(path).endswith(".j2k"))
+        elif fmt == "SGI":                     # the name goes in the header
+            data = raster.sgi_bytes(a, mode, path)
         else:
             data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "DIB": _dib_bytes,
                     "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes,
-                    "WEBP": _webp_bytes, "GIF": _gif_bytes}[fmt](a, mode)
+                    "WEBP": _webp_bytes, "GIF": _gif_bytes,
+                    "ICO": raster.ico_bytes, "TGA": raster.tga_bytes,
+                    "PCX": raster.pcx_bytes,
+                    "QOI": raster.qoi_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

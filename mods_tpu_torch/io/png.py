@@ -14,7 +14,8 @@ every colour type, bit depth and Adam7 interlacing:
 ``read_png_gray`` converts them to gray with ``ops/image.py::to_gray_np``,
 as the JAX package converts what PIL returns.  Filter types 0-4 are read
 (PNG spec section 9).  ``write_png`` writes bool (1-bit gray), uint8
-gray, gray+alpha, RGB and RGBA and uint16 gray, every row with filter 0.
+gray, gray+alpha, RGB and RGBA and uint16 gray, every row with filter 0
+(``encode_png`` gives its bytes, ``decode_png`` reads bytes).
 ``png_size`` reads the size from the header.  The module needs numpy and
 zlib only: the External plugin's scripts load it from its file.
 """
@@ -118,7 +119,12 @@ def png_size(path) -> tuple[int, int]:
 def read_png(path) -> np.ndarray:
     """The pixels of a PNG as PIL loads them (module docstring)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path) -> np.ndarray:
+    """``read_png`` of a PNG's bytes (anything after IEND is ignored);
+    ``path`` names it in errors."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8
@@ -192,6 +198,12 @@ def write_png(path, array) -> None:
     """Write (H, W) bool as 1-bit gray, (H, W) uint16 as 16-bit gray, or
     (H, W) gray, (H, W, 2) gray+alpha, (H, W, 3) RGB or (H, W, 4) RGBA
     uint8 as 8-bit, every row with filter type 0."""
+    with open(path, "wb") as f:
+        f.write(encode_png(array))
+
+
+def encode_png(array) -> bytes:
+    """The bytes that ``write_png`` writes."""
     a = np.ascontiguousarray(array)
     h, w = a.shape[:2]
     if a.dtype == np.bool_ and a.ndim == 2:
@@ -212,9 +224,8 @@ def write_png(path, array) -> None:
         raise ValueError(f"write_png takes uint8 pixels, (H, W) uint16 or "
                          f"(H, W) bool, not {a.dtype} {a.shape}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
-                                              0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+    return (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0,
+                                          0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))

@@ -291,18 +291,21 @@ def test_read_image_equals_pil(tmp_path, case):
 def test_other_formats_raise_naming_them(tmp_path):
     """TIFF, GIF, PFM and WebP, written by PIL, read as PIL reads them
     (they raised before the port read them); so do the RLE-compressed and
-    the 16-bit BMP.  ICO, written by PIL, and an unknown file raise a
-    ValueError that names the format."""
+    the 16-bit BMP.  PSD, which PIL reads and the port does not, and an
+    unknown file raise a ValueError that names the format."""
     for fmt in ("TIFF", "GIF", "PFM", "WebP"):
         p = tmp_path / f"x.{fmt.lower()}"
         Image.fromarray(GRAY.astype(np.float32) if fmt == "PFM"
                         else RGB if fmt == "WebP" else GRAY).save(p)
         _hold_read(p)
-    p = tmp_path / "x.ico"
-    Image.fromarray(RGB).save(p)
-    with pytest.raises(ValueError, match="ICO"):
+    p = tmp_path / "x.psd"
+    h, w = GRAY.shape            # PSD: gray, 8 bits, no resources, raw
+    p.write_bytes(b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1)
+                  + bytes(14) + GRAY.tobytes())
+    np.testing.assert_array_equal(np.asarray(Image.open(p)), GRAY)
+    with pytest.raises(ValueError, match="PSD"):
         read_image(p)
-    with pytest.raises(ValueError, match="ICO"):
+    with pytest.raises(ValueError, match="PSD"):
         image_size(p)
     p = tmp_path / "x.bin"
     p.write_bytes(b"\x00\x01\x02\x03" * 8)
@@ -603,7 +606,7 @@ def test_save_image_cases_refused_before(tmp_path, name, array):
 
 @pytest.mark.parametrize("name,array,match", [
     ("x.jp2", GRAY.astype(np.float32), "mode F as JPEG 2000"),
-    ("x.ico", RGB, "ICO"),
+    ("x.msp", GRAY > 128, "MSP"),
     ("x.foo", GRAY, "unknown image file extension"),
     ("x.png", GRAY.astype(np.float32), "mode F"),
     ("x.ppm", np.stack([GRAY, GRAY], -1), "mode LA as PPM"),
@@ -628,7 +631,7 @@ def test_save_image_refusals_name_what_they_refuse(tmp_path, name, array,
     with pytest.raises(ValueError, match=match):
         save_image(p, array)
     assert not p.exists()
-    if match != "unknown image file extension" and "ICO" not in match:
+    if match != "unknown image file extension" and "MSP" not in match:
         with pytest.raises((OSError, TypeError, KeyError)):
             Image.fromarray(array).save(tmp_path / f"pil{name[1:]}")
 
