@@ -271,7 +271,24 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    the plan, its figures to ``JAX_TGA_REFERENCE`` by phase 6's rule and
    its tentatives within 20 %, its drawings named .ico (the largest
    frame held to the Lanczos thumbnail of ``viz``'s canvas) and .tga
-   (read back to the canvas).
+   (read back to the canvas); (za) the PSD (raw and PackBits, "1", "P",
+   RGB, RGBA, CMYK, LAB, gray), DCX, FITS (8, 16, 32, -32 bits, GZIP_1),
+   DDS (uncompressed, bit masks, DXT1/3/5, BC4, BC5, BC6H UF16 and SF16,
+   BC7) and ICNS (PNG, RLE with masks, JPEG 2000) files of
+   ``PSD_DDS_ICNS_FIXTURES`` decoded on the host (``io/psd.py``,
+   ``io/raster.py``, ``io/fits.py``, ``io/dds.py`` on
+   ``csrc/bcn_decode.cpp``, ``io/icns.py``), each array's shape, mode and
+   SHA-256 held to PIL's (``FORMAT_FIXTURE_SHA256``), the decode ms
+   printed; (zb) three of 14l's canvases (L, RGB, RGBA) written as .dds
+   (each file's SHA-256 held to PIL's, ``DDS_ENCODE_SHA256``, and read
+   back to the canvas) and as .icns (every entry's type, size and frame
+   held to what PIL reads from its own file, ``ICNS_ENCODE_FRAMES``:
+   Pillow's bicubic by ``csrc/resample.cpp``), the median encode ms of
+   three printed; (zc) ``cli match`` on zoom2x's pair as gray PackBits
+   PSDs (``psd_bytes``): its launches held to the plan, its figures to
+   ``JAX_PSD_REFERENCE`` by phase 6's rule and its tentatives within 20
+   %, its drawings named .dds (read back to the canvas) and .icns (its
+   1024 frame held to the bicubic resize of ``viz``'s canvas).
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1901,15 +1918,16 @@ def _build_native() -> None:
     ``csrc/tiff_decode.cpp``, the Zstandard decoder
     ``csrc/zstd_decode.cpp``, the JPEG 2000 decoder
     ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``, the RLE
-    and QOI codecs ``csrc/raster_codec.cpp`` and the ICO writer's Lanczos
-    resampler ``csrc/resample.cpp`` (g++,
+    and QOI codecs ``csrc/raster_codec.cpp``, the ICO and ICNS writers'
+    Lanczos and bicubic resampler ``csrc/resample.cpp`` and the DDS block
+    decoders ``csrc/bcn_decode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
     import os
     from concurrent.futures import ThreadPoolExecutor
     from mods_tpu_torch.detectors import mser
-    from mods_tpu_torch.io import image, raster, tiff
+    from mods_tpu_torch.io import dds, image, raster, tiff
     from mods_tpu_torch.ops import host_render
     out = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True, timeout=60)
@@ -1919,7 +1937,8 @@ def _build_native() -> None:
     builds = (mser._lib, host_render._lib, image._jpeg_lib,
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
               image._gif_encoder, tiff._lib, tiff._zstd_lib, image._j2k_lib,
-              image._j2k_encoder, raster._codec, raster._resampler)
+              image._j2k_encoder, raster._codec, raster._resampler,
+              dds._bcn_lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
@@ -1928,7 +1947,7 @@ def _build_native() -> None:
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
           f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp, "
           f"j2k_decode.cpp, j2k_encode.cpp, raster_codec.cpp, "
-          f"resample.cpp built into "
+          f"resample.cpp, bcn_decode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -4824,6 +4843,93 @@ FORMAT_FIXTURE_SHA256 = {
     "qoi_rgba.qoi": ((47, 61, 4), "RGBA",
         "0a567198f0d3dbfa025ad8912ce1aba7"
         "2436803dc8f54c4347b20fa2d9bd56c4"),
+    "psd_rgb_raw.psd": ((47, 61, 3), "RGB",
+        "9c38381c45bd393863bb8590f23cfb1d"
+        "be53de86f9cf49cc35eb3b018d006acb"),
+    "psd_rgba_packbits.psd": ((47, 61, 4), "RGBA",
+        "a886540549c5885b190f4f59c3495398"
+        "6ea18a9cfb1051b5c993ee890636bdbd"),
+    "psd_cmyk_packbits.psd": ((47, 61, 4), "CMYK",
+        "fad46f6e5f1e8a22bce4b769f3926b2b"
+        "8c03c86394fbf0228020e9151b2f6937"),
+    "psd_p_raw.psd": ((47, 61), "P",
+        "68721e3a708282ffad1a04e9b7248929"
+        "d0258a2c1133c590e588afac31f75875"),
+    "psd_1_packbits.psd": ((47, 61), "1",
+        "9087afffebd11a7ed9157166b5349a70"
+        "a82f657c705af1b0a2abda1fc6cfc48e"),
+    "psd_lab_raw.psd": ((47, 61, 3), "LAB",
+        "9002703a6de540d98ff6ae0c24092368"
+        "62df50621196f7cda81d15f5a1180c2e"),
+    "psd_gray_packbits.psd": ((47, 61), "L",
+        "60e2fd767fcb65efe50d952ce3fe8c6c"
+        "3bde66c8138978c702700d911ecc15f9"),
+    "dcx_two_pages.dcx": ((47, 61), "L",
+        "37055efb30350e6ce19e8d7d361e8dbe"
+        "76f1abc913cbcc288747e50dfa17ddf4"),
+    "fits_8.fits": ((47, 61), "L",
+        "eff58f4888715fe9f73989a9e1851cf5"
+        "7a23bcd4af0113743767fb01603597d7"),
+    "fits_16.fits": ((47, 61), "I;16",
+        "04bd659d89454f7b9103ce563aa60c77"
+        "33645721a6a9d9a5b65593a45f44326b"),
+    "fits_32.fits": ((47, 61), "I",
+        "a1b4ccd2cdab65534a40050ac9cb3313"
+        "25c29edc5dc9d1dea09b00d227aacaf7"),
+    "fits_f32.fits": ((47, 61), "F",
+        "c65010ca01e02376ca6d55fcf92d8217"
+        "199059490a45b3e8bffb07a707fed2c3"),
+    "fits_gzip16.fits": ((47, 61), "I;16",
+        "f07b5d0d0fda03889b9cefca9372ee8a"
+        "018cf44215fdf02bf76c741b12baa0b6"),
+    "dds_rgb.dds": ((47, 61, 3), "RGB",
+        "e5568dd17512101ca216758d5c40b80a"
+        "74a3a3aaecc49084d6bac742f6ed1b2d"),
+    "dds_rgba.dds": ((47, 61, 4), "RGBA",
+        "a886540549c5885b190f4f59c3495398"
+        "6ea18a9cfb1051b5c993ee890636bdbd"),
+    "dds_la.dds": ((47, 61, 2), "LA",
+        "db46a29c9bd04949a754c3e01fa5f04a"
+        "334789eb97e4bfa2ac8d2f70dac99c2d"),
+    "dds_dxt1.dds": ((47, 61, 4), "RGBA",
+        "7462852f63f6efc9bb857abccdeeeb1d"
+        "719d51f3893dffa02e6bbfcb3eef3894"),
+    "dds_dxt3.dds": ((47, 61, 4), "RGBA",
+        "882d53152e3ccac788e3de85cb346ae2"
+        "2280aa50eb016fc5ea69f3f45a831964"),
+    "dds_dxt5.dds": ((47, 61, 4), "RGBA",
+        "1da76f69ea20e4d44a75041aad56547e"
+        "d6dfe2ac68dabd0876a311c6cba0d778"),
+    "dds_bc5.dds": ((47, 61, 3), "RGB",
+        "6c26491e731bc8e279b6b4de322481e8"
+        "c6ab89c1a0a694a55b2b9f4db130e54c"),
+    "dds_bc4.dds": ((47, 61), "L",
+        "5f4f20da49a8e7aad35cf7629db60f50"
+        "c7ddbd2197e2f73753c9309f68b2d342"),
+    "dds_bc6h_uf16.dds": ((64, 64, 3), "RGB",
+        "8166b73bb34bf7d3dd41c72da8740437"
+        "ab308039f620de7fc2c1714f9709ce9d"),
+    "dds_bc6h_sf16.dds": ((64, 64, 3), "RGB",
+        "4f9ec6ad38fa41b63010a1554ffbb4b8"
+        "725b4c2192ec2afa2f328c67747ef249"),
+    "dds_bc7.dds": ((64, 64, 4), "RGBA",
+        "495574c0474171497e949172e3e5d8be"
+        "5b153159a9e7dfe095657e9d3dfd2ea5"),
+    "dds_rgb565.dds": ((47, 61, 3), "RGB",
+        "1aa3e271d8f00365aa9ca0aeb59dfe2b"
+        "0348edf0dc89c78787dc1fff0a67cc85"),
+    "icns_png.icns": ((64, 64, 4), "RGBA",
+        "8c706a4bdacfdf86c89df661ecef20a0"
+        "b8ef8c56fa394135d31bf272a3d185ad"),
+    "icns_png_rgb.icns": ((32, 32, 3), "RGB",
+        "f96ea2d5d4b6b4766850716e8fcd7d1a"
+        "27195b8334b24ee21b1d3393f78f164b"),
+    "icns_rle.icns": ((48, 48, 4), "RGBA",
+        "80446ff34bb55d1ce58616702c486c81"
+        "fe72db874224e3fa7dbada3884cdaa49"),
+    "icns_j2k.icns": ((32, 32, 4), "RGBA",
+        "c7f63d81a278f125976076b839f2970d"
+        "2221ff6a9a42833068ccc8cfe9a740f0"),
 }
 # 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
 # (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
@@ -5287,6 +5393,97 @@ ICO_ENCODE_FRAMES = {
 # tests/test_torch_ico.py --jax-tga``
 JAX_TGA_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                          gt_consistent=37, corner_error_px=4.04)
+# 14za: the PSD, DCX, FITS, DDS and ICNS files of
+# tests/test_torch_{psd_dcx_fits,dds,icns}.py::fixture_files (built there:
+# PIL writes only the DDS ones), held to the hashes of
+# FORMAT_FIXTURE_SHA256
+PSD_DDS_ICNS_FIXTURES = (
+    "psd_rgb_raw.psd", "psd_rgba_packbits.psd", "psd_cmyk_packbits.psd",
+    "psd_p_raw.psd", "psd_1_packbits.psd", "psd_lab_raw.psd",
+    "psd_gray_packbits.psd", "dcx_two_pages.dcx", "fits_8.fits",
+    "fits_16.fits", "fits_32.fits", "fits_f32.fits", "fits_gzip16.fits",
+    "dds_rgb.dds", "dds_rgba.dds", "dds_la.dds", "dds_dxt1.dds",
+    "dds_dxt3.dds", "dds_dxt5.dds", "dds_bc5.dds", "dds_bc4.dds",
+    "dds_bc6h_uf16.dds", "dds_bc6h_sf16.dds", "dds_bc7.dds",
+    "dds_rgb565.dds", "icns_png.icns", "icns_png_rgb.icns", "icns_rle.icns",
+    "icns_j2k.icns")
+# 14zb: the SHA-256 of PIL 12.1.0's .dds of each of ``dds_icns_canvases``,
+# and each entry of its .icns as PIL reads it (type, width, height, the
+# SHA-256 of the frame), in the file's order
+# (tests/test_torch_icns.py::test_dds_icns_encode_hashes_are_pils computes
+# them with PIL: ``python tests/test_torch_icns.py --hashes``)
+DDS_ENCODE_SHA256 = {
+    "zoom2x_1 L": (
+        "26aefcd92c2549fbd31e13ebe9ce3609"
+        "8d646296e86266284b0fe78d146236a9"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        "04c70cd619cf49690227b4fe42ddb140"
+        "3ff64f17cb76753bb8b5c3c75d76ad99"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+        "a0a6525563c663fab9f7327977ab0562"
+        "4bb5135e195975ee7b9ccaafc366af1b"),
+}
+ICNS_ENCODE_FRAMES = {
+    "zoom2x_1 L": (
+        ("ic07", 128, 128, "6db3aa0ef334bd9eaa8664517a595b87"
+                           "c954b9a579f4b7d8d774da5a19275c6d"),
+        ("ic08", 256, 256, "c736ed299790a81f20e889574e04265e"
+                           "6ec0c510e615b9c1b3d76160ab47ed34"),
+        ("ic09", 512, 512, "813ac8c0d50e71f9cd7909327ffe3d7a"
+                           "1d859c1b5f0f047c83f0f5fed8283d64"),
+        ("ic10", 1024, 1024, "abc2e5461a9fc6717159becad0bdc68f"
+                             "a6492b5057dd075525067b0bed1174d7"),
+        ("ic11", 32, 32, "45e204161410f8e8096c91fb96947df4"
+                         "52554e6bcfec0ca9c694edcebc46e232"),
+        ("ic12", 64, 64, "70342d9850a03ea1b4617e0d212f89c9"
+                         "ec1c4adf8f7603a8e2a587c61bd1fe71"),
+        ("ic13", 256, 256, "c736ed299790a81f20e889574e04265e"
+                           "6ec0c510e615b9c1b3d76160ab47ed34"),
+        ("ic14", 512, 512, "813ac8c0d50e71f9cd7909327ffe3d7a"
+                           "1d859c1b5f0f047c83f0f5fed8283d64"),
+    ),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        ("ic07", 128, 128, "954b316eb1f3b2c13e642b53fbbb9347"
+                           "0cd518bd87cebb6cc528239e66e622dc"),
+        ("ic08", 256, 256, "9bf8f5a9a7f97db01ccda1e0de6d6b78"
+                           "c38dba0956c5d1634ad8631915d39b32"),
+        ("ic09", 512, 512, "b3951d86d4b8216e95f7781f5c86f5e5"
+                           "1f5bd2d46518e8b72392780547626000"),
+        ("ic10", 1024, 1024, "899946515839d9f62ddfcaa57dc77a10"
+                             "25fb60dbcec15262053d11d2f3eb4d47"),
+        ("ic11", 32, 32, "af6033a1adbfba6b0d6033460544a5c1"
+                         "faac2b4c2a4fb5e68f6c1322ff69c12b"),
+        ("ic12", 64, 64, "33c7d0ea91b05ad1e568d9ff35c45505"
+                         "a20473e77d0f7ec257e39ac9bc8d7c6a"),
+        ("ic13", 256, 256, "9bf8f5a9a7f97db01ccda1e0de6d6b78"
+                           "c38dba0956c5d1634ad8631915d39b32"),
+        ("ic14", 512, 512, "b3951d86d4b8216e95f7781f5c86f5e5"
+                           "1f5bd2d46518e8b72392780547626000"),
+    ),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+        ("ic07", 128, 128, "3d51fe01941b857b7fbd081206c35f76"
+                           "6f750e132aafa3dae2f1d74e045f9769"),
+        ("ic08", 256, 256, "cabc67f3ead0ad0b0a377e229194fcf7"
+                           "a8154ec12795093a8e27a5dab244bbc3"),
+        ("ic09", 512, 512, "7e8f70df12873b7e4ca04d21fe9ade42"
+                           "93bbdb049bfc6fc2a4062fe177f787da"),
+        ("ic10", 1024, 1024, "47402992e481ebc844df06cd111772d9"
+                             "05681ac6bb6fe2e26990eb8de6cbaa57"),
+        ("ic11", 32, 32, "85c15d42927189d0675f70d152f49132"
+                         "b3e1dae305e613aaada8925a9ce63f52"),
+        ("ic12", 64, 64, "f4f684c357ab1c8a8c8bfbbf485be3c2"
+                         "37e1361dc905de40f9cdd06946f79a7c"),
+        ("ic13", 256, 256, "cabc67f3ead0ad0b0a377e229194fcf7"
+                           "a8154ec12795093a8e27a5dab244bbc3"),
+        ("ic14", 512, 512, "7e8f70df12873b7e4ca04d21fe9ade42"
+                           "93bbdb049bfc6fc2a4062fe177f787da"),
+    ),
+}
+# 14zc, the JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# zoom2x's pair as gray PackBits PSDs, on the CPU: ``JAX_PLATFORMS=cpu
+# python tests/test_torch_psd_dcx_fits.py --jax-psd``
+JAX_PSD_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                         gt_consistent=37, corner_error_px=4.04)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -5440,8 +5637,9 @@ def _decode_format_fixtures() -> list:
     from mods_tpu_torch.io.image import _read
     out, failures = {}, []
     for name, (shape, mode, sha) in FORMAT_FIXTURE_SHA256.items():
+        # 14n, 14p, 14w and 14za hold these
         if name in TIFF_VARIANT_FIXTURES + TIFF_CODEC_FIXTURES \
-                + RASTER_FIXTURES:              # 14n, 14p and 14w hold these
+                + RASTER_FIXTURES + PSD_DDS_ICNS_FIXTURES:
             continue
         ms = []
         for _ in range(3):
@@ -5459,6 +5657,61 @@ def _decode_format_fixtures() -> list:
     print(f"[14] e, TIFF/GIF/PFM/BMP/CMYK decode on the host: "
           f"{json.dumps(out)}", flush=True)
     return failures
+
+
+def packbits_row(row) -> bytes:
+    """One row in PackBits: each run of 3 or more equal bytes as repeat
+    packets of at most 128, the bytes between them as literal packets of
+    at most 128."""
+    import numpy as np
+    n = len(row)
+    change = np.flatnonzero(np.diff(row) != 0) + 1
+    starts, ends = np.r_[0, change], np.r_[change, n]
+    runs = ends - starts >= 3
+    out, pos = [], 0
+
+    def literal(lo, hi):
+        for k in range(lo, hi, 128):
+            m = min(128, hi - k)
+            out.append(bytes([m - 1]) + row[k:k + m].tobytes())
+    for s, e in zip(starts[runs], ends[runs]):
+        literal(pos, s)
+        for k in range(s, e, 128):
+            m = min(128, e - k)
+            if m >= 2:
+                out.append(bytes([257 - m, int(row[s])]))
+            else:
+                literal(k, k + 1)
+        pos = e
+    literal(pos, n)
+    return b"".join(out)
+
+
+def psd_bytes(planes, colour: int, bits: int = 8, packbits: bool = True,
+              colour_data: bytes = b"", resources: bytes = b"",
+              layers: bytes = b"", width=None) -> bytes:
+    """A Photoshop file of ``planes`` (channels, rows, row bytes) uint8,
+    colour mode ``colour`` (0 bitmap, 1 gray, 2 indexed, 3 RGB, 4 CMYK,
+    7 multichannel, 8 duotone, 9 Lab) at ``bits`` a channel (``width``:
+    the pixel width where it is not the row's bytes, as for bitmaps):
+    its colour mode data, image resources and layer block as given, then
+    the image data raw or in PackBits with its table of row byte counts
+    (what Photoshop writes; PIL reads it, and nothing here writes it)."""
+    import struct
+    import numpy as np
+    planes = np.asarray(planes, np.uint8)
+    c, h, row_bytes = planes.shape
+    head = (b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, width or row_bytes,
+                                  bits, colour)
+            + struct.pack(">I", len(colour_data)) + colour_data
+            + struct.pack(">I", len(resources)) + resources
+            + struct.pack(">I", len(layers)) + layers)
+    if not packbits:
+        return head + b"\x00\x00" + planes.tobytes()
+    rows = [packbits_row(r) for r in planes.reshape(c * h, row_bytes)]
+    return (head + b"\x00\x01" + struct.pack(f">{c * h}H",
+                                               *map(len, rows))
+            + b"".join(rows))
 
 
 def tiff_lzw_file(view) -> bytes:
@@ -5957,6 +6210,122 @@ def _match_tga_pair(held, work: Path) -> list:
     return failures
 
 
+def _decode_psd_dds_icns() -> list:
+    """14za: each fixture of ``PSD_DDS_ICNS_FIXTURES`` decoded on the host
+    (``io/psd.py``, ``io/raster.py``, ``io/fits.py``, ``io/dds.py`` on
+    ``csrc/bcn_decode.cpp``, ``io/icns.py``), its array's shape, mode and
+    SHA-256 against PIL's, the median decode ms of three."""
+    failures = []
+    out = _hold_tiff_fixtures("14za", PSD_DDS_ICNS_FIXTURES, failures)
+    print(f"[14] za, PSD, DCX, FITS, DDS and ICNS files decoded on the host: "
+          f"{json.dumps(out)}", flush=True)
+    return failures
+
+
+def dds_icns_canvases(views: list) -> dict:
+    """14zb's canvases: three of 14l's (``gif_encode_canvases``), the gray
+    zoom2x_1 view, the three views as RGB and as RGBA."""
+    canvases = gif_encode_canvases(views)
+    return {name: canvases[name] for name in (
+        "zoom2x_1 L", "zoom2x_1, zoom2x_2, tilt4_1 RGB",
+        "zoom2x_1, zoom2x_2, tilt4_1 RGBA")}
+
+
+def icns_frames_of(data: bytes, path) -> tuple:
+    """Each ICNS entry but the table of contents, in the file's order, as
+    (type, width, height, the SHA-256 of its PNG's array), read by the
+    port."""
+    from mods_tpu_torch.io import icns, png
+    out = []
+    for code, (start, length) in icns.icns_entries(data, path).items():
+        if code == b"TOC ":
+            continue
+        a = png.decode_png(data[start:start + length], path)
+        out.append((code.decode(), a.shape[1], a.shape[0], _frame_sha256(a)))
+    return tuple(out)
+
+
+def _encode_dds_icns(work: Path) -> list:
+    """14zb: each of ``dds_icns_canvases`` written by ``save_image`` as
+    .dds (the file's SHA-256 against PIL's, read back to the canvas) and
+    as .icns (each entry's size and frame against PIL's,
+    ``ICNS_ENCODE_FRAMES``); the median encode ms of three."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    out, failures = {}, []
+    for name, canvas in dds_icns_canvases(views).items():
+        for ext in (".dds", ".icns"):
+            p = work / f"canvas{ext}"
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                save_image(p, canvas)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            r = dict(bytes=p.stat().st_size, encode_ms=statistics.median(ms))
+            if ext == ".icns":
+                r["frames_equal_to_pils"] = ok = icns_frames_of(
+                    p.read_bytes(), p) == ICNS_ENCODE_FRAMES[name]
+            else:
+                back = read_image(p)
+                r["sha256_equal_to_pil"] = hashlib.sha256(
+                    p.read_bytes()).hexdigest() == DDS_ENCODE_SHA256[name]
+                r["read_back_equal"] = back.shape == canvas.shape and \
+                    bool(np.array_equal(back, canvas))
+                ok = r["sha256_equal_to_pil"] and r["read_back_equal"]
+            out[f"{name} {ext}"] = r
+            if not ok:
+                failures.append(f"14zb {name} {ext}: {r}")
+    print(f"[14] zb, DDS and ICNS encode on the host: {json.dumps(out)}",
+          flush=True)
+    return failures
+
+
+def _match_psd_pair(held, work: Path) -> list:
+    """14zc: zoom2x's pair as gray PackBits PSDs (``psd_bytes``), then
+    ``cli match`` on it against ``JAX_PSD_REFERENCE``
+    (``_held_cli_match``, tentatives within 20 %), its drawings named
+    .dds and .icns: the DDS read back to ``viz``'s canvas, the ICNS's
+    1024 frame (ic10) to the bicubic resize of that canvas (by
+    SHA-256)."""
+    import numpy as np
+    from mods_tpu_torch.io import icns, png, raster
+    from mods_tpu_torch.io.image import read_image
+    failures, psds = [], []
+    for i in (1, 2):
+        view = read_image(PAIRS / f"zoom2x_{i}.png")
+        psds.append(work / f"zoom2x_{i}.psd")
+        psds[-1].write_bytes(psd_bytes(view[None], 1))
+        if not np.array_equal(read_image(psds[-1]), view):
+            failures.append(f"14zc {psds[-1].name} is not the view")
+    res, fails, drawings = _held_cli_match(
+        held, work, "zoom2x PSD", psds, (work / "o1.dds", work / "o2.icns"),
+        JAX_PSD_REFERENCE)
+    failures += fails
+    ref = JAX_PSD_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14zc: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        if path.suffix == ".icns":
+            data = path.read_bytes()
+            start, length = icns.icns_entries(data, path)[b"ic10"]
+            frame = png.decode_png(data[start:start + length], path)
+            ok = _frame_sha256(frame) == _frame_sha256(
+                raster.resize_bicubic(want, "RGB", (1024, 1024)))
+        else:
+            got = read_image(path)
+            ok = got.shape == want.shape and bool(np.array_equal(got, want))
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14zc {path.name} is not viz's drawing")
+    print(f"[14] zc, cli match on the PSD pair, .dds and .icns drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _encode_jpegs() -> list:
     """14f: zoom2x_1 as L, and zoom2x_1, zoom2x_2 and tilt4_1 as the R,
     G and B of one canvas, each encoded by ``csrc/jpeg_encode.cpp``: the
@@ -6294,9 +6663,9 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14y), on the card machine without PIL.  Raises with
-    every failure of its parts; returns each kernel's launches in 14c, 14g,
-    14k, 14m, 14o, 14q, 14s, 14u and 14y."""
+    """Phase 14 (14a-14y, 14za-14zc), on the card machine without PIL.
+    Raises with every failure of its parts; returns each kernel's launches
+    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y and 14zc."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -6334,6 +6703,10 @@ def _drive_phase14(wrappers: dict) -> dict:
         failures += _decode_rasters()
         failures += _encode_rasters(Path(d))
         failures += _match_tga_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_psd_dds_icns()
+        failures += _encode_dds_icns(Path(d))
+        failures += _match_psd_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -6519,8 +6892,8 @@ def main() -> int:
     clock("13")
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
-          f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000 "
-          f"and TGA pairs' commands: "
+          f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000, "
+          f"TGA and PSD pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -689,134 +689,104 @@ void Decoder::decode() {
   }
 }
 
-// jidctint.c, jpeg_idct_islow
+// jidctint.c's "islow" inverse DCT as libjpeg-turbo's SIMD code runs it
+// for PIL (jsimd_idct_islow: jidctint-sse2.asm and its AVX2 twin, which
+// compute alike): the same fixed-point algorithm as jpeg_idct_islow, but
+// on 16-bit lanes.  On valid data the two agree bit for bit; on corrupt
+// data (the huge coefficients of entropy data read with the wrong
+// sampling, say) they part, and PIL's pixels are the SIMD code's:
+//   - each coefficient times its quantizer keeps the low 16 bits (pmullw);
+//   - in0 +- in4, in3 + in7 and in1 + in5 wrap at 16 bits (paddw, psubw);
+//     the products are 32-bit sums of two (pmaddwd);
+//   - the column pass's outputs saturate to int16 (packssdw);
+//   - where every AC coefficient of the block is zero, the column pass is
+//     the DC times its quantizer shifted up PASS1_BITS in 16 bits (psllw);
+//   - the row pass has no shortcut; its outputs saturate to int16, then to
+//     int8 (packsswb), and are offset by 128.
 const int kConstBits = 13, kPass1Bits = 2;
-const long FIX_0_298631336 = 2446, FIX_0_390180644 = 3196,
-           FIX_0_541196100 = 4433, FIX_0_765366865 = 6270,
-           FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
-           FIX_1_501321110 = 12299, FIX_1_847759065 = 15137,
-           FIX_1_961570560 = 16069, FIX_2_053119869 = 16819,
-           FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+const int32_t F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433,
+              F_0_765 = 6270, F_0_899 = 7373, F_1_175 = 9633,
+              F_1_501 = 12299, F_1_847 = 15137, F_1_961 = 16069,
+              F_2_053 = 16819, F_2_562 = 20995, F_3_072 = 25172;
 
-inline long descale(long x, int n) { return (x + (1L << (n - 1))) >> n; }
+inline int16_t w16(int32_t x) { return static_cast<int16_t>(x); }
+inline int32_t w32(int64_t x) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x));
+}
+inline int16_t sat16(int32_t x) {
+  return static_cast<int16_t>(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
+}
+// pmaddwd: a * ca + b * cb, summed in 32 bits
+inline int32_t madd(int16_t a, int32_t ca, int16_t b, int32_t cb) {
+  return w32(static_cast<int64_t>(a) * ca + static_cast<int64_t>(b) * cb);
+}
 
-// jdmaster.c prepare_range_limit_table, the post-IDCT part: x + 128
-// clamped to 0..255, indexed by x & 1023
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; i++) {
-      int x = i < 512 ? i : i - 1024;
-      t[i] = static_cast<uint8_t>(x < -128 ? 0 : x > 127 ? 255 : x + 128);
-    }
-  }
-};
-const RangeLimit kRange;
+// the dodct step on one column or row of 8 16-bit inputs -> the 8 32-bit
+// sums before descaling, in output order
+void dodct(const int16_t in[8], int32_t out[8]) {
+  int32_t tmp3 = madd(in[2], F_0_541 + F_0_765, in[6], F_0_541);
+  int32_t tmp2 = madd(in[2], F_0_541, in[6], F_0_541 - F_1_847);
+  int32_t tmp0 = static_cast<int32_t>(w16(in[0] + in[4])) * (1 << kConstBits);
+  int32_t tmp1 = static_cast<int32_t>(w16(in[0] - in[4])) * (1 << kConstBits);
+  int32_t tmp10 = w32(static_cast<int64_t>(tmp0) + tmp3);
+  int32_t tmp13 = w32(static_cast<int64_t>(tmp0) - tmp3);
+  int32_t tmp11 = w32(static_cast<int64_t>(tmp1) + tmp2);
+  int32_t tmp12 = w32(static_cast<int64_t>(tmp1) - tmp2);
+  int16_t z3 = w16(in[3] + in[7]), z4 = w16(in[1] + in[5]);
+  int32_t z3p = madd(z3, F_1_175 - F_1_961, z4, F_1_175);
+  int32_t z4p = madd(z3, F_1_175, z4, F_1_175 - F_0_390);
+  int32_t o0 = w32(static_cast<int64_t>(
+      madd(in[7], F_0_298 - F_0_899, in[1], -F_0_899)) + z3p);
+  int32_t o3 = w32(static_cast<int64_t>(
+      madd(in[7], -F_0_899, in[1], F_1_501 - F_0_899)) + z4p);
+  int32_t o1 = w32(static_cast<int64_t>(
+      madd(in[5], F_2_053 - F_2_562, in[3], -F_2_562)) + z4p);
+  int32_t o2 = w32(static_cast<int64_t>(
+      madd(in[5], -F_2_562, in[3], F_3_072 - F_2_562)) + z3p);
+  out[0] = w32(static_cast<int64_t>(tmp10) + o3);
+  out[7] = w32(static_cast<int64_t>(tmp10) - o3);
+  out[1] = w32(static_cast<int64_t>(tmp11) + o2);
+  out[6] = w32(static_cast<int64_t>(tmp11) - o2);
+  out[2] = w32(static_cast<int64_t>(tmp12) + o1);
+  out[5] = w32(static_cast<int64_t>(tmp12) - o1);
+  out[3] = w32(static_cast<int64_t>(tmp13) + o0);
+  out[4] = w32(static_cast<int64_t>(tmp13) - o0);
+}
+
+// paddd of the rounding constant, then psrad
+inline int32_t descale(int32_t x, int n) {
+  return w32(static_cast<int64_t>(x) + (1 << (n - 1))) >> n;
+}
 
 void idct_islow(const int16_t *in, const uint16_t *q, uint8_t *out,
                 int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; c++) {
-    const int16_t *ip = in + c;
-    const uint16_t *qp = q + c;
-    int *wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] &&
-        !ip[56]) {
-      int dc = (ip[0] * qp[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; r++) wp[8 * r] = dc;
-      continue;
+  int16_t ws[64];  // ws[8 * r + c]: row r, column c
+  bool ac = false;
+  for (int i = 8; i < 64; i++) ac = ac || in[i] != 0;
+  if (!ac) {
+    for (int c = 0; c < 8; c++) {
+      int16_t dc = w16(w16(in[c] * q[c]) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
     }
-    long z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-    long z1 = (z2 + z3) * FIX_0_541196100;
-    long tmp2 = z1 + z3 * -FIX_1_847759065;
-    long tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    long tmp0 = (z2 + z3) * (1L << kConstBits);
-    long tmp1 = (z2 - z3) * (1L << kConstBits);
-    long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    long z4 = tmp1 + tmp3;
-    long z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
-    wp[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
-    wp[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
-    wp[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
-    wp[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
-    wp[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
-    wp[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
-    wp[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+  } else {
+    for (int c = 0; c < 8; c++) {
+      int16_t col[8];
+      int32_t sums[8];
+      for (int r = 0; r < 8; r++) col[r] = w16(in[8 * r + c] * q[8 * r + c]);
+      dodct(col, sums);
+      for (int r = 0; r < 8; r++)
+        ws[8 * r + c] = sat16(descale(sums[r], kConstBits - kPass1Bits));
+    }
   }
   for (int r = 0; r < 8; r++) {
-    const int *wp = ws + 8 * r;
+    int32_t sums[8];
+    dodct(ws + 8 * r, sums);
     uint8_t *op = out + static_cast<size_t>(r) * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t v = kRange.t[descale(wp[0], kPass1Bits + 3) & 1023];
-      for (int c = 0; c < 8; c++) op[c] = v;
-      continue;
+    for (int c = 0; c < 8; c++) {
+      int v = sat16(descale(sums[c], kConstBits + kPass1Bits + 3));
+      op[c] = static_cast<uint8_t>((v < -128 ? -128 : v > 127 ? 127 : v) +
+                                   128);
     }
-    long z2 = wp[2], z3 = wp[6];
-    long z1 = (z2 + z3) * FIX_0_541196100;
-    long tmp2 = z1 + z3 * -FIX_1_847759065;
-    long tmp3 = z1 + z2 * FIX_0_765366865;
-    long tmp0 = (static_cast<long>(wp[0]) + wp[4]) * (1L << kConstBits);
-    long tmp1 = (static_cast<long>(wp[0]) - wp[4]) * (1L << kConstBits);
-    long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    long z4 = tmp1 + tmp3;
-    long z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits + kPass1Bits + 3;
-    op[0] = kRange.t[descale(tmp10 + tmp3, sh) & 1023];
-    op[7] = kRange.t[descale(tmp10 - tmp3, sh) & 1023];
-    op[1] = kRange.t[descale(tmp11 + tmp2, sh) & 1023];
-    op[6] = kRange.t[descale(tmp11 - tmp2, sh) & 1023];
-    op[2] = kRange.t[descale(tmp12 + tmp1, sh) & 1023];
-    op[5] = kRange.t[descale(tmp12 - tmp1, sh) & 1023];
-    op[3] = kRange.t[descale(tmp13 + tmp0, sh) & 1023];
-    op[4] = kRange.t[descale(tmp13 - tmp0, sh) & 1023];
   }
 }
 

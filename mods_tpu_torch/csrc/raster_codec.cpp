@@ -1,5 +1,5 @@
-// The byte loops of the TGA, SGI, PCX and QOI files that io/raster.py reads
-// and writes as Pillow 12.1.0 does, bound with ctypes:
+// The byte loops of the TGA, SGI, PCX, QOI and PSD files that io/raster.py
+// and io/psd.py read and write as Pillow 12.1.0 does, bound with ctypes:
 //   - mods_tga_rle_decode: libImaging/TgaRleDecode.c.  A packet's header
 //     byte holds a count of 1-128 pixels of `depth` bytes: a run (high bit
 //     set) repeats one pixel and must end inside its row, else the decode
@@ -23,6 +23,11 @@
 //   - mods_qoi_encode / mods_qoi_decode: QoiImagePlugin's QoiEncoder and
 //     QoiDecoder (the index of 64 seen pixels starts with transparent
 //     black in the encoder and empty in the decoder, runs of at most 62).
+//   - mods_packbits_decode: libImaging/PackBitsDecode.c, as PsdImagePlugin
+//     runs it on each channel: a byte n below 0x80 copies
+//     the next n + 1 bytes, 0x80 is skipped, any other repeats the next
+//     byte 257 - n times; the bytes past a row's end are dropped, and the
+//     next code starts the next row.
 //
 // Every function returns 0 (or the output's length), -1 where Pillow's
 // decoder reports an overrun or a malformed file, or -2 where the data
@@ -386,6 +391,37 @@ extern "C" int mods_qoi_decode(const uint8_t *data, int64_t n, int64_t npx,
     memcpy(prev, v, 4);
     memcpy(seen[qoi_hash(v)], v, 4);
     emit(v, 1);
+  }
+  return 0;
+}
+
+// `rows` rows of `row_bytes` bytes into `out`.
+extern "C" int mods_packbits_decode(const uint8_t *data, int64_t n,
+                                    int64_t row_bytes, int rows,
+                                    uint8_t *out) {
+  int64_t pos = 0, x = 0;
+  for (int y = 0; y < rows;) {
+    if (pos >= n) return -2;
+    uint8_t *row = out + (int64_t)y * row_bytes;
+    uint8_t b = data[pos];
+    if (b == 0x80) {
+      pos++;
+      continue;
+    }
+    if (b & 0x80) {
+      if (n - pos < 2) return -2;
+      for (int k = 257 - b; k > 0 && x < row_bytes; k--) row[x++] = data[pos + 1];
+      pos += 2;
+    } else {
+      int64_t len = b + 1;
+      if (n - pos < 1 + len) return -2;
+      for (int64_t i = 0; i < len && x < row_bytes; i++) row[x++] = data[pos + 1 + i];
+      pos += 1 + len;
+    }
+    if (x >= row_bytes) {
+      x = 0;
+      y++;
+    }
   }
   return 0;
 }

@@ -1,13 +1,15 @@
-// Pillow 12.1.0's Image.resize with Resampling.LANCZOS and no box, as
-// Image.thumbnail(size, LANCZOS, reducing_gap=None) runs it for
-// IcoImagePlugin._save, bound with ctypes for io/raster.py:
-//   - libImaging/Resample.c, ImagingResample: the Lanczos filter (a = 3,
-//     sin(pi x) / (pi x) from the C library's sin, in double), its support
-//     scaled by the ratio where the image shrinks; each output sample's
-//     window [xmin, xmin + n) cut at the image's edges and its weights
-//     divided by their sum; the horizontal pass first, over only the rows
-//     that the vertical pass reads, then the vertical pass; a pass is
-//     skipped where its size does not change;
+// Pillow 12.1.0's Image.resize with Resampling.LANCZOS or BICUBIC and no
+// box (Image.thumbnail(size, LANCZOS, reducing_gap=None) for
+// IcoImagePlugin._save, im.resize((size, size)) for IcnsImagePlugin._save),
+// bound with ctypes for io/raster.py:
+//   - libImaging/Resample.c, ImagingResample: the filter (Lanczos: a = 3,
+//     sin(pi x) / (pi x) from the C library's sin, in double; bicubic:
+//     Keys' cubic with a = -0.5, support 2), its support scaled by the
+//     ratio where the image shrinks; each output sample's window [xmin,
+//     xmin + n) cut at the image's edges and its weights divided by their
+//     sum; the horizontal pass first, over only the rows that the vertical
+//     pass reads, then the vertical pass; a pass is skipped where its size
+//     does not change;
 //     * 8-bit bands ("L", "La", "RGB", "RGBa"): the weights rounded away
 //       from zero to fixed point with 22 fraction bits, sums started at half
 //       a unit, shifted down and clipped to 0..255;
@@ -23,9 +25,10 @@
 // multiply-adds, and the fixed-point weights move with the last bit.
 //
 // Interface:
-//   mods_resample(in, kind, width, height, channels, out_width,
+//   mods_resample(in, kind, filter, width, height, channels, out_width,
 //   out_height, out, err, errlen): kind 0 uint8 with 1-4 interleaved
-//   bands, 1 uint16, 2 int32, 3 float32; returns 0, or -1 with a message.
+//   bands, 1 uint16, 2 int32, 3 float32; filter 0 Lanczos, 1 bicubic;
+//   returns 0, or -1 with a message.
 //   mods_resample_nearest(in, width, height, out_width, out_height, out):
 //   one byte a pixel.
 
@@ -51,6 +54,20 @@ double lanczos_filter(double x) {
   return 0.0;
 }
 
+double bicubic_filter(double x) {
+  const double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+struct Filter {
+  double (*fn)(double);
+  double support;
+};
+const Filter kFilters[2] = {{lanczos_filter, 3.0}, {bicubic_filter, 2.0}};
+
 struct Coeffs {
   int ksize = 0;
   std::vector<int> bounds;   // (xmin, count) of each output sample
@@ -58,12 +75,13 @@ struct Coeffs {
 };
 
 // precompute_coeffs
-Coeffs precompute(int in_size, float in0, float in1, int out_size) {
+Coeffs precompute(int in_size, float in0, float in1, int out_size,
+                  const Filter &f) {
   Coeffs c;
   double filterscale, scale;
   filterscale = scale = (double)(in1 - in0) / out_size;
   if (filterscale < 1.0) filterscale = 1.0;
-  double support = 3.0 * filterscale;
+  double support = f.support * filterscale;
   c.ksize = (int)ceil(support) * 2 + 1;
   c.kk.assign((size_t)out_size * c.ksize, 0.0);
   c.bounds.assign((size_t)out_size * 2, 0);
@@ -78,7 +96,7 @@ Coeffs precompute(int in_size, float in0, float in1, int out_size) {
     xmax -= xmin;
     double *k = &c.kk[(size_t)xx * c.ksize];
     for (int x = 0; x < xmax; x++) {
-      double w = lanczos_filter((x + xmin - center + 0.5) * ss);
+      double w = f.fn((x + xmin - center + 0.5) * ss);
       k[x] = w;
       ww += w;
     }
@@ -209,9 +227,9 @@ void resample_band(const T *in, int w, int h, int channels, int band,
 
 template <typename T>
 void resample(const void *in, int w, int h, int channels, int ow, int oh,
-              void *out) {
-  Coeffs ch = precompute(w, 0.0f, (float)w, ow);
-  Coeffs cv = precompute(h, 0.0f, (float)h, oh);
+              void *out, const Filter &f) {
+  Coeffs ch = precompute(w, 0.0f, (float)w, ow, f);
+  Coeffs cv = precompute(h, 0.0f, (float)h, oh, f);
   std::vector<T> temp;
   for (int b = 0; b < channels; b++)
     resample_band<T>((const T *)in, w, h, channels, b, ow, oh, (T *)out, ch,
@@ -220,20 +238,24 @@ void resample(const void *in, int w, int h, int channels, int ow, int oh,
 
 }  // namespace
 
-extern "C" int mods_resample(const void *in, int kind, int width, int height,
-                             int channels, int out_width, int out_height,
-                             void *out, char *err, int errlen) {
+extern "C" int mods_resample(const void *in, int kind, int filter, int width,
+                             int height, int channels, int out_width,
+                             int out_height, void *out, char *err,
+                             int errlen) {
   if (width < 1 || height < 1 || out_width < 1 || out_height < 1 ||
-      channels < 1 || channels > 4 || (kind != 0 && channels != 1)) {
-    snprintf(err, errlen, "cannot resample %dx%d (%d bands) to %dx%d", width,
-             height, channels, out_width, out_height);
+      channels < 1 || channels > 4 || (kind != 0 && channels != 1) ||
+      filter < 0 || filter > 1) {
+    snprintf(err, errlen, "cannot resample %dx%d (%d bands) to %dx%d with "
+             "filter %d", width, height, channels, out_width, out_height,
+             filter);
     return -1;
   }
+  const Filter &f = kFilters[filter];
   switch (kind) {
-    case 0: resample<uint8_t>(in, width, height, channels, out_width, out_height, out); break;
-    case 1: resample<uint16_t>(in, width, height, 1, out_width, out_height, out); break;
-    case 2: resample<int32_t>(in, width, height, 1, out_width, out_height, out); break;
-    case 3: resample<float>(in, width, height, 1, out_width, out_height, out); break;
+    case 0: resample<uint8_t>(in, width, height, channels, out_width, out_height, out, f); break;
+    case 1: resample<uint16_t>(in, width, height, 1, out_width, out_height, out, f); break;
+    case 2: resample<int32_t>(in, width, height, 1, out_width, out_height, out, f); break;
+    case 3: resample<float>(in, width, height, 1, out_width, out_height, out, f); break;
     default:
       snprintf(err, errlen, "unknown sample kind %d", kind);
       return -1;

@@ -57,10 +57,18 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     Pillow's Jpeg2KDecode.c unpacks each tile ("L", "I;16", "LA", "RGB",
     "RGBA", "CMYK", "P" and "PA" from a pclr box, sYCC to RGB); PIL's
     mode and size from the header as the plugin reads them;
-  - ICO, CUR, TGA, SGI, PCX and QOI as their PIL plugins read them, by
-    ``io/raster.py`` (a TGA, which has no signature, where no other
-    format claims the file, as ``Image.open`` tries TGA last).
-  Anything else that PIL opens (PSD, DDS, ICNS, AVIF, ...) raises a
+  - ICO, CUR, TGA, SGI, PCX, DCX (its first page) and QOI as their PIL
+    plugins read them, by ``io/raster.py`` (a TGA, which has no signature,
+    where no other format claims the file, as ``Image.open`` tries TGA
+    last);
+  - PSD (the composite image, every mode of PsdImagePlugin.MODES, raw
+    and PackBits) by ``io/psd.py``; FITS (BITPIX 8, 16, 32, -32, -64,
+    extensions, GZIP_1 tiles) by ``io/fits.py``; DDS (bit masks,
+    luminance, palettes, DXT1-5 and BC1-BC7 under FourCC and DX10
+    headers; ``csrc/bcn_decode.cpp``) by ``io/dds.py``; ICNS (PNG, JPEG
+    2000 and RLE entries with their masks, the largest size, and PIL's
+    array of it) by ``io/icns.py``.
+  Anything else that PIL opens (XBM, IM, BLP, AVIF, ...) raises a
   ``ValueError`` naming the format, as do the variants the readers leave
   out (a VP8 inter frame,
   which PIL refuses too, and the TIFF compressions WebP, JBIG and JPEG
@@ -99,7 +107,10 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   of one frame is its JPEG save); ``.ico`` (PIL's frames of each default
   size, Lanczos thumbnails, as PNG), ``.tga``/``.icb``/``.vda``/
   ``.vst``, ``.sgi``/``.bw``/``.rgb``/``.rgba``, ``.pcx`` and ``.qoi`` by
-  ``io/raster.py``, PIL's bytes (an ICO's frames, not its PNG bytes).
+  ``io/raster.py``, PIL's bytes (an ICO's frames, not its PNG bytes);
+  ``.dds`` (PIL's uncompressed save, byte for byte: gray, gray+alpha,
+  RGB, RGBA) by ``io/dds.py``; ``.icns`` (eight PNG entries of six
+  bicubic squares, PIL's frames, not its PNG bytes) by ``io/icns.py``.
   int8 arrays are PIL's unsigned "I;8" and uint32 arrays its "I;32",
   their bits as int32, in every format that writes "I".  Every other
   extension that PIL writes (``.im``, ``.msp``, ...) and every array
@@ -120,7 +131,7 @@ import struct
 
 import numpy as np
 
-from mods_tpu_torch.io import png, raster, tiff
+from mods_tpu_torch.io import dds, fits, icns, png, psd, raster, tiff
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
@@ -132,22 +143,25 @@ J2K_SOURCE = os.path.join(_PKG, "csrc", "j2k_decode.cpp")
 J2K_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "j2k_encode.cpp")
 
 # magic bytes of formats that PIL 12.1.0 opens and this module does not
-_OTHER_FORMATS = ((b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
-                  (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"DanM", "MSP"),
+_OTHER_FORMATS = ((b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"DanM", "MSP"),
                   (b"LinS", "MSP"), (b"\x59\xa6\x6a\x95", "SUN"),
                   (b"#define", "XBM"), (b"/* XPM */", "XPM"),
-                  (b"Image type:", "IM"), (b"SIMPLE", "FITS"),
+                  (b"Image type:", "IM"),
                   (b"FTEX", "FTEX"), (b"\x80\xe8\x00\x00", "PIXAR"),
                   (b"\x00\x00\x01\xb3", "MPEG"), (b"%!PS", "EPS"),
                   (b"\xc5\xd0\xd3\xc6", "EPS"),
-                  (b"\xb1\x68\xde\x3a", "DCX"),
                   (b"\x89HDF\r\n\x1a\n", "HDF5"), (b"BUFR", "BUFR"),
                   (b"ZCZC", "BUFR"), (b"GRIB", "GRIB"),
                   (b"\xd7\xcd\xc6\x9a\x00\x00", "WMF"))
 # the major brands of an ftyp box that AvifImagePlugin._accept takes
 _AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 _READ_NAMES = ("PNG, JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP, JPEG 2000, "
-               "ICO, CUR, TGA, SGI, PCX and QOI")
+               "ICO, CUR, TGA, SGI, PCX, QOI, PSD, DCX, FITS, DDS and ICNS")
+# formats known by their first bytes, and the plugins whose _accept takes
+# them: PsdImagePlugin, DdsImagePlugin, IcnsImagePlugin, FitsImagePlugin,
+# DcxImagePlugin
+_SIGNATURES = ((b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
+               (b"SIMPLE", "FITS"), (b"\xb1\x68\xde\x3a", "DCX"))
 
 
 def _format(data: bytes, path) -> str:
@@ -172,6 +186,9 @@ def _format(data: bytes, path) -> str:
         return "WEBP"
     if head.startswith((_J2K_CODESTREAM, _JP2_SIGNATURE)):
         return "JPEG2000"
+    for magic, fmt in _SIGNATURES:
+        if head.startswith(magic):
+            return fmt
     name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
     if head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS:
         name = "AVIF"
@@ -230,6 +247,12 @@ def _read(path) -> tuple[np.ndarray, str]:
     with open(path, "rb") as f:
         data = f.read()
     fmt = _format(data, path)
+    if fmt in _HEADERS:
+        # Image.open's _decompression_bomb_check, before any pixel is read
+        w, h = _HEADERS[fmt](data, path)["size"]
+        if w * h > 2 * tiff._MAX_PIXELS:
+            raise ValueError(f"{path}: {fmt} of {w}x{h} pixels: PIL refuses "
+                             f"it (a decompression bomb)")
     if fmt in _RASTER_READERS:
         return _RASTER_READERS[fmt](data, path)
     if fmt == "PNG":
@@ -259,7 +282,17 @@ def _read(path) -> tuple[np.ndarray, str]:
 
 _RASTER_READERS = {"ICO": raster.read_ico, "CUR": raster.read_cur,
                    "TGA": raster.read_tga, "SGI": raster.read_sgi,
-                   "PCX": raster.read_pcx, "QOI": raster.read_qoi}
+                   "PCX": raster.read_pcx, "QOI": raster.read_qoi,
+                   "DCX": raster.read_dcx, "PSD": psd.read_psd,
+                   "FITS": fits.read_fits, "DDS": dds.read_dds,
+                   "ICNS": icns.read_icns}
+# the size that Image.open reports, from the header
+_HEADERS = {"TGA": lambda d, p: raster.tga_header(d),
+            "QOI": lambda d, p: raster.qoi_header(d),
+            "SGI": raster.sgi_header, "PCX": raster.pcx_header,
+            "PSD": psd.psd_header, "FITS": fits.fits_header,
+            "DDS": dds.dds_header, "ICNS": icns.icns_header,
+            "DCX": lambda d, p: raster.pcx_header(raster.dcx_page(d, p), p)}
 
 
 def read_image(path) -> np.ndarray:
@@ -275,14 +308,8 @@ def image_size(path) -> tuple[int, int]:
     fmt = _format(data, path)
     if fmt in ("ICO", "CUR"):
         return _RASTER_READERS[fmt](data, path)[0].shape[1::-1]
-    if fmt == "TGA":
-        return raster.tga_header(data)["size"]
-    if fmt == "SGI":
-        return raster.sgi_header(data, path)["size"]
-    if fmt == "PCX":
-        return raster.pcx_header(data, path)["size"]
-    if fmt == "QOI":
-        return raster.qoi_header(data)["size"]
+    if fmt in _HEADERS:
+        return _HEADERS[fmt](data, path)["size"]
     if fmt == "PNG":
         return png.png_size(path)
     if fmt == "JPEG":
@@ -1072,12 +1099,12 @@ _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".jpc": "JPEG2000", ".jpf": "JPEG2000", ".jpx": "JPEG2000",
                  ".mpo": "JPEG", ".ico": "ICO", ".tga": "TGA", ".icb": "TGA",
                  ".vda": "TGA", ".vst": "TGA", ".sgi": "SGI", ".bw": "SGI",
-                 ".rgb": "SGI", ".rgba": "SGI", ".pcx": "PCX", ".qoi": "QOI"}
+                 ".rgb": "SGI", ".rgba": "SGI", ".pcx": "PCX", ".qoi": "QOI",
+                 ".dds": "DDS", ".icns": "ICNS"}
 # the extensions of the other formats that PIL 12.1.0 writes here
 _NOT_WRITTEN = {".im": "IM", ".msp": "MSP", ".xbm": "XBM", ".blp": "BLP",
-                ".dds": "DDS", ".icns": "ICNS", ".palm": "PALM",
-                ".pdf": "PDF", ".ps": "EPS", ".eps": "EPS", ".avif": "AVIF",
-                ".avifs": "AVIF"}
+                ".palm": "PALM", ".pdf": "PDF", ".ps": "EPS", ".eps": "EPS",
+                ".avif": "AVIF", ".avifs": "AVIF"}
 # PIL's stubs: formats it names but cannot save without a handler
 _STUBS = {".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
           ".wmf": "WMF", ".emf": "WMF"}
@@ -1507,8 +1534,9 @@ def save_image(path, array) -> None:
                     "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes,
                     "WEBP": _webp_bytes, "GIF": _gif_bytes,
                     "ICO": raster.ico_bytes, "TGA": raster.tga_bytes,
-                    "PCX": raster.pcx_bytes,
-                    "QOI": raster.qoi_bytes}[fmt](a, mode)
+                    "PCX": raster.pcx_bytes, "QOI": raster.qoi_bytes,
+                    "DDS": dds.dds_bytes,
+                    "ICNS": icns.icns_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

@@ -1,11 +1,12 @@
-"""ICO, CUR, TGA, SGI, PCX and QOI files as PIL 12.1.0 reads and writes
+"""ICO, CUR, TGA, SGI, PCX, DCX and QOI files as PIL 12.1.0 reads and writes
 them for the JAX commands (``Image.open``, ``Image.fromarray(a).save``).
 
 ``io/image.py`` picks the format and calls these; each reader returns
 PIL's array and mode, each writer the bytes of PIL's file.  The byte loops
-are host C++ built at first use (``csrc/raster_codec.cpp``: the RLE codecs
-and QOI; ``csrc/resample.cpp``: Pillow's Lanczos resampling for the ICO
-writer's thumbnails).
+are host C++ built at first use (``csrc/raster_codec.cpp``: the RLE codecs,
+QOI and PackBits; ``csrc/resample.cpp``: Pillow's Lanczos resampling for
+the ICO writer's thumbnails and its bicubic for ``io/icns.py``'s frames;
+``resizer`` premultiplies an "LA" or "RGBA" source once for all sizes).
 
 * ICO (IcoImagePlugin): writing makes a frame of each default size (16,
   24, 32, 48, 64, 128 and 256 square) that fits in the image, each the
@@ -35,6 +36,7 @@ writer's thumbnails).
   "RGB" written with PcxEncode.c's runs.
 * QOI (QoiImagePlugin): RGB and RGBA, read and written by the plugin's
   own Python codec's rules.
+* DCX (DcxImagePlugin): the first page's PCX image.
 
 A file that PIL's ``Image.open`` would pass on to the next plugin raises
 ``NotThisFormat``: ``io/image.py`` then tries TGA, which PIL tries last.
@@ -70,7 +72,8 @@ def _codec():
     for fn, args in (("mods_tga_rle_decode", [p, i64, i, i, i, p]),
                      ("mods_sgi_rle_decode", [p, i64, i, i, i, i, p]),
                      ("mods_pcx_decode", [p, i64, i, i, i, i, p]),
-                     ("mods_qoi_decode", [p, i64, i64, i, p])):
+                     ("mods_qoi_decode", [p, i64, i64, i, p]),
+                     ("mods_packbits_decode", [p, i64, i64, i, p])):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = args
     lib.mods_pcx_encode.restype = ctypes.c_int64
@@ -88,7 +91,8 @@ def _resampler():
                                    ("-ffp-contract=off",)))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mods_resample.restype = ctypes.c_int
-    lib.mods_resample.argtypes = [p, i, i, i, i, i, i, p, ctypes.c_char_p, i]
+    lib.mods_resample.argtypes = [p, i, i, i, i, i, i, i, p, ctypes.c_char_p,
+                                  i]
     lib.mods_resample_nearest.restype = None
     lib.mods_resample_nearest.argtypes = [p, i, i, i, i, p]
     return lib
@@ -109,7 +113,7 @@ def _decode_failed(path, status: int) -> ValueError:
 
 
 # ---------------------------------------------------------------------------
-# Lanczos thumbnails (Image.thumbnail and Image.resize)
+# Lanczos thumbnails and bicubic resizes (Image.thumbnail and Image.resize)
 
 def thumbnail_size(width: int, height: int, size: tuple) -> tuple | None:
     """``Image.thumbnail``'s ``preserve_aspect_ratio``: the size within
@@ -147,31 +151,60 @@ def _unpremultiply(a: np.ndarray) -> np.ndarray:
     return np.concatenate([v, al], -1).astype(np.uint8)
 
 
-def resize_lanczos(a: np.ndarray, mode: str, size: tuple) -> np.ndarray:
-    """``Image.fromarray(a).resize(size, LANCZOS)`` for the modes of
-    ``io/image.py::_mode`` ("I" as int32, "F" as float32)."""
-    w, h = size
-    if a.shape[1] == w and a.shape[0] == h:
-        return a.copy()
+# csrc/resample.cpp's filters
+_FILTERS = {"lanczos": 0, "bicubic": 1}
+
+
+def resizer(a: np.ndarray, mode: str, filt: str = "lanczos"):
+    """A function of a size that gives ``Image.fromarray(a).resize(size,
+    filt)`` (LANCZOS or BICUBIC) for the modes of
+    ``io/image.py::_mode`` ("I" as int32, "F" as float32; "1" by nearest
+    neighbour, as resize runs it): a copy where the size is the image's,
+    and "LA" and "RGBA" resampled premultiplied, as Pillow converts them
+    to "La" and "RGBa" and back, the source premultiplied once for all
+    sizes."""
     lib = _resampler()
-    if mode == "1":
-        src = np.ascontiguousarray(a, np.uint8)
-        out = np.empty((h, w), np.uint8)
-        lib.mods_resample_nearest(src.ctypes.data, a.shape[1], a.shape[0], w,
-                                  h, out.ctypes.data)
-        return out.astype(bool)
+    h0, w0 = a.shape[:2]
     if mode in ("LA", "RGBA"):
-        return _unpremultiply(resize_lanczos(_premultiply(a), "RGB", size))
+        inner = resizer(_premultiply(a), "RGB", filt)
+
+        def resize(size):
+            if tuple(size) == (w0, h0):
+                return a.copy()
+            return _unpremultiply(inner(size))
+        return resize
     kind, dtype = {"I;16": (1, np.uint16), "I": (2, np.int32),
                    "F": (3, np.float32)}.get(mode, (0, np.uint8))
-    src = np.ascontiguousarray(a, dtype)
-    out = np.empty((h, w) + src.shape[2:], dtype)
-    err = ctypes.create_string_buffer(256)
-    if lib.mods_resample(src.ctypes.data, kind, src.shape[1], src.shape[0],
-                         src.shape[2] if src.ndim == 3 else 1, w, h,
-                         out.ctypes.data, err, len(err)):
-        raise ValueError(err.value.decode())
-    return out
+    src = np.ascontiguousarray(a, np.uint8 if mode == "1" else dtype)
+
+    def resize(size):
+        w, h = size
+        if (w, h) == (w0, h0):
+            return a.copy()
+        if mode == "1":
+            out = np.empty((h, w), np.uint8)
+            lib.mods_resample_nearest(src.ctypes.data, w0, h0, w, h,
+                                      out.ctypes.data)
+            return out.astype(bool)
+        out = np.empty((h, w) + src.shape[2:], dtype)
+        err = ctypes.create_string_buffer(256)
+        if lib.mods_resample(src.ctypes.data, kind, _FILTERS[filt], w0, h0,
+                             src.shape[2] if src.ndim == 3 else 1, w, h,
+                             out.ctypes.data, err, len(err)):
+            raise ValueError(err.value.decode())
+        return out
+    return resize
+
+
+def resize_lanczos(a: np.ndarray, mode: str, size: tuple) -> np.ndarray:
+    """``Image.fromarray(a).resize(size, LANCZOS)`` (``resizer``)."""
+    return resizer(a, mode)(size)
+
+
+def resize_bicubic(a: np.ndarray, mode: str, size: tuple) -> np.ndarray:
+    """``Image.fromarray(a).resize(size)``: Pillow's default filter,
+    BICUBIC (``resizer``)."""
+    return resizer(a, mode, "bicubic")(size)
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +217,13 @@ def ico_frames(a: np.ndarray, mode: str) -> list:
     """IcoImagePlugin._save's frames with its default sizes: the image
     itself where a size is its own, else its Lanczos thumbnail."""
     h, w = a.shape[:2]
+    resize = resizer(a, mode)
     frames = []
     for s in ICO_SIZES:
         if s > w or s > h:
             continue
         fit = thumbnail_size(w, h, (s, s))
-        frames.append(a if fit is None else resize_lanczos(a, mode, fit))
+        frames.append(a if fit is None else resize(fit))
     return frames
 
 
@@ -599,6 +633,30 @@ def read_pcx(data: bytes, path) -> tuple[np.ndarray, str]:
     else:
         a = rows[:, :w]
     return np.ascontiguousarray(a), hd["mode"]
+
+
+def dcx_page(data: bytes, path) -> bytes:
+    """DcxImageFile._open: the file from its first page's PCX header on
+    (the 4-byte magic, then up to 1024 little-endian page offsets ended
+    by 0); PIL reads the page as a PCX file, whose palette it still
+    takes from the end of the whole file."""
+    first = _u32(data, 4) if len(data) >= 8 else 0
+    if not first:
+        raise ValueError(f"{path}: cannot identify image file (a DCX "
+                         f"without pages)")
+    page = data[first:]
+    try:
+        pcx_header(page, path)
+    except NotThisFormat as e:
+        raise ValueError(f"{path}: cannot identify image file (a DCX "
+                         f"whose first page is not a PCX image: {e})") \
+            from None
+    return page
+
+
+def read_dcx(data: bytes, path) -> tuple[np.ndarray, str]:
+    """``Image.open`` of a DCX: its first page."""
+    return read_pcx(dcx_page(data, path), path)
 
 
 # PcxImagePlugin.SAVE: mode -> (version, bits, planes)

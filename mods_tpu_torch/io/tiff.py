@@ -46,7 +46,9 @@ are followed one by one:
   stream with an RSTn between them, the frame's sampling factors over
   YCbCrSubsampling; YCbCr as libjpeg's raw_data_out leaves it
   (``csrc/jpeg_decode.cpp``), in libtiff's sampling blocks, through the
-  RGBA interface; one component through its scanlines;
+  RGBA interface; one component through its scanlines; planar
+  configuration 2 read as 1 where there is one strip offset and one byte
+  count (TIFFReadDirectory's "OJPEG hack"), and refused otherwise;
 * the Orientation tag transposes the result (``ImageOps.exif_transpose``
   in ``TiffImageFile.load_end``).
 
@@ -1411,6 +1413,21 @@ def _read_ojpeg(data: bytes, info: _Info, path) -> np.ndarray:
     or tiles (jpeg_read_scanlines), or YCbCr through its RGBA interface
     (the components as libjpeg's raw_data_out leaves them, in libtiff's
     sampling blocks)."""
+    tags = info.tags
+    if info.planar == 2 and 322 not in tags and 324 not in tags and \
+            len(tags.get(273, ())) == 1 and len(tags.get(279, ())) == 1:
+        # TIFFReadDirectory's "OJPEG hack": one strip offset and one byte
+        # count mean that the planar configuration tag is wrong
+        info.planar = 1
+    if info.planar == 2 and info.spp > 1:
+        # libtiff decodes each plane as a stream of its own (one SOS a
+        # plane, an Ls of 8): the file's one interleaved stream fails, or
+        # in the tables form decodes to other samples than the image's
+        raise _refuse(path, "old-style JPEG in planar configuration 2 over "
+                      "more than one strip or tile offset, or without "
+                      "StripByteCounts: PIL misreads it or refuses it "
+                      "(libtiff decodes each plane as a JPEG stream of its "
+                      "own)")
     oj = _OJpeg(data, info, path)
     if oj.photo == 6 and oj.spp != 3:
         raise _ojpeg_error(path, f"YCbCr of {oj.spp} samples (libtiff's "
@@ -1419,9 +1436,6 @@ def _read_ojpeg(data: bytes, info: _Info, path) -> np.ndarray:
         raise _ojpeg_error(path, f"of photometric interpretation "
                            f"{oj.photo} with {oj.spp} samples (PIL's mode "
                            f"{info.mode} is not what libtiff decodes)")
-    if info.planar == 2 and oj.spp > 1:
-        raise _refuse(path, "old-style JPEG in planar configuration 2 is "
-                      "not supported")
     oj.read_header()
     if oj.force:
         # libtiff decodes such a stream upsampled, as 1x1, and then finds

@@ -289,10 +289,10 @@ def test_read_image_equals_pil(tmp_path, case):
 
 
 def test_other_formats_raise_naming_them(tmp_path):
-    """TIFF, GIF, PFM and WebP, written by PIL, read as PIL reads them
-    (they raised before the port read them); so do the RLE-compressed and
-    the 16-bit BMP.  PSD, which PIL reads and the port does not, and an
-    unknown file raise a ValueError that names the format."""
+    """TIFF, GIF, PFM, WebP and PSD read as PIL reads them (they raised
+    before the port read them); so do the RLE-compressed and the 16-bit
+    BMP.  XBM, which PIL reads and the port does not, and an unknown file
+    raise a ValueError that names the format."""
     for fmt in ("TIFF", "GIF", "PFM", "WebP"):
         p = tmp_path / f"x.{fmt.lower()}"
         Image.fromarray(GRAY.astype(np.float32) if fmt == "PFM"
@@ -303,9 +303,13 @@ def test_other_formats_raise_naming_them(tmp_path):
     p.write_bytes(b"8BPS" + struct.pack(">H6xHIIHH", 1, 1, h, w, 8, 1)
                   + bytes(14) + GRAY.tobytes())
     np.testing.assert_array_equal(np.asarray(Image.open(p)), GRAY)
-    with pytest.raises(ValueError, match="PSD"):
+    _hold_read(p)
+    p = tmp_path / "x.xbm"
+    Image.fromarray(GRAY > 128).save(p)
+    assert np.asarray(Image.open(p)).shape == GRAY.shape
+    with pytest.raises(ValueError, match="XBM"):
         read_image(p)
-    with pytest.raises(ValueError, match="PSD"):
+    with pytest.raises(ValueError, match="XBM"):
         image_size(p)
     p = tmp_path / "x.bin"
     p.write_bytes(b"\x00\x01\x02\x03" * 8)

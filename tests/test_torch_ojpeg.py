@@ -521,19 +521,28 @@ def test_subsampling_tag(tmp_path, sub):
             hold(tmp_path, ojpeg_tiff(ycc, sub, subsampling_tag=tag,
                                       rows_per_strip=32, bo=bo))
     hold(tmp_path, ojpeg_tiff(ycc, (2, 2), "tables", subsampling_tag=False))
+    # the tables form's frame is the tag's: entropy data coded for the
+    # other samplings decodes to huge coefficients, whose pixels are those
+    # of libjpeg-turbo's 16-bit SIMD inverse DCT
+    for bo in "<>":
+        for tag in SAMPLINGS:
+            hold(tmp_path, ojpeg_tiff(ycc, sub, "tables", subsampling_tag=tag,
+                                      bo=bo))
 
 
 @pytest.mark.parametrize("case", [
     "whole", "whole_strips", "strip_holds_stream", "no_length", "no_app",
     "photometric_rgb", "no_photometric", "no_samples", "jpeg_proc_14",
-    "coefficients", "short_length"])
+    "coefficients", "short_length", "planar_2", "planar_2_tables"])
 def test_interchange_variants(tmp_path, case):
     """JPEGInterchangeFormat at the whole stream (a strip, or the strips
     at its restart intervals, inside it), a strip that holds the whole
     stream with no tag 513, no JPEGInterchangeFormatLength or a short
     one, no APP0; photometric RGB or none (YCbCr to libtiff and PIL),
     SamplesPerPixel absent (3), JPEGProc 14 (which libtiff does not
-    read), YCbCrCoefficients and ReferenceBlackWhite."""
+    read), YCbCrCoefficients and ReferenceBlackWhite; PlanarConfiguration
+    2 over the one strip, in either form, which TIFFReadDirectory reads
+    as 1 (its "OJPEG hack": one strip offset and one byte count)."""
     _, ycc = _ycbcr(37, 53)
     kw = {"whole": dict(whole=True),
           "whole_strips": dict(whole=True, rows_per_strip=16),
@@ -544,6 +553,8 @@ def test_interchange_variants(tmp_path, case):
           "photometric_rgb": dict(photometric=2),
           "no_photometric": dict(photometric=None),
           "no_samples": dict(tags={277: None}),
+          "planar_2": dict(tags={284: (3, [2])}),
+          "planar_2_tables": dict(form="tables", tags={284: (3, [2])}),
           "jpeg_proc_14": dict(form="tables", tags={512: (3, [14])}),
           "coefficients": dict(tags={
               529: (5, [(299, 1000), (587, 1000), (114, 1000)]),
@@ -597,6 +608,14 @@ REFUSED = {
     "gray_subsampled": lambda g, c: ojpeg_tiff(
         g, photometric=1, sof_sampling=[(2, 2)]),
     "frame_too_narrow": lambda g, c: ojpeg_tiff(c, tags={256: (4, [60])}),
+    "planar_2_strips": lambda g, c: ojpeg_tiff(c, rows_per_strip=32,
+                                               tags={284: (3, [2])}),
+    "planar_2_tiles": lambda g, c: ojpeg_tiff(c, tile=(32, 32),
+                                              tags={284: (3, [2])}),
+    "planar_2_without_byte_counts": lambda g, c: ojpeg_tiff(
+        c, tags={284: (3, [2]), 279: None}),
+    "planar_2_tables_tiles": lambda g, c: ojpeg_tiff(
+        c, (1, 1), "tables", tile=(16, 64), tags={284: (3, [2])}),
 }
 
 
@@ -609,12 +628,34 @@ def test_refusals(tmp_path, case):
     3 samples of another photometric interpretation, a frame of other
     sampling factors than libtiff's (chroma subsampled too: libtiff
     desubsamples in libjpeg and then finds the largest factors not 1),
-    a frame narrower than the image.  Each raises a ValueError that
-    names old-style JPEG and holds a listed reason."""
+    a frame narrower than the image, planar configuration 2 over several
+    strips or tiles or without StripByteCounts (libtiff then reads each
+    plane as a stream of its own: the stream's SOS of three components
+    is corrupt for it, or a plane's strips are missing).  Each raises a
+    ValueError that names old-style JPEG and holds a listed reason."""
     g, ycc = _ycbcr(37, 53)
     data = REFUSED[case](g, ycc)
     assert isinstance(pil_read(data), Exception)
     assert hold(tmp_path, data) is None
+
+
+def test_planar_2_tables_strips_misread(tmp_path):
+    """The tables form in planar configuration 2 over two strips: libtiff
+    decodes the first plane's strips (the whole interleaved stream) as a
+    stream of Y alone and the missing planes' as nothing, and PIL gives
+    pixels that are not the image's; the port refuses it as a file PIL
+    misreads."""
+    g, ycc = _ycbcr(37, 53)
+    data = ojpeg_tiff(ycc, (1, 1), "tables", rows_per_strip=32,
+                      tags={284: (3, [2])})
+    arr, _, _ = pil_read(data)
+    rgb = np.asarray(Image.fromarray(ycc, "YCbCr").convert("RGB"))
+    assert np.abs(arr.astype(int) - rgb).mean() > 40
+    p = tmp_path / "x.tif"
+    p.write_bytes(data)
+    with pytest.raises(ValueError, match="old-style JPEG in planar "
+                       "configuration 2.*PIL misreads it"):
+        _read(p)
 
 
 def test_read_formerly_refused(tmp_path):

@@ -454,16 +454,18 @@ def test_every_pil_writer_is_written_or_refused():
     assert pils == ours
 
 
-@pytest.mark.parametrize("fmt,kw", [("DDS", {}), ("ICNS", {}), ("BLP", {}),
-                                    ("MSP", {}), ("XBM", {}), ("IM", {}),
-                                    ("EPS", {}), ("SPIDER", {})])
+@pytest.mark.parametrize("fmt,kw", [("BLP", {"blp_version": "BLP1"}),
+                                    ("XBM", {"hotspot": (3, 5)}),
+                                    ("BLP", {}), ("MSP", {}), ("XBM", {}),
+                                    ("IM", {}), ("EPS", {}), ("SPIDER", {})])
 def test_read_refusals_name_the_format(tmp_path, fmt, kw):
     """Files PIL writes and reads and the port does not read raise a
     ValueError naming the format (SPIDER, without a signature, as not a
-    format the reader knows)."""
+    format the reader knows): BLP1 and BLP2, XBM with and without a
+    hotspot."""
     a = arrays(2, 16, 16)
-    img = a["1"] if fmt in ("MSP", "XBM") else a["RGBA"] if fmt in (
-        "DDS", "ICNS") else a["F"] if fmt == "SPIDER" else a["RGB"]
+    img = a["1"] if fmt in ("MSP", "XBM") else a["F"] if fmt == "SPIDER" \
+        else a["RGB"]
     if fmt == "BLP":
         img = Image.fromarray(a["RGB"]).convert("P")
     p = tmp_path / "f"
