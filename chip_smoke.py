@@ -288,7 +288,22 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    PSDs (``psd_bytes``): its launches held to the plan, its figures to
    ``JAX_PSD_REFERENCE`` by phase 6's rule and its tentatives within 20
    %, its drawings named .dds (read back to the canvas) and .icns (its
-   1024 frame held to the bicubic resize of ``viz``'s canvas).
+   1024 frame held to the bicubic resize of ``viz``'s canvas); (zd) the
+   IM (PIL's saves in every mode of ``Image.fromarray``, "P" with a Lut,
+   "PA", CMYK, YCbCr, "I;16B"), MSP (versions 1 and 2), XBM (with a
+   hotspot too), XPM (1- and 2-character keys, RGB), Sun raster (1, 4, 8
+   with a colour map, 24, 32 bits, RLE) and BLP (BLP1 JPEG, CMYK JPEG and
+   palette; BLP2 palette and DXT1/3/5) files of ``BITMAP_FIXTURES``
+   decoded on the host (``io/im.py``, ``io/raster.py``, ``io/x11.py``,
+   ``io/blp.py``), each array's shape, mode and SHA-256 held to PIL's
+   (``FORMAT_FIXTURE_SHA256``), the decode ms printed; (ze) 14x's ten
+   canvases and zoom2x_1 as "F" written as .im, and the "1" canvas as
+   .msp and .xbm, each file's SHA-256 held to PIL's
+   (``IM_ENCODE_SHA256``) and read back to the canvas, the median encode
+   ms of three printed; (zf) ``cli match`` on zoom2x's pair written as
+   gray .im: its launches held to the plan, its figures to
+   ``JAX_IM_REFERENCE`` by phase 6's rule and its tentatives within 20 %,
+   its drawings named .im read back to ``viz``'s canvases.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -4930,6 +4945,108 @@ FORMAT_FIXTURE_SHA256 = {
     "icns_j2k.icns": ((32, 32, 4), "RGBA",
         "c7f63d81a278f125976076b839f2970d"
         "2221ff6a9a42833068ccc8cfe9a740f0"),
+    "im_1.im": ((23, 31), "1",
+        "61137056757dbf41784f15e15292b28d"
+        "efe7e4f71de80aa1d95bf0744bfbb214"),
+    "im_L.im": ((23, 31), "L",
+        "65350b650c00d0704c410ed03440b1ea"
+        "5a8f4a9798502f4431500cec69164154"),
+    "im_LA.im": ((23, 31, 2), "LA",
+        "33c3431caaffd7d68ccdd1c85963c5a4"
+        "5cf66c3df42eae8eb2da92824f76bf48"),
+    "im_RGB.im": ((23, 31, 3), "RGB",
+        "22ea37afbc312bf4b423c0aecb9211cd"
+        "84a05ac5d27d8aede5153b79615de094"),
+    "im_RGBA.im": ((23, 31, 4), "RGBA",
+        "49c07530dc70e8748d05fc360fd84493"
+        "2f12e5d38950de4680233bf563fa0a27"),
+    "im_I16.im": ((23, 31), "I;16",
+        "65246271daa1efa081a22b2803973cc0"
+        "c524d3147c784fde97c44e9ec04046ce"),
+    "im_I.im": ((23, 31), "I",
+        "92a3a1a1ea32c6eca022e9d3972bc7d1"
+        "97cac15b103dbe58a5c213b4c65bccda"),
+    "im_F.im": ((23, 31), "F",
+        "d7d07f36d77f163f5682dbfb209d0e55"
+        "26524bb2efa83d373c8b2a426e915f25"),
+    "im_p_lut.im": ((23, 31), "P",
+        "5c345c75a4647c6959190f3e3f958719"
+        "186200d08b2ee8df300eb2fa62ae1bc9"),
+    "im_pa.im": ((23, 31, 2), "PA",
+        "a57ae08f13ef98b017b21f0052b3acc9"
+        "26c826cd77e884cf6e34ce4753d83921"),
+    "im_cmyk.im": ((23, 31, 4), "CMYK",
+        "9445d1078eb71afdf215aa73d2a32fdf"
+        "96c85b06200e0dfe6183db68df1fab91"),
+    "im_ycbcr.im": ((23, 31, 3), "YCbCr",
+        "0bc66622a742eacd0fd682793e816ffe"
+        "aa15f7f1785e0abc94321fc42b6c0bcb"),
+    "im_i16b.im": ((23, 31), "I;16B",
+        "d705e2a711dffc872a95fceacfdfec04"
+        "d914e65f8639f00e4d457f55cdcfc663"),
+    "msp_v1.msp": ((23, 31), "1",
+        "64a35ddbd0b14433feef60ede572ef0c"
+        "793ae84ab458e226464912216ebbfe7e"),
+    "msp_v2.msp": ((23, 31), "1",
+        "64a35ddbd0b14433feef60ede572ef0c"
+        "793ae84ab458e226464912216ebbfe7e"),
+    "xbm.xbm": ((23, 31), "1",
+        "64a35ddbd0b14433feef60ede572ef0c"
+        "793ae84ab458e226464912216ebbfe7e"),
+    "xbm_hotspot.xbm": ((23, 31), "1",
+        "64a35ddbd0b14433feef60ede572ef0c"
+        "793ae84ab458e226464912216ebbfe7e"),
+    "xpm_1char.xpm": ((9, 14), "P",
+        "d4b5bee8feb29a7e914de3cea8600ea2"
+        "0997b37e38bc1b37e0721e2d47909f55"),
+    "xpm_2char.xpm": ((7, 9), "P",
+        "64c584a2797942ee6d92441c7cf0f748"
+        "cad146ea23a4da6c201b9aa15f6aaa77"),
+    "xpm_rgb.xpm": ((11, 23, 3), "RGB",
+        "4dc62ae5d802ffd7cd86d0357113acca"
+        "710973e0817a8ad5a9e8fd73192840f9"),
+    "sun_1.ras": ((23, 31), "1",
+        "888fac6596d75772c49e5bd7bf62f634"
+        "9e190afd7ba28867bf72582d65295b29"),
+    "sun_8_map.ras": ((23, 31), "P",
+        "75f3cbdfeb523a73fde775cfcf449f87"
+        "b5121f472a5dc3e2aa64b6d425b97941"),
+    "sun_24.ras": ((23, 31, 3), "RGB",
+        "6956ee1d8d3639aecb1d35346635bf95"
+        "293f34bd4a898edcf2995cf6a5f139ec"),
+    "sun_32_rgb.ras": ((23, 31, 3), "RGB",
+        "8b1b930f0ff216c412da97278638dc33"
+        "c8ffe80b0a1d3865bae9145a126d8cec"),
+    "sun_24_rle.ras": ((23, 31, 3), "RGB",
+        "bae80254ccd796855517be39032b9231"
+        "27d253eb39802deff8bcf17c98648d60"),
+    "sun_4.ras": ((23, 31), "L",
+        "8ca2f4197e09002fb9fe3333f1cc6cfb"
+        "1f5dad5ea0c4b0226013e5b60c6ce6cd"),
+    "blp1_jpeg.blp": ((21, 26, 3), "RGB",
+        "8a7a0278e14eaae9948496deae8277ef"
+        "0cccbab8011e4276ec4fba1b398afcc9"),
+    "blp1_jpeg_cmyk.blp": ((21, 26, 4), "RGBA",
+        "f95d9a650591b2ac91788d35e5738cf5"
+        "88e27649b5ea1183cccb97362d1b9ede"),
+    "blp1_palette.blp": ((23, 31, 3), "RGB",
+        "f703119d0d1a301a709ad7c9bb072140"
+        "a98371ef1c980b37c82caf30b6df16c6"),
+    "blp2_palette.blp": ((23, 31, 4), "RGBA",
+        "a0507e0813947e7c5818d1e6bd6d3d6e"
+        "28598f98dc45affb977ea2afd25e5cf9"),
+    "blp2_dxt1.blp": ((7, 13, 3), "RGB",
+        "520af642a30385927ca7b85e4dcef864"
+        "990fd7ba4d79803551de69251e9c4679"),
+    "blp2_dxt1_alpha.blp": ((8, 16, 4), "RGBA",
+        "23f29949d18b2ebee9ff437fc25010ab"
+        "4e4eed646dd82821c6816031d5916c5f"),
+    "blp2_dxt3.blp": ((8, 16, 4), "RGBA",
+        "bb9ac25e760618103c83461f1260f1b1"
+        "d391ce055888f843e5392cd28d4631e4"),
+    "blp2_dxt5.blp": ((7, 13, 4), "RGBA",
+        "ab6565e8ffe05fddae95859c463ead47"
+        "5a7d2034fc97bf91071795a714d6a027"),
 }
 # 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
 # (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
@@ -5484,6 +5601,80 @@ ICNS_ENCODE_FRAMES = {
 # python tests/test_torch_psd_dcx_fits.py --jax-psd``
 JAX_PSD_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                          gt_consistent=37, corner_error_px=4.04)
+# 14zd: the IM, MSP, XBM, XPM, Sun raster and BLP files of
+# tests/test_torch_{im,bitmap_formats}.py::fixture_files (PIL's saves of
+# IM, MSP version 1, XBM and BLP palettes; the rest built there), held to
+# the hashes of FORMAT_FIXTURE_SHA256
+BITMAP_FIXTURES = (
+    "im_1.im", "im_L.im", "im_LA.im", "im_RGB.im", "im_RGBA.im",
+    "im_I16.im", "im_I.im", "im_F.im", "im_p_lut.im", "im_pa.im",
+    "im_cmyk.im", "im_ycbcr.im", "im_i16b.im", "msp_v1.msp", "msp_v2.msp",
+    "xbm.xbm", "xbm_hotspot.xbm", "xpm_1char.xpm", "xpm_2char.xpm",
+    "xpm_rgb.xpm", "sun_1.ras", "sun_8_map.ras", "sun_24.ras",
+    "sun_32_rgb.ras", "sun_24_rle.ras", "sun_4.ras", "blp1_jpeg.blp",
+    "blp1_jpeg_cmyk.blp", "blp1_palette.blp", "blp2_palette.blp",
+    "blp2_dxt1.blp", "blp2_dxt1_alpha.blp", "blp2_dxt3.blp",
+    "blp2_dxt5.blp")
+# 14ze: the SHA-256 of PIL 12.1.0's file of each of ``im_encode_canvases``
+# in each extension of ``im_encode_extensions``, named by
+# ``im_encode_name`` (an IM header holds the file's name)
+# (tests/test_torch_im.py::test_im_msp_xbm_encode_hashes_are_pils computes
+# them with PIL: ``python tests/test_torch_im.py --hashes``)
+IM_ENCODE_SHA256 = {
+    "zoom2x_1 L": {
+        ".im": ("492a13f701928d698a30db8767f4ef9d"
+                "5a33dfb01edf2aaa4de15cfceac9871b"),
+    },
+    "zoom2x_1 RGB with coloured lines": {
+        ".im": ("5a56ee28143c64d44ceae9baf67c3d8e"
+                "27c5b7ef748bb3bb30b34aee009be36b"),
+    },
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": {
+        ".im": ("50b362655ed73a6c9910562b1ae86d45"
+                "4df1f6f5e4264e81b024fa8b52cfa9ab"),
+    },
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": {
+        ".im": ("cba1dde695852e11a87462cfdc835af4"
+                "0e1920d1a8a30003a344b0e0487fd01e"),
+    },
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": {
+        ".im": ("446f69fcda45e714634302881c9764bd"
+                "6706a40516da2a7db1b5afca04215bbe"),
+    },
+    "a 12-row strip of the RGB canvas": {
+        ".im": ("dee94a7f9ad51c7629631398eb63375e"
+                "e3db7183511672517f9c0ad7ff505446"),
+    },
+    "zoom2x_1 1": {
+        ".im": ("67fdeadf1cdf814c0bc9581d3aebb4dc"
+                "54aa519ad962b611a765a4f0fe8151a1"),
+        ".msp": ("65ff9e058ba4256d59d398296610ab6f"
+                 "c61f460889dd24380d5cddf2830c411d"),
+        ".xbm": ("d2aa979463007a8ad924c3bcd6399fa0"
+                 "db52ae874ca6591e408a786a263c1102"),
+    },
+    "zoom2x_1, zoom2x_2 LA": {
+        ".im": ("e5a5d1253b6165840e8a7c8425999767"
+                "5aaff8ab54c5ab6f4a5a6b59d30a42d9"),
+    },
+    "zoom2x_1 I;16": {
+        ".im": ("b15c047b0baaca0850c05fa292d20063"
+                "1fdb1335095bfdc82720bcfc50aaf98d"),
+    },
+    "zoom2x_1 I": {
+        ".im": ("638711beaf785c61c273e33af3c4ee2c"
+                "845cda961c46138d307de11ee6fe9bbc"),
+    },
+    "zoom2x_1 F": {
+        ".im": ("1acc9e8348731bb3e96e52ccb4cb8fff"
+                "9e51b094d1a87fc3be61f46c26c4855f"),
+    },
+}
+# 14zf, the JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# zoom2x's pair as gray IM files, on the CPU: ``JAX_PLATFORMS=cpu python
+# tests/test_torch_im.py --jax-im``
+JAX_IM_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                        gt_consistent=37, corner_error_px=4.04)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -5637,9 +5828,9 @@ def _decode_format_fixtures() -> list:
     from mods_tpu_torch.io.image import _read
     out, failures = {}, []
     for name, (shape, mode, sha) in FORMAT_FIXTURE_SHA256.items():
-        # 14n, 14p, 14w and 14za hold these
+        # 14n, 14p, 14w, 14za and 14zd hold these
         if name in TIFF_VARIANT_FIXTURES + TIFF_CODEC_FIXTURES \
-                + RASTER_FIXTURES + PSD_DDS_ICNS_FIXTURES:
+                + RASTER_FIXTURES + PSD_DDS_ICNS_FIXTURES + BITMAP_FIXTURES:
             continue
         ms = []
         for _ in range(3):
@@ -6326,6 +6517,107 @@ def _match_psd_pair(held, work: Path) -> list:
     return failures
 
 
+def _decode_bitmaps() -> list:
+    """14zd: each fixture of ``BITMAP_FIXTURES`` decoded on the host
+    (``io/im.py``, ``io/raster.py`` on ``csrc/raster_codec.cpp``'s MSP,
+    Sun RLE and XBM loops, ``io/x11.py``, ``io/blp.py``), its array's
+    shape, mode and SHA-256 against PIL's, the median decode ms of
+    three."""
+    failures = []
+    out = _hold_tiff_fixtures("14zd", BITMAP_FIXTURES, failures)
+    print(f"[14] zd, IM, MSP, XBM, XPM, Sun raster and BLP files decoded on "
+          f"the host: {json.dumps(out)}", flush=True)
+    return failures
+
+
+def im_encode_canvases(views: list) -> dict:
+    """14ze's canvases: 14x's ten (``raster_encode_canvases``) and
+    zoom2x_1 as "F" (/ 7 - 3), so that IM is written in every mode of
+    ``Image.fromarray``."""
+    import numpy as np
+    out = dict(raster_encode_canvases(views))
+    out["zoom2x_1 F"] = views[0].astype(np.float32) / 7 - 3
+    return out
+
+
+def im_encode_extensions(canvas) -> tuple:
+    """The extensions 14ze writes a canvas in: .im, and .msp and .xbm for
+    a bool one (PIL writes those from mode "1" only)."""
+    return (".im", ".msp", ".xbm") if canvas.dtype == bool else (".im",)
+
+
+def im_encode_name(i: int, ext: str) -> str:
+    return f"canvas_{i}{ext}"
+
+
+def _encode_ims(work: Path) -> list:
+    """14ze: each of ``im_encode_canvases`` written by ``save_image`` in
+    each of ``im_encode_extensions``, the file's SHA-256 against PIL's
+    (``IM_ENCODE_SHA256``) and read back to the canvas; the median encode
+    ms of three."""
+    import hashlib
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    out, failures = {}, []
+    for i, (name, canvas) in enumerate(im_encode_canvases(views).items()):
+        for ext in im_encode_extensions(canvas):
+            p = work / im_encode_name(i, ext)
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                save_image(p, canvas)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            back = read_image(p)
+            r = dict(bytes=p.stat().st_size, encode_ms=statistics.median(ms),
+                     sha256_equal_to_pil=hashlib.sha256(
+                         p.read_bytes()).hexdigest()
+                     == IM_ENCODE_SHA256[name][ext],
+                     read_back_equal=back.dtype == canvas.dtype
+                     and back.shape == canvas.shape
+                     and bool(np.array_equal(back, canvas)))
+            out[f"{name} {ext}"] = r
+            if not (r["sha256_equal_to_pil"] and r["read_back_equal"]):
+                failures.append(f"14ze {name} {ext}: {r}")
+    print(f"[14] ze, IM, MSP and XBM encode on the host: {json.dumps(out)}",
+          flush=True)
+    return failures
+
+
+def _match_im_pair(held, work: Path) -> list:
+    """14zf: zoom2x's pair written as gray .im by ``save_image``, then
+    ``cli match`` on it against ``JAX_IM_REFERENCE``
+    (``_held_cli_match``, tentatives within 20 %), its drawings named .im
+    and read back to ``viz``'s canvases exactly."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image, save_image
+    failures, ims = [], []
+    for i in (1, 2):
+        view = read_image(PAIRS / f"zoom2x_{i}.png")
+        ims.append(work / f"zoom2x_{i}.im")
+        save_image(ims[-1], view)
+        if not np.array_equal(read_image(ims[-1]), view):
+            failures.append(f"14zf {ims[-1].name} is not the view")
+    res, fails, drawings = _held_cli_match(
+        held, work, "zoom2x IM", ims, (work / "o1.im", work / "o2.im"),
+        JAX_IM_REFERENCE)
+    failures += fails
+    ref = JAX_IM_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14zf: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    for path, want in drawings:
+        got = read_image(path)
+        ok = got.shape == want.shape and bool(np.array_equal(got, want))
+        res[f"{path.name}_is_the_drawing"] = ok
+        if not ok:
+            failures.append(f"14zf {path.name} is not viz's drawing")
+    print(f"[14] zf, cli match on the IM pair, .im drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _encode_jpegs() -> list:
     """14f: zoom2x_1 as L, and zoom2x_1, zoom2x_2 and tilt4_1 as the R,
     G and B of one canvas, each encoded by ``csrc/jpeg_encode.cpp``: the
@@ -6663,9 +6955,10 @@ def _match_webp_pair(held, work: Path) -> list:
 
 
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14y, 14za-14zc), on the card machine without PIL.
+    """Phase 14 (14a-14y, 14za-14zf), on the card machine without PIL.
     Raises with every failure of its parts; returns each kernel's launches
-    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y and 14zc."""
+    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc and 14zf (2
+    ``window_sampler`` each, 22 in all)."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -6707,6 +7000,10 @@ def _drive_phase14(wrappers: dict) -> dict:
         failures += _decode_psd_dds_icns()
         failures += _encode_dds_icns(Path(d))
         failures += _match_psd_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_bitmaps()
+        failures += _encode_ims(Path(d))
+        failures += _match_im_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -6893,7 +7190,7 @@ def main() -> int:
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
           f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000, "
-          f"TGA and PSD pairs' commands: "
+          f"TGA, PSD and IM pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -1,5 +1,6 @@
-// The byte loops of the TGA, SGI, PCX, QOI and PSD files that io/raster.py
-// and io/psd.py read and write as Pillow 12.1.0 does, bound with ctypes:
+// The byte loops of the TGA, SGI, PCX, QOI, PSD, MSP, Sun raster and XBM
+// files that io/raster.py, io/psd.py and io/x11.py read and write as Pillow
+// 12.1.0 does, bound with ctypes:
 //   - mods_tga_rle_decode: libImaging/TgaRleDecode.c.  A packet's header
 //     byte holds a count of 1-128 pixels of `depth` bytes: a run (high bit
 //     set) repeats one pixel and must end inside its row, else the decode
@@ -28,6 +29,21 @@
 //     the next n + 1 bytes, 0x80 is skipped, any other repeats the next
 //     byte 257 - n times; the bytes past a row's end are dropped, and the
 //     next code starts the next row.
+//   - mods_msp_decode: MspImagePlugin's MspDecoder (Python in Pillow) on a
+//     "LinS" file after its 32-byte header: a row map of one 16-bit length
+//     a row, then each row's runs (a type byte 0, a count and a value; any
+//     other type byte a count of literal bytes, cut where the row ends); a
+//     row of length 0 is a white (0xFF) line.  The rows' bytes make one
+//     stream, which Pillow then reads as packed lines whatever their
+//     lengths; -1, -2, -3: a row map, a row cut short, a run cut short.
+//   - mods_sun_rle_decode: libImaging/SunRleDecode.c: 0x80 0 is a literal
+//     0x80, 0x80 n v a run of n + 1 bytes v, any other byte itself; a run
+//     past the line is cut there and its rest (counted in an 8-bit
+//     variable, as Pillow counts it) fills the next lines.  The lines are
+//     the unpacker's bytes, without the file's 16-bit row padding.
+//   - mods_xbm_decode: libImaging/XbmDecode.c: each byte is the two
+//     characters after the next 'x', read as hex (a character that is not
+//     a hex digit counts 0).
 //
 // Every function returns 0 (or the output's length), -1 where Pillow's
 // decoder reports an overrun or a malformed file, or -2 where the data
@@ -422,6 +438,118 @@ extern "C" int mods_packbits_decode(const uint8_t *data, int64_t n,
       x = 0;
       y++;
     }
+  }
+  return 0;
+}
+
+// `data` is the file after its header; `out` takes the first `cap` bytes of
+// the stream; returns the stream's whole length, or a negative error.
+extern "C" int64_t mods_msp_decode(const uint8_t *data, int64_t n, int xsize,
+                                   int ysize, uint8_t *out, int64_t cap,
+                                   int *bad_row) {
+  const int64_t blank = (xsize + 7) / 8;
+  int64_t pos = 2 * (int64_t)ysize, length = 0;
+  if (n < pos) return -1;
+  auto emit = [&](const uint8_t *v, int64_t k) {
+    for (int64_t i = 0; i < k; i++, length++)
+      if (length < cap) out[length] = v[i];
+  };
+  const uint8_t white = 0xFF;
+  for (int y = 0; y < ysize; y++) {
+    const int64_t rowlen = data[2 * y] | data[2 * y + 1] << 8;
+    *bad_row = y;
+    if (rowlen == 0) {
+      for (int64_t i = 0; i < blank; i++) emit(&white, 1);
+      continue;
+    }
+    if (n - pos < rowlen) return -2;
+    const uint8_t *row = data + pos;
+    pos += rowlen;
+    int64_t idx = 0;
+    while (idx < rowlen) {
+      const int runtype = row[idx++];
+      if (runtype == 0) {
+        if (idx + 2 > rowlen) return -3;
+        for (int k = 0; k < row[idx]; k++) emit(&row[idx + 1], 1);
+        idx += 2;
+      } else {
+        emit(row + idx, idx + runtype > rowlen ? rowlen - idx : runtype);
+        idx += runtype;
+      }
+    }
+  }
+  return length;
+}
+
+// `rows` lines of `row_bytes` bytes into `out`.
+extern "C" int mods_sun_rle_decode(const uint8_t *data, int64_t n,
+                                   int64_t row_bytes, int rows, uint8_t *out) {
+  std::vector<uint8_t> buffer(row_bytes);
+  int64_t pos = 0, x = 0;
+  int y = 0;
+  while (true) {
+    uint8_t extra_data = 0, extra_bytes = 0;
+    int64_t k;
+    if (n - pos < 1) return -2;
+    if (data[pos] == 0x80) {
+      if (n - pos < 2) return -2;
+      k = data[pos + 1];
+      if (k == 0) {
+        k = 1;
+        buffer[x] = 0x80;
+        pos += 2;
+      } else {
+        if (n - pos < 3) return -2;
+        k += 1;
+        if (x + k > row_bytes) {
+          extra_bytes = (uint8_t)k;
+          k = row_bytes - x;
+          extra_bytes -= (uint8_t)k;
+          extra_data = data[pos + 2];
+        }
+        memset(&buffer[x], data[pos + 2], k);
+        pos += 3;
+      }
+    } else {
+      k = 1;
+      buffer[x] = data[pos++];
+    }
+    while (true) {
+      x += k;
+      if (x >= row_bytes) {
+        memcpy(out + (int64_t)y * row_bytes, buffer.data(), row_bytes);
+        x = 0;
+        if (++y >= rows) return 0;
+      }
+      if (extra_bytes == 0 || x > 0) break;
+      k = extra_bytes >= row_bytes ? row_bytes : extra_bytes;
+      memset(&buffer[x], extra_data, k);
+      extra_bytes -= (uint8_t)k;
+    }
+  }
+}
+
+namespace {
+
+inline int hex_digit(uint8_t v) {
+  return v >= '0' && v <= '9'   ? v - '0'
+         : v >= 'a' && v <= 'f' ? v - 'a' + 10
+         : v >= 'A' && v <= 'F' ? v - 'A' + 10
+                                : 0;
+}
+
+}  // namespace
+
+// `data` is the file from the end of the header's match; `rows` lines of
+// `row_bytes` bytes into `out`.
+extern "C" int mods_xbm_decode(const uint8_t *data, int64_t n,
+                               int64_t row_bytes, int rows, uint8_t *out) {
+  int64_t pos = 0, i = 0, total = row_bytes * rows;
+  while (i < total) {
+    while (pos < n && data[pos] != 'x') pos++;
+    if (n - pos < 3) return -2;
+    out[i++] = hex_digit(data[pos + 1]) << 4 | hex_digit(data[pos + 2]);
+    pos += 3;
   }
   return 0;
 }

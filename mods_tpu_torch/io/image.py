@@ -67,8 +67,14 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     luminance, palettes, DXT1-5 and BC1-BC7 under FourCC and DX10
     headers; ``csrc/bcn_decode.cpp``) by ``io/dds.py``; ICNS (PNG, JPEG
     2000 and RLE entries with their masks, the largest size, and PIL's
-    array of it) by ``io/icns.py``.
-  Anything else that PIL opens (XBM, IM, BLP, AVIF, ...) raises a
+    array of it) by ``io/icns.py``;
+  - IM (every "Image type" of ImImagePlugin.OPEN that Pillow can load,
+    Luts, bottom-up rows) by ``io/im.py``, found by its text header as
+    ``Image.open`` finds it (after ICO, before QOI); MSP (versions 1 and
+    2) and Sun raster (every depth, colour maps, RLE) by ``io/raster.py``;
+    XBM and XPM by ``io/x11.py``; BLP (BLP1 JPEG and palettes, BLP2
+    palettes and DXT1/3/5 as the plugin decodes them) by ``io/blp.py``.
+  Anything else that PIL opens (AVIF, EPS, SPIDER, GBR, ...) raises a
   ``ValueError`` naming the format, as do the variants the readers leave
   out (a VP8 inter frame,
   which PIL refuses too, and the TIFF compressions WebP, JBIG and JPEG
@@ -110,10 +116,15 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   ``io/raster.py``, PIL's bytes (an ICO's frames, not its PNG bytes);
   ``.dds`` (PIL's uncompressed save, byte for byte: gray, gray+alpha,
   RGB, RGBA) by ``io/dds.py``; ``.icns`` (eight PNG entries of six
-  bicubic squares, PIL's frames, not its PNG bytes) by ``io/icns.py``.
+  bicubic squares, PIL's frames, not its PNG bytes) by ``io/icns.py``;
+  ``.im`` (PIL's bytes in every mode; the header names the file) by
+  ``io/im.py``; ``.msp`` and ``.xbm`` (PIL's bytes of a bool array; every
+  other mode refused as PIL refuses it) by ``io/raster.py`` and
+  ``io/x11.py``; ``.blp`` refused for every array, as PIL writes BLP from
+  mode "P" only.
   int8 arrays are PIL's unsigned "I;8" and uint32 arrays its "I;32",
   their bits as int32, in every format that writes "I".  Every other
-  extension that PIL writes (``.im``, ``.msp``, ...) and every array
+  extension that PIL writes (``.pdf``, ``.palm``, ...) and every array
   that PIL refuses to write in that format raise a ``ValueError`` naming
   them.
 * ``adaptive_palette(array)``: the indices and the palette of
@@ -131,7 +142,8 @@ import struct
 
 import numpy as np
 
-from mods_tpu_torch.io import dds, fits, icns, png, psd, raster, tiff
+from mods_tpu_torch.io import (blp, dds, fits, icns, im, png, psd, raster,
+                                tiff, x11)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
@@ -143,11 +155,7 @@ J2K_SOURCE = os.path.join(_PKG, "csrc", "j2k_decode.cpp")
 J2K_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "j2k_encode.cpp")
 
 # magic bytes of formats that PIL 12.1.0 opens and this module does not
-_OTHER_FORMATS = ((b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"DanM", "MSP"),
-                  (b"LinS", "MSP"), (b"\x59\xa6\x6a\x95", "SUN"),
-                  (b"#define", "XBM"), (b"/* XPM */", "XPM"),
-                  (b"Image type:", "IM"),
-                  (b"FTEX", "FTEX"), (b"\x80\xe8\x00\x00", "PIXAR"),
+_OTHER_FORMATS = ((b"FTEX", "FTEX"), (b"\x80\xe8\x00\x00", "PIXAR"),
                   (b"\x00\x00\x01\xb3", "MPEG"), (b"%!PS", "EPS"),
                   (b"\xc5\xd0\xd3\xc6", "EPS"),
                   (b"\x89HDF\r\n\x1a\n", "HDF5"), (b"BUFR", "BUFR"),
@@ -156,12 +164,32 @@ _OTHER_FORMATS = ((b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"DanM", "MSP"),
 # the major brands of an ftyp box that AvifImagePlugin._accept takes
 _AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 _READ_NAMES = ("PNG, JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP, JPEG 2000, "
-               "ICO, CUR, TGA, SGI, PCX, QOI, PSD, DCX, FITS, DDS and ICNS")
+               "ICO, CUR, TGA, SGI, PCX, QOI, PSD, DCX, FITS, DDS, ICNS, IM, "
+               "MSP, XBM, XPM, Sun raster and BLP")
 # formats known by their first bytes, and the plugins whose _accept takes
-# them: PsdImagePlugin, DdsImagePlugin, IcnsImagePlugin, FitsImagePlugin,
-# DcxImagePlugin
-_SIGNATURES = ((b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"icns", "ICNS"),
-               (b"SIMPLE", "FITS"), (b"\xb1\x68\xde\x3a", "DCX"))
+# them, those that PIL tries before GbrImagePlugin first: DdsImagePlugin,
+# FitsImagePlugin, DcxImagePlugin, BlpImagePlugin; PsdImagePlugin,
+# IcnsImagePlugin, MspImagePlugin, SunImagePlugin, XpmImagePlugin
+_SIGNATURES = ((b"DDS ", "DDS"), (b"SIMPLE", "FITS"),
+               (b"\xb1\x68\xde\x3a", "DCX"), (b"BLP1", "BLP"),
+               (b"BLP2", "BLP"))
+_LATER_SIGNATURES = ((b"8BPS", "PSD"), (b"icns", "ICNS"), (b"DanM", "MSP"),
+                     (b"LinS", "MSP"), (b"\x59\xa6\x6a\x95", "SUN"),
+                     (b"/* XPM */", "XPM"))
+
+
+def _gbr_claims(data: bytes) -> bool:
+    """GbrImageFile._open's checks, which PIL runs before most formats: a
+    header size of at least 20, version 1 or 2 (2 with "GIMP" at byte 20),
+    non-zero sides and a colour depth of 1 or 4, all big-endian.  A Sun
+    raster 1 pixel wide whose length field is 1 or 4 passes them."""
+    if len(data) < 20:
+        return False
+    size, version, w, h, depth = struct.unpack_from(">5I", data)
+    return (size >= 20 and version in (1, 2) and w > 0 and h > 0
+            and depth in (1, 4)
+            and (version == 1 or (data[20:24] == b"GIMP"
+                                  and len(data) >= 28)))
 
 
 def _format(data: bytes, path) -> str:
@@ -189,6 +217,15 @@ def _format(data: bytes, path) -> str:
     for magic, fmt in _SIGNATURES:
         if head.startswith(magic):
             return fmt
+    if _gbr_claims(data):
+        raise ValueError(f"{path}: GBR images are not supported "
+                         f"({_READ_NAMES} are; PIL opens this file as a GIMP "
+                         f"brush)")
+    for magic, fmt in _LATER_SIGNATURES:
+        if head.startswith(magic):
+            return fmt
+    if head.lstrip().startswith(b"#define"):         # XbmImagePlugin
+        return "XBM"
     name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
     if head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS:
         name = "AVIF"
@@ -212,6 +249,8 @@ def _format(data: bytes, path) -> str:
         # IcoImageFile._open loads the frame
         ("ICO", head.startswith(b"\x00\x00\x01\x00"),
          lambda d: raster.read_ico(d, path)),
+        # ImImageFile._open, which PIL runs on every file that reaches it
+        ("IM", True, lambda d: im.im_header(d, path)),
         ("QOI", head.startswith(b"qoif"), raster.qoi_header),
         ("SGI", head.startswith(b"\x01\xda"),
          lambda d: raster.sgi_header(d, path)))
@@ -285,14 +324,20 @@ _RASTER_READERS = {"ICO": raster.read_ico, "CUR": raster.read_cur,
                    "PCX": raster.read_pcx, "QOI": raster.read_qoi,
                    "DCX": raster.read_dcx, "PSD": psd.read_psd,
                    "FITS": fits.read_fits, "DDS": dds.read_dds,
-                   "ICNS": icns.read_icns}
+                   "ICNS": icns.read_icns, "IM": im.read_im,
+                   "MSP": raster.read_msp, "SUN": raster.read_sun,
+                   "XBM": x11.read_xbm, "XPM": x11.read_xpm,
+                   "BLP": blp.read_blp}
 # the size that Image.open reports, from the header
 _HEADERS = {"TGA": lambda d, p: raster.tga_header(d),
             "QOI": lambda d, p: raster.qoi_header(d),
             "SGI": raster.sgi_header, "PCX": raster.pcx_header,
             "PSD": psd.psd_header, "FITS": fits.fits_header,
             "DDS": dds.dds_header, "ICNS": icns.icns_header,
-            "DCX": lambda d, p: raster.pcx_header(raster.dcx_page(d, p), p)}
+            "DCX": lambda d, p: raster.pcx_header(raster.dcx_page(d, p), p),
+            "IM": im.im_header, "MSP": raster.msp_header,
+            "SUN": raster.sun_header, "XBM": x11.xbm_header,
+            "XPM": x11.xpm_header, "BLP": blp.blp_header}
 
 
 def read_image(path) -> np.ndarray:
@@ -703,7 +748,11 @@ def _read_jpeg(data: bytes, path) -> np.ndarray:
 def _jpeg_size(path) -> tuple[int, int]:
     """(width, height) from the first SOFn marker, as PIL reads it."""
     with open(path, "rb") as f:
-        data = f.read()
+        return _jpeg_size_of(f.read(), path)
+
+
+def _jpeg_size_of(data: bytes, path) -> tuple[int, int]:
+    """``_jpeg_size`` of the JPEG stream ``data``."""
     pos = 2
     while pos + 4 <= len(data):
         if data[pos] != 0xFF:
@@ -1100,10 +1149,10 @@ _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".mpo": "JPEG", ".ico": "ICO", ".tga": "TGA", ".icb": "TGA",
                  ".vda": "TGA", ".vst": "TGA", ".sgi": "SGI", ".bw": "SGI",
                  ".rgb": "SGI", ".rgba": "SGI", ".pcx": "PCX", ".qoi": "QOI",
-                 ".dds": "DDS", ".icns": "ICNS"}
+                 ".dds": "DDS", ".icns": "ICNS", ".im": "IM", ".msp": "MSP",
+                 ".xbm": "XBM", ".blp": "BLP"}
 # the extensions of the other formats that PIL 12.1.0 writes here
-_NOT_WRITTEN = {".im": "IM", ".msp": "MSP", ".xbm": "XBM", ".blp": "BLP",
-                ".palm": "PALM", ".pdf": "PDF", ".ps": "EPS", ".eps": "EPS",
+_NOT_WRITTEN = {".palm": "PALM", ".pdf": "PDF", ".ps": "EPS", ".eps": "EPS",
                 ".avif": "AVIF", ".avifs": "AVIF"}
 # PIL's stubs: formats it names but cannot save without a handler
 _STUBS = {".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
@@ -1529,14 +1578,17 @@ def save_image(path, array) -> None:
             data = _j2k_bytes(a, mode, not str(path).endswith(".j2k"))
         elif fmt == "SGI":                     # the name goes in the header
             data = raster.sgi_bytes(a, mode, path)
+        elif fmt == "IM":
+            data = im.im_bytes(a, mode, path)
         else:
             data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "DIB": _dib_bytes,
                     "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes,
                     "WEBP": _webp_bytes, "GIF": _gif_bytes,
                     "ICO": raster.ico_bytes, "TGA": raster.tga_bytes,
                     "PCX": raster.pcx_bytes, "QOI": raster.qoi_bytes,
-                    "DDS": dds.dds_bytes,
-                    "ICNS": icns.icns_bytes}[fmt](a, mode)
+                    "DDS": dds.dds_bytes, "ICNS": icns.icns_bytes,
+                    "MSP": raster.msp_bytes, "XBM": x11.xbm_bytes,
+                    "BLP": blp.blp_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

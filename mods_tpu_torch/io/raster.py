@@ -1,10 +1,11 @@
-"""ICO, CUR, TGA, SGI, PCX, DCX and QOI files as PIL 12.1.0 reads and writes
-them for the JAX commands (``Image.open``, ``Image.fromarray(a).save``).
+"""ICO, CUR, TGA, SGI, PCX, DCX, QOI, MSP and Sun raster files as PIL 12.1.0
+reads and writes them for the JAX commands (``Image.open``,
+``Image.fromarray(a).save``).
 
 ``io/image.py`` picks the format and calls these; each reader returns
 PIL's array and mode, each writer the bytes of PIL's file.  The byte loops
 are host C++ built at first use (``csrc/raster_codec.cpp``: the RLE codecs,
-QOI and PackBits; ``csrc/resample.cpp``: Pillow's Lanczos resampling for
+QOI, PackBits, MSP's runs and Sun's RLE; ``csrc/resample.cpp``: Pillow's Lanczos resampling for
 the ICO writer's thumbnails and its bicubic for ``io/icns.py``'s frames;
 ``resizer`` premultiplies an "LA" or "RGBA" source once for all sizes).
 
@@ -37,6 +38,17 @@ the ICO writer's thumbnails and its bicubic for ``io/icns.py``'s frames;
 * QOI (QoiImagePlugin): RGB and RGBA, read and written by the plugin's
   own Python codec's rules.
 * DCX (DcxImagePlugin): the first page's PCX image.
+* MSP (MspImagePlugin): "DanM" (version 1) packed 1-bit rows, "LinS"
+  (version 2) runs (``mods_msp_decode``: the plugin's own Python
+  decoder's rules), the 32-byte header's checksum held as PIL holds it;
+  mode "1" written as version 1, every other mode refused as PIL refuses
+  it.
+* Sun raster (SunImagePlugin), read only: 1-bit (inverted: a set bit is
+  black), 4- and 8-bit gray ("P", the indices, after an RGB colour map),
+  24- and 32-bit BGR(X), or RGB(X) in a type-3 file, rows padded to 16
+  bits; type 2 is Pillow's SunRleDecode.c (``mods_sun_rle_decode``), whose
+  lines are not padded.  PIL cannot load a colour map on a 1-bit or RGB
+  image.
 
 A file that PIL's ``Image.open`` would pass on to the next plugin raises
 ``NotThisFormat``: ``io/image.py`` then tries TGA, which PIL tries last.
@@ -73,13 +85,18 @@ def _codec():
                      ("mods_sgi_rle_decode", [p, i64, i, i, i, i, p]),
                      ("mods_pcx_decode", [p, i64, i, i, i, i, p]),
                      ("mods_qoi_decode", [p, i64, i64, i, p]),
-                     ("mods_packbits_decode", [p, i64, i64, i, p])):
+                     ("mods_packbits_decode", [p, i64, i64, i, p]),
+                     ("mods_sun_rle_decode", [p, i64, i64, i, p]),
+                     ("mods_xbm_decode", [p, i64, i64, i, p])):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = args
     lib.mods_pcx_encode.restype = ctypes.c_int64
     lib.mods_pcx_encode.argtypes = [p, i, i, i, p]
     lib.mods_qoi_encode.restype = ctypes.c_int64
     lib.mods_qoi_encode.argtypes = [p, i64, i, p]
+    lib.mods_msp_decode.restype = ctypes.c_int64
+    lib.mods_msp_decode.argtypes = [p, i64, i, i, p, i64,
+                                    ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -722,3 +739,144 @@ def qoi_bytes(a: np.ndarray, mode: str) -> bytes:
     out = np.empty(h * w * 5 + 8, np.uint8)
     n = _codec().mods_qoi_encode(px.ctypes.data, h * w, c, out.ctypes.data)
     return b"qoif" + struct.pack(">IIBB", w, h, c, 1) + out[:n].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# MSP (MspImagePlugin)
+
+def msp_header(data: bytes, path) -> dict:
+    """MspImageFile._open: size and version; a file PIL cannot identify
+    (a short header, a bad checksum, an empty side) raises PIL's
+    reason."""
+    if len(data) < 32:
+        raise ValueError(f"{path}: cannot identify image file (an MSP "
+                         f"header of {len(data)} bytes)")
+    words = struct.unpack_from("<16H", data)
+    checksum = 0
+    for word in words:
+        checksum ^= word
+    if checksum:
+        raise ValueError(f"{path}: cannot identify image file (bad MSP "
+                         f"checksum)")
+    w, h = words[2], words[3]
+    if not w or not h:
+        raise ValueError(f"{path}: cannot identify image file (an MSP of "
+                         f"{w} x {h} pixels)")
+    return dict(size=(w, h), mode="1", version=1 if data[:4] == b"DanM"
+                else 2)
+
+
+def read_msp(data: bytes, path) -> tuple[np.ndarray, str]:
+    hd = msp_header(data, path)
+    (w, h) = hd["size"]
+    stride = (w + 7) // 8
+    if hd["version"] == 1:
+        body = data[32:32 + stride * h]
+        if len(body) < stride * h:
+            raise _decode_failed(path, -2)
+    else:
+        out = np.zeros(stride * h, np.uint8)
+        row = ctypes.c_int(0)
+        n = _codec().mods_msp_decode(data[32:], len(data) - 32, w, h,
+                                     out.ctypes.data, out.size,
+                                     ctypes.byref(row))
+        if n == -1:
+            raise ValueError(f"{path}: Truncated MSP file in row map")
+        if n == -2:
+            raise ValueError(f"{path}: Truncated MSP file, expected "
+                             f"{_u16(data, 32 + 2 * row.value)} bytes on "
+                             f"row {row.value}")
+        if n == -3:
+            raise ValueError(f"{path}: Corrupted MSP file in row "
+                             f"{row.value}")
+        if n < out.size:
+            raise ValueError(f"{path}: not enough image data")
+        body = out.tobytes()
+    rows = np.frombuffer(body, np.uint8).reshape(h, stride)
+    return np.unpackbits(rows, axis=1)[:, :w].astype(bool), "1"
+
+
+def msp_bytes(a: np.ndarray, mode: str) -> bytes:
+    """PIL's MSP: version 1, the size twice and the checksum in word 12,
+    then the packed rows (a set bit white)."""
+    if mode != "1":
+        raise ValueError(f"cannot write mode {mode} as MSP")
+    h, w = a.shape
+    words = [_u16(b"Da", 0), _u16(b"nM", 0), w, h, 1, 1, 1, 1, w, h] \
+        + [0] * 6
+    for word in words[:12]:
+        words[12] ^= word
+    return struct.pack("<16H", *words) + np.packbits(a, axis=1).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# Sun raster (SunImagePlugin)
+
+# depth -> (mode, raw mode, bits) and, for 24 and 32 bits in a type-3 file,
+# the raw mode RGB(X)
+_SUN_DEPTHS = {1: ("1", "1;I"), 4: ("L", "L;4"), 8: ("L", "L"),
+               24: ("RGB", "BGR"), 32: ("RGB", "BGRX")}
+
+
+def sun_header(data: bytes, path) -> dict:
+    """SunImageFile._open: size, mode, raw mode, the data's offset and
+    type; what PIL passes on to the next plugin raises "cannot identify
+    image file" with the plugin's reason."""
+    def unidentified(why):
+        return ValueError(f"{path}: cannot identify image file ({why})")
+    if len(data) < 32:
+        raise unidentified("a Sun raster header of fewer than 32 bytes")
+    (w, h, depth, _, file_type, palette_type,
+     palette_length) = struct.unpack_from(">7I", data, 4)
+    if depth not in _SUN_DEPTHS:
+        raise unidentified("Unsupported Mode/Bit Depth")
+    mode, rawmode = _SUN_DEPTHS[depth]
+    if file_type == 3:
+        rawmode = rawmode.replace("BGR", "RGB")
+    if palette_length:
+        if palette_length > 1024:
+            raise unidentified("Unsupported Color Palette Length")
+        if palette_type != 1:
+            raise unidentified("Unsupported Palette Type")
+        if mode == "L":
+            mode, rawmode = "P", rawmode.replace("L", "P")
+    if file_type not in (0, 1, 2, 3, 4, 5):
+        raise unidentified("Unsupported Sun Raster file type")
+    if not w or not h:
+        raise unidentified(f"a Sun raster of {w} x {h} pixels")
+    return dict(size=(w, h), mode=mode, rawmode=rawmode, depth=depth,
+                rle=file_type == 2, offset=32 + palette_length,
+                stride=(w * depth + 15) // 16 * 2)
+
+
+def read_sun(data: bytes, path) -> tuple[np.ndarray, str]:
+    hd = sun_header(data, path)
+    (w, h), depth, rawmode = hd["size"], hd["depth"], hd["rawmode"]
+    if hd["offset"] > 32 and hd["mode"] in ("1", "RGB"):
+        raise ValueError(f"{path}: unrecognized image mode (PIL cannot put "
+                         f"a Sun raster's colour map on a {hd['mode']} "
+                         f"image)")
+    row_bytes = (w * depth + 7) // 8
+    body = data[hd["offset"]:]
+    if hd["rle"]:
+        rows = np.empty((h, row_bytes), np.uint8)
+        if _codec().mods_sun_rle_decode(body, len(body), row_bytes, h,
+                                        rows.ctypes.data):
+            raise _decode_failed(path, -2)
+    else:
+        stride = hd["stride"]
+        if len(body) < stride * (h - 1) + row_bytes:
+            raise _decode_failed(path, -2)
+        rows = np.frombuffer(body + bytes(stride - row_bytes), np.uint8)[
+            :stride * h].reshape(h, stride)[:, :row_bytes]
+    if depth == 1:
+        return np.unpackbits(rows, axis=1)[:, :w] == 0, "1"
+    if depth == 4:
+        v = np.stack([rows >> 4, rows & 15], -1).reshape(h, -1)[:, :w]
+        return np.ascontiguousarray(v * 17 if rawmode == "L;4" else v), \
+            hd["mode"]
+    if depth == 8:
+        return np.ascontiguousarray(rows), hd["mode"]
+    px = rows.reshape(h, w, depth // 8)
+    return np.ascontiguousarray(px[..., [2, 1, 0] if rawmode.startswith("B")
+                                   else [0, 1, 2]]), "RGB"

@@ -491,7 +491,7 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """IM, AVIF and YCCK JPEG: PIL reads each; SGILog TIFFs (libtiff's
+    """GBR, AVIF and YCCK JPEG: PIL reads each; SGILog TIFFs (libtiff's
     LogLuvSetupDecode refuses what PIL hands it), ThunderScan and
     tiff_raw_16 TIFFs of 8-bit samples (libtiff refuses those) and WebP in
     TIFF (this libtiff lacks it): the port raises a ValueError that names
@@ -506,7 +506,14 @@ def test_refusals_name_the_case(tmp_path):
     p = tmp_path / "o.tif"
     p.write_bytes(ojpeg_tiff(GRAY, (1, 1), photometric=1))
     np.testing.assert_array_equal(read_image(p), np.asarray(Image.open(p)))
-    cases = [("x.im", {}, RGB, "IM"), ("x.avif", {}, RGB, "AVIF")]
+    p = tmp_path / "x.gbr"           # a GIMP brush, version 1, gray
+    h, w = GRAY.shape
+    p.write_bytes(struct.pack(">5I", 25, 1, w, h, 1) + b"name\0"
+                  + GRAY.tobytes())
+    np.testing.assert_array_equal(np.asarray(Image.open(p)), GRAY)
+    with pytest.raises(ValueError, match="GBR"):
+        read_image(p)
+    cases = [("x.avif", {}, RGB, "AVIF")]
     for name, kw, a, match in cases:
         p = tmp_path / name
         Image.fromarray(a).save(p, **kw)

@@ -291,7 +291,7 @@ def test_read_image_equals_pil(tmp_path, case):
 def test_other_formats_raise_naming_them(tmp_path):
     """TIFF, GIF, PFM, WebP and PSD read as PIL reads them (they raised
     before the port read them); so do the RLE-compressed and the 16-bit
-    BMP.  XBM, which PIL reads and the port does not, and an unknown file
+    BMP.  FTEX, which PIL reads and the port does not, and an unknown file
     raise a ValueError that names the format."""
     for fmt in ("TIFF", "GIF", "PFM", "WebP"):
         p = tmp_path / f"x.{fmt.lower()}"
@@ -304,12 +304,15 @@ def test_other_formats_raise_naming_them(tmp_path):
                   + bytes(14) + GRAY.tobytes())
     np.testing.assert_array_equal(np.asarray(Image.open(p)), GRAY)
     _hold_read(p)
-    p = tmp_path / "x.xbm"
-    Image.fromarray(GRAY > 128).save(p)
-    assert np.asarray(Image.open(p)).shape == GRAY.shape
-    with pytest.raises(ValueError, match="XBM"):
+    p = tmp_path / "x.ftex"       # FTEX: one uncompressed RGB mipmap
+    rgb = np.stack([GRAY] * 3, -1)
+    h, w = GRAY.shape
+    p.write_bytes(b"FTEX" + struct.pack("<7i", 0, w, h, 1, 1, 1, 32)
+                  + struct.pack("<i", rgb.size) + rgb.tobytes())
+    np.testing.assert_array_equal(np.asarray(Image.open(p)), rgb)
+    with pytest.raises(ValueError, match="FTEX"):
         read_image(p)
-    with pytest.raises(ValueError, match="XBM"):
+    with pytest.raises(ValueError, match="FTEX"):
         image_size(p)
     p = tmp_path / "x.bin"
     p.write_bytes(b"\x00\x01\x02\x03" * 8)
@@ -610,7 +613,8 @@ def test_save_image_cases_refused_before(tmp_path, name, array):
 
 @pytest.mark.parametrize("name,array,match", [
     ("x.jp2", GRAY.astype(np.float32), "mode F as JPEG 2000"),
-    ("x.msp", GRAY > 128, "MSP"),
+    ("x.msp", GRAY, "cannot write mode L as MSP"),
+    ("x.blp", RGB, "Unsupported BLP image mode"),
     ("x.foo", GRAY, "unknown image file extension"),
     ("x.png", GRAY.astype(np.float32), "mode F"),
     ("x.ppm", np.stack([GRAY, GRAY], -1), "mode LA as PPM"),
@@ -629,13 +633,17 @@ def test_save_image_cases_refused_before(tmp_path, name, array):
 ])
 def test_save_image_refusals_name_what_they_refuse(tmp_path, name, array,
                                                    match):
-    """Each refusal is PIL's: PIL raises on the same array and
-    extension."""
+    """Each refusal is PIL's: PIL raises on the same array and extension
+    (BLP's refusal, with the same message, is a ValueError in PIL
+    too)."""
     p = tmp_path / name
     with pytest.raises(ValueError, match=match):
         save_image(p, array)
     assert not p.exists()
-    if match != "unknown image file extension" and "MSP" not in match:
+    if name.endswith(".blp"):
+        with pytest.raises(ValueError, match=match):
+            Image.fromarray(array).save(tmp_path / f"pil{name[1:]}")
+    elif match != "unknown image file extension":
         with pytest.raises((OSError, TypeError, KeyError)):
             Image.fromarray(array).save(tmp_path / f"pil{name[1:]}")
 

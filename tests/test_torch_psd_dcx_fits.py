@@ -412,12 +412,14 @@ def write_fixtures(d) -> None:
             f.write(data)
 
 
-def hold_fixtures(files: dict, limit: int) -> None:
-    """The committed fixtures are ``files``'s bytes, each read by the port
-    as PIL reads it, with PIL's shape, mode and hash in
-    ``chip_smoke.FORMAT_FIXTURE_SHA256``; under ``limit`` bytes in all."""
+def hold_fixtures(files: dict, limit: int,
+                  names: tuple = chip_smoke.PSD_DDS_ICNS_FIXTURES) -> None:
+    """The committed fixtures are ``files``'s bytes, each one of ``names``
+    (a phase's list) and read by the port as PIL reads it, with PIL's
+    shape, mode and hash in ``chip_smoke.FORMAT_FIXTURE_SHA256``; under
+    ``limit`` bytes in all."""
     for name, data in files.items():
-        assert name in chip_smoke.PSD_DDS_ICNS_FIXTURES, name
+        assert name in names, name
         path = chip_smoke.IMAGE_FIXTURES / name
         assert path.read_bytes() == data, name
         hold_read(path)

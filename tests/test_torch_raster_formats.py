@@ -445,6 +445,17 @@ def test_refused_extensions_name_the_format(tmp_path, ext):
         assert I._NOT_WRITTEN[ext] in Image.SAVE
 
 
+@pytest.mark.parametrize("ext", [".blp", ".im", ".msp", ".xbm"])
+def test_bitmap_extensions_write_or_refuse_as_pil(tmp_path, ext):
+    """The extensions that left the refused ones when the port learnt to
+    write them: an RGB array is written as PIL writes it to ``.im`` (its
+    bytes) and refused with PIL's reason as ``.msp``, ``.xbm`` and
+    ``.blp`` (MSP and XBM take mode "1" only, BLP "P" only)."""
+    a = arrays(1, 8, 8)["RGB"]
+    hold_write(tmp_path, f"x{ext}", a)
+    assert (tmp_path / "port" / f"x{ext}").exists() == (ext == ".im")
+
+
 def test_every_pil_writer_is_written_or_refused():
     """The extensions PIL 12.1.0 saves: each written or named in a
     refusal."""
@@ -459,10 +470,11 @@ def test_every_pil_writer_is_written_or_refused():
                                     ("BLP", {}), ("MSP", {}), ("XBM", {}),
                                     ("IM", {}), ("EPS", {}), ("SPIDER", {})])
 def test_read_refusals_name_the_format(tmp_path, fmt, kw):
-    """Files PIL writes and reads and the port does not read raise a
-    ValueError naming the format (SPIDER, without a signature, as not a
-    format the reader knows): BLP1 and BLP2, XBM with and without a
-    hotspot."""
+    """Files PIL writes and reads: BLP1 and BLP2, MSP, XBM with and
+    without a hotspot and IM are read as PIL reads them (the port refused
+    them before it read them); EPS and SPIDER, which the port does not
+    read, raise a ValueError naming the format (SPIDER, without a
+    signature, as not a format the reader knows)."""
     a = arrays(2, 16, 16)
     img = a["1"] if fmt in ("MSP", "XBM") else a["F"] if fmt == "SPIDER" \
         else a["RGB"]
@@ -471,6 +483,9 @@ def test_read_refusals_name_the_format(tmp_path, fmt, kw):
     p = tmp_path / "f"
     p.write_bytes(pil_bytes(img, fmt, **kw))
     assert Image.open(p).format == fmt
+    if fmt not in ("EPS", "SPIDER"):
+        hold_read(p)
+        return
     with pytest.raises(ValueError, match="SPIDER|not an image format"
                        if fmt == "SPIDER" else fmt):
         I._read(p)
