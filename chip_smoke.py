@@ -303,7 +303,19 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    ms of three printed; (zf) ``cli match`` on zoom2x's pair written as
    gray .im: its launches held to the plan, its figures to
    ``JAX_IM_REFERENCE`` by phase 6's rule and its tentatives within 20 %,
-   its drawings named .im read back to ``viz``'s canvases.
+   its drawings named .im read back to ``viz``'s canvases; (zg) the
+   SPIDER, GBR, XVTHUMB, IMT, FLI, FTEX, McIdas, IPTC and PIXAR files of
+   ``PROBED_FIXTURES`` and three Photo CD files built here from a seed
+   (``pcd_file``) decoded on the host (``io/probed.py``, the FLI and PCD
+   loops of ``csrc/raster_codec.cpp``), each array's shape, mode and
+   SHA-256 held to PIL's, the decode ms printed; the two JPEGs of
+   ``JPEG_CUT_FIXTURES`` cut at ``jpeg_cut_points``, each cut refused
+   naming the truncation where PIL refuses it and held to PIL's hash
+   where PIL reads it, and closed with EOI before each scan, each held to
+   PIL's hash (libjpeg's block smoothing); (zh) ``cli match`` on zoom2x's
+   pair written as 1-byte McIdas area files (``mcidas_file``): its
+   launches held to the plan, its figures to ``JAX_MCIDAS_REFERENCE`` by
+   phase 6's rule and its tentatives within 20 %.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -5047,6 +5059,63 @@ FORMAT_FIXTURE_SHA256 = {
     "blp2_dxt5.blp": ((7, 13, 4), "RGBA",
         "ab6565e8ffe05fddae95859c463ead47"
         "5a7d2034fc97bf91071795a714d6a027"),
+    "fli_black_ss2.flc": ((37, 21), "P",
+        "babc841343f3e9df91d34e16ae83a99c"
+        "776b76dddc4d253ed93193d827de00c4"),
+    "fli_brun.flc": ((37, 21), "P",
+        "6fdc475e360bcb1631ee0759466a7d41"
+        "6ad06cf64d228c24f797fdcc867967b3"),
+    "fli_copy_lc.fli": ((37, 21), "P",
+        "d019cb9c9f2e20b5cff50c80e2375213"
+        "38be092dc4a375ec8959749e0afc3061"),
+    "ftex_dxt1.ftc": ((37, 53, 4), "RGBA",
+        "f598cfee34f9d03ad2d42d2d7a9ed144"
+        "db4a261745ae19168e7d372abb002207"),
+    "ftex_rgb.ftu": ((37, 53, 3), "RGB",
+        "52d624eeddf73a60661e1d9587e051d8"
+        "18450808d6f09b68808ff6c46a37347a"),
+    "gbr_v1_l.gbr": ((37, 53), "L",
+        "0ce42b71350f093fd1b75e357743658f"
+        "33d3d941cc31d62608548cbdbcb34c84"),
+    "gbr_v2_rgba.gbr": ((37, 53, 4), "RGBA",
+        "c09c23041ccf8b288be0f3ad83edb622"
+        "88d54202c9fcec79253ed1c3e7e0956d"),
+    "imt.imt": ((37, 53), "L",
+        "0ce42b71350f093fd1b75e357743658f"
+        "33d3d941cc31d62608548cbdbcb34c84"),
+    "iptc_jpeg_l.iim": ((37, 53), "L",
+        "551fd205c7f95872cfc2d7cf26926c42"
+        "19bc78c0b181a7485a319b969ca2df92"),
+    "iptc_raw_l.iim": ((37, 53), "L",
+        "0ce42b71350f093fd1b75e357743658f"
+        "33d3d941cc31d62608548cbdbcb34c84"),
+    "iptc_raw_rgb_band.iim": ((37, 53, 3), "RGB",
+        "1ded7d27e08194df510be70de8d019eb"
+        "38258637ec7902beec3644d543b81bf8"),
+    "mcidas_1.area": ((37, 53), "L",
+        "0ce42b71350f093fd1b75e357743658f"
+        "33d3d941cc31d62608548cbdbcb34c84"),
+    "mcidas_2.area": ((37, 53), "I;16B",
+        "ab4ef690d82360e94aba7dda8585e0cc"
+        "55eff87e18d79993618741f87e77f7ea"),
+    "mcidas_4.area": ((37, 53), "I",
+        "c78bb9d2c505632de9e6463d9915ded2"
+        "140aef3d9eddeba4affda041259d5c54"),
+    "pixar.pxr": ((37, 53, 3), "RGB",
+        "52d624eeddf73a60661e1d9587e051d8"
+        "18450808d6f09b68808ff6c46a37347a"),
+    "spider_be.spi": ((37, 53), "F",
+        "5224e9c0de48aee7ad4ddfb64ff6d498"
+        "a7913d214cd23213a8663d02a5d5045d"),
+    "spider_le.spi": ((37, 53), "F",
+        "5224e9c0de48aee7ad4ddfb64ff6d498"
+        "a7913d214cd23213a8663d02a5d5045d"),
+    "spider_stack.spi": ((37, 53), "F",
+        "5224e9c0de48aee7ad4ddfb64ff6d498"
+        "a7913d214cd23213a8663d02a5d5045d"),
+    "xvthumb.xv": ((37, 53), "P",
+        "0ce42b71350f093fd1b75e357743658f"
+        "33d3d941cc31d62608548cbdbcb34c84"),
 }
 # 14n: the TIFFs of tests/test_torch_tiff_variants.py::write_fixtures
 # (CCITT, JPEG-in-TIFF, YCbCr, BigTIFF, predictor 3 with LZMA, ...), held
@@ -5675,6 +5744,66 @@ IM_ENCODE_SHA256 = {
 # tests/test_torch_im.py --jax-im``
 JAX_IM_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                         gt_consistent=37, corner_error_px=4.04)
+# 14zg: the SPIDER, GBR, XVTHUMB, IMT, FLI, FTEX, McIdas, IPTC and PIXAR
+# files of tests/test_torch_probed_formats.py::fixture_files (built there
+# from seed 0), held to the hashes of FORMAT_FIXTURE_SHA256
+PROBED_FIXTURES = (
+    "fli_black_ss2.flc", "fli_brun.flc", "fli_copy_lc.fli", "ftex_dxt1.ftc",
+    "ftex_rgb.ftu", "gbr_v1_l.gbr", "gbr_v2_rgba.gbr", "imt.imt",
+    "iptc_jpeg_l.iim", "iptc_raw_l.iim", "iptc_raw_rgb_band.iim",
+    "mcidas_1.area", "mcidas_2.area", "mcidas_4.area", "pixar.pxr",
+    "spider_be.spi", "spider_le.spi", "spider_stack.spi", "xvthumb.xv")
+# 14zg's Photo CD files, ``pcd_file(PCD_SEED + orientation, orientation)``
+# for orientations 0, 1 and 3: the shape, mode and SHA-256 of PIL's array
+# of each (tests/test_torch_probed_formats.py::test_pcd_hashes_are_pils)
+PCD_SEED = 23
+PCD_SHA256 = {
+    0: ((512, 768, 3), "RGB",
+        "a9bd8d82ae26f71f82bf1c8a16c974cc"
+        "2f4fb8a4d389d2b99b61ee775decb4d0"),
+    1: ((768, 512, 3), "RGB",
+        "4388b778b168f9de9119a68e6bb0628c"
+        "1e2b4409fc981a1474a2fdcc862ba8a0"),
+    3: ((768, 512, 3), "RGB",
+        "6576a8d4e1c214ea777fb61d5e3bbfa4"
+        "8dbfeb04e8c7c4b030c50ff5a5374093"),
+}
+# 14zg's JPEGs: PIL's progressive save of 80x64 gray noise and its default
+# save of 64x48 RGB noise (seed 0 and 1), written by
+# tests/test_torch_jpeg_truncated.py::cut_fixture_files
+JPEG_CUT_FIXTURES = ("jpeg_cut_gray_progressive.jpg",
+                     "jpeg_cut_rgb_baseline.jpg")
+# each of those cut at ``jpeg_cut_points`` that PIL 12.1.0 reads, with the
+# SHA-256 of its array (PIL refuses every other cut: "image file is
+# truncated"); and the SHA-256 of PIL's array of the file closed with an
+# EOI marker before each scan but the first, in order
+# (tests/test_torch_jpeg_truncated.py::test_chip_smoke_tables_are_pils;
+# ``python tests/test_torch_jpeg_truncated.py --hashes``)
+JPEG_CUT_READ_SHA256 = {
+    "jpeg_cut_gray_progressive.jpg": {},
+    "jpeg_cut_rgb_baseline.jpg": {},
+}
+JPEG_CLOSED_SHA256 = {
+    "jpeg_cut_gray_progressive.jpg": [
+        "96f6a26e739021df5f8b19e0d251a6a6"
+        "004a6f7d00a114579c272f0a3433de16",
+        "babcee8af57332912546a63fdf652d91"
+        "4ac55649a017d378d4cebd0c7e6ad26f",
+        "a42ba1292677f9664d1a8da34d9246a8"
+        "8ee2d87f01b965925fedb9dcea636610",
+        "c5a5f3b1fd18b2bb9888c1f28067555a"
+        "d9a4d15e87ff242e897d38100f9d7ebf",
+        "c6b55b6524cc4118907f5ad19833aa3d"
+        "8f3ebedb8ead1c6fcb9ecda2844e3156",
+    ],
+    "jpeg_cut_rgb_baseline.jpg": [],
+}
+# 14zh, the JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# zoom2x's pair as 1-byte McIdas area files (``mcidas_file``), on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_probed_formats.py
+# --jax-mcidas``
+JAX_MCIDAS_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                            gt_consistent=37, corner_error_px=4.04)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -6954,11 +7083,148 @@ def _match_webp_pair(held, work: Path) -> list:
     return failures
 
 
+def pcd_file(seed: int, orientation: int) -> bytes:
+    """A Kodak Photo CD file as PcdImagePlugin reads it: "PCD_" at byte
+    2048, the orientation in the low bits of byte 2048 + 1538, and the
+    768x512 base image's 256 pairs of luma lines and their chroma (3 x 768
+    bytes each) at 96 * 2048, random from ``seed``."""
+    import numpy as np
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    rng = np.random.default_rng(seed)
+    return bytes(head) + rng.integers(0, 256, 256 * 3 * 768,
+                                      dtype=np.uint8).tobytes()
+
+
+def mcidas_file(a, prefix: int = 0, gap: int = 0) -> bytes:
+    """A McIdas area file of the 2-D integer array ``a`` as
+    McIdasImagePlugin reads it: the 64-word big-endian area directory
+    (word 2 = 4, words 9-11 lines, elements and bytes an element, 14
+    bands, 15 the line prefix, 34 the data offset), then each line's
+    ``prefix`` bytes and its big-endian samples."""
+    import numpy as np
+    h, w = a.shape
+    nbytes = a.dtype.itemsize
+    words = [0] * 64
+    words[1] = 4
+    words[8], words[9], words[10] = h, w, nbytes
+    words[13], words[14], words[33] = 1, prefix, 256 + gap
+    rows = a.astype(f">{'u' if nbytes < 4 else 'i'}{nbytes}")
+    body = b"".join(bytes(range(prefix)) + r.tobytes() for r in rows)
+    return np.array(words, ">i4").tobytes() + bytes(gap) + body
+
+
+def jpeg_cut_points(data: bytes) -> list:
+    """14zg's cuts of a JPEG: every one in its last 48 bytes, and every
+    97th from its first scan's data on."""
+    start = data.index(b"\xff\xda")
+    start += 2 + int.from_bytes(data[start + 2:start + 4], "big")
+    return sorted(set(range(len(data) - 48, len(data)))
+                  | set(range(start, len(data), 97)))
+
+
+def jpeg_scan_starts(data: bytes) -> list:
+    return [i for i in range(2, len(data) - 1)
+            if data[i] == 0xFF and data[i + 1] == 0xDA]
+
+
+def _decode_probed() -> list:
+    """14zg: each of ``PROBED_FIXTURES`` and the ``pcd_file``s decoded on
+    the host, each array's shape, mode and SHA-256 against PIL's, the
+    median decode ms of three; each JPEG of ``JPEG_CUT_FIXTURES`` cut at
+    ``jpeg_cut_points`` (refused naming the truncation, or PIL's hash
+    where PIL reads the cut) and closed with EOI before each scan (PIL's
+    hash: libjpeg's block smoothing)."""
+    import hashlib
+    from mods_tpu_torch.io.image import _read
+    failures = []
+    out = _hold_tiff_fixtures("14zg", PROBED_FIXTURES, failures)
+    for orientation in (0, 1, 3):
+        data = pcd_file(PCD_SEED + orientation, orientation)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a, mode = _read_bytes(data)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        want = PCD_SHA256[orientation]
+        got = (tuple(a.shape), mode, hashlib.sha256(a.tobytes()).hexdigest())
+        out[f"pcd_{orientation}.pcd"] = dict(
+            shape=list(a.shape), mode=mode, decode_ms=statistics.median(ms),
+            sha256_equal_to_pil=got == want)
+        if got != want:
+            failures.append(f"14zg pcd_{orientation}: {got}, PIL's {want}")
+    for name in JPEG_CUT_FIXTURES:
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        cuts = jpeg_cut_points(data)
+        refused = read = 0
+        for cut in cuts:
+            want = JPEG_CUT_READ_SHA256[name].get(cut)
+            try:
+                a, _ = _read_bytes(data[:cut])
+                got = hashlib.sha256(a.tobytes()).hexdigest()
+            except ValueError as e:
+                got = None if "truncated" in str(e) else str(e)
+            refused += got is None
+            read += got is not None
+            if got != want:
+                failures.append(f"14zg {name} cut at {cut}: {got}, PIL "
+                                f"{want or 'refuses it'}")
+        closed = []
+        for at in jpeg_scan_starts(data)[1:]:
+            a, _ = _read_bytes(data[:at] + b"\xff\xd9")
+            closed.append(hashlib.sha256(a.tobytes()).hexdigest())
+        if closed != JPEG_CLOSED_SHA256[name]:
+            failures.append(f"14zg {name} closed before each scan: not "
+                            f"PIL's hashes")
+        out[name] = dict(cuts=len(cuts), refused=refused, read=read,
+                         closed_files=len(closed),
+                         closed_equal_to_pil=closed
+                         == JPEG_CLOSED_SHA256[name])
+    print(f"[14] zg, SPIDER, GBR, XVTHUMB, IMT, FLI, FTEX, McIdas, PCD, IPTC "
+          f"and PIXAR files decoded on the host, cut and closed JPEGs: "
+          f"{json.dumps(out)}", flush=True)
+    return failures
+
+
+def _read_bytes(data: bytes):
+    """``io/image.py``'s read of a file's bytes: (array, mode)."""
+    from mods_tpu_torch.io.image import _read_data
+    return _read_data(data, "<bytes>")
+
+
+def _match_mcidas_pair(held, work: Path) -> list:
+    """14zh: zoom2x's pair written as 1-byte McIdas area files
+    (``mcidas_file``), then ``cli match`` on it against
+    ``JAX_MCIDAS_REFERENCE`` (``_held_cli_match``, tentatives within
+    20 %); the drawings go to .png."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    failures, areas = [], []
+    for i in (1, 2):
+        view = read_image(PAIRS / f"zoom2x_{i}.png")
+        areas.append(work / f"zoom2x_{i}.area")
+        areas[-1].write_bytes(mcidas_file(view))
+        if not np.array_equal(read_image(areas[-1]), view):
+            failures.append(f"14zh {areas[-1].name} is not the view")
+    res, fails, _ = _held_cli_match(
+        held, work, "zoom2x McIdas", areas, (work / "o1.png", work / "o2.png"),
+        JAX_MCIDAS_REFERENCE)
+    failures += fails
+    ref = JAX_MCIDAS_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14zh: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    print(f"[14] zh, cli match on the McIdas pair: {json.dumps(res)}",
+          flush=True)
+    return failures
+
+
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14y, 14za-14zf), on the card machine without PIL.
+    """Phase 14 (14a-14y, 14za-14zh), on the card machine without PIL.
     Raises with every failure of its parts; returns each kernel's launches
-    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc and 14zf (2
-    ``window_sampler`` each, 22 in all)."""
+    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc, 14zf and 14zh
+    (2 ``window_sampler`` each, 24 in all)."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -7004,6 +7270,9 @@ def _drive_phase14(wrappers: dict) -> dict:
         failures += _decode_bitmaps()
         failures += _encode_ims(Path(d))
         failures += _match_im_pair(held, Path(d))
+    failures += _decode_probed()
+    with tempfile.TemporaryDirectory() as d:
+        failures += _match_mcidas_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -7190,7 +7459,7 @@ def main() -> int:
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
           f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000, "
-          f"TGA, PSD and IM pairs' commands: "
+          f"TGA, PSD, IM and McIdas pairs' commands: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -18,13 +18,31 @@
 //     jdapimin.c), each sample inverted as PIL's "CMYK;I" raw mode
 //     inverts the Adobe convention.
 // A progressive file is decoded as jdphuff.c decodes it (DC first and
-// refinement, AC first and refinement with end-of-band runs); its
-// coefficients are complete after the last scan, so libjpeg's block
-// smoothing, which only runs on incomplete coefficients, never applies.
+// refinement, AC first and refinement with end-of-band runs).  Where its
+// coefficients are not all at full precision after the last scan (an
+// encoder or a download that stopped early), libjpeg-turbo 3.1's block
+// smoothing (jdcoefct.c: smoothing_ok, decompress_smooth_data) estimates
+// the low AC coefficients, and the DC where no AC is known, from the 5x5
+// neighbourhood of DC values, as PIL's decode does by default.
 // Restart intervals (DRI, RSTn) are honoured.  Arithmetic coding,
 // lossless and hierarchical files, 12-bit precision, 2 components and
 // YCCK (4 components, Adobe transform other than 0) are refused with a
 // message naming the case.
+//
+// The end of the data follows PIL's rules in mods_jpeg_decode: PIL hands
+// libjpeg the file in reads of 64 KiB (ImageFile.MAXBLOCK) through a
+// suspending source, and refuses the file ("image file is truncated")
+// wherever libjpeg would suspend at its end.  So the Huffman bit reader
+// is jdhuff.c's: jpeg_fill_bit_buffer's 57-bit look-ahead
+// (MIN_GET_BITS on a 64-bit machine), and decode_mcu_fast's six-byte
+// fills for an MCU that starts with 512 bytes a block or more in the
+// buffer; an MCU that suspends at the end of one read is decoded again
+// with the next.  A progressive or multi-scan file must reach its EOI
+// marker (jpeg_start_decompress reads it all); a single-scan file only
+// its last MCU, since Pillow ignores jpeg_finish_decompress's
+// suspension once every line is out.  The JPEG-in-TIFF entry points
+// keep libtiff's rule instead: the end of the data reads as an EOI
+// marker (tif_jpeg.c's std_fill_input_buffer).
 //
 // Interface: mods_jpeg_info(data, n, info[4], err, errlen) fills width,
 // height, channels; mods_jpeg_decode(data, n, out, cap, err, errlen)
@@ -48,6 +66,17 @@ struct Error {
   std::string msg;
 };
 
+// libjpeg's source would suspend: the decoder needs a byte past the end of
+// the data that PIL has handed it
+struct Suspend {};
+// ... past the end of one of PIL's 64 KiB reads, before the file's end:
+// the MCU is decoded again once the next read is in the buffer
+struct ReadEnd {};
+
+const size_t kPilRead = 65536;  // ImageFile.MAXBLOCK
+const int kMinGetBits = 57;     // jdhuff.h: BIT_BUF_SIZE 64 - 7
+const int kFastBytes = 512;     // jdhuff.c: BUFSIZE, a block's worst case
+
 const int kNatural[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
@@ -56,11 +85,54 @@ const int kNatural[64 + 16] = {
     // extra entries for a corrupt run past the end (jutils.c)
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// jstdhuff.c's std_huff_tables (ITU-T T.81 Annex K.3) as one DHT segment:
+// DC and AC table 0 (luminance), DC and AC table 1 (chrominance)
+const uint8_t kStdHuffman[] = {
+    0xff, 0xc4, 0x01, 0xa2, 0x00, 0x00, 0x01, 0x05, 0x01, 0x01, 0x01, 0x01,
+    0x01, 0x01, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x01, 0x02,
+    0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b, 0x10, 0x00, 0x02,
+    0x01, 0x03, 0x03, 0x02, 0x04, 0x03, 0x05, 0x05, 0x04, 0x04, 0x00, 0x00,
+    0x01, 0x7d, 0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31,
+    0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91,
+    0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33,
+    0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43,
+    0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73,
+    0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa, 0x01, 0x00, 0x03, 0x01,
+    0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00, 0x00, 0x00,
+    0x00, 0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a,
+    0x0b, 0x11, 0x00, 0x02, 0x01, 0x02, 0x04, 0x04, 0x03, 0x04, 0x07, 0x05,
+    0x04, 0x04, 0x00, 0x01, 0x02, 0x77, 0x00, 0x01, 0x02, 0x03, 0x11, 0x04,
+    0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22,
+    0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36,
+    0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a,
+    0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66,
+    0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94,
+    0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4,
+    0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 struct Huffman {
   bool present = false;
   int maxcode[18];
   int valoffset[18];
   uint8_t vals[256];
+  // jpeg_make_d_derived_tbl's look-ahead: (length << 8) | value for a
+  // code of 8 bits or fewer, 9 << 8 for a longer one
+  uint16_t lookup[256];
+  bool valid = false, dc_ok = false;  // the derived table's checks
 };
 
 struct Component {
@@ -70,6 +142,11 @@ struct Component {
   int blocks_w = 0, blocks_h = 0;                 // allocated: whole MCUs
   int ds_w = 0, ds_h = 0;                         // downsampled size
   int pred = 0;
+  // jdphuff.c's coef_bits: the precision (Al) each of the first 10
+  // coefficients has after the scans so far, -1 before any; and as they
+  // were before the component's latest scan
+  int coef_bits[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+  int prev_coef_bits[10] = {};
   std::vector<int16_t> coef;  // blocks_h * blocks_w blocks of 64
   int16_t *block(int by, int bx) {
     return &coef[(static_cast<size_t>(by) * blocks_w + bx) * 64];
@@ -78,7 +155,7 @@ struct Component {
 
 class Decoder {
  public:
-  Decoder(const uint8_t *d, size_t n) : d_(d), n_(n) {}
+  Decoder(const uint8_t *d, size_t n) : d_(d), n_(n), limit_(n) {}
 
   void read_headers();
   void load_tables(const uint8_t *t, size_t nt);
@@ -92,6 +169,9 @@ class Decoder {
   // -1: the colour transform from the markers; 0: none (the components
   // as stored); 1: YCbCr -> RGB (a JPEG-in-TIFF strip or tile)
   int transform = -1;
+  // PIL's rules for the end of the data (the file header comment);
+  // false: libtiff's, where it reads as an EOI marker
+  bool pil = false;
 
   int width = 0, height = 0, ncomp = 0;
   // tif_ojpeg.c's resync_to_restart fails: a restart marker other than
@@ -103,6 +183,7 @@ class Decoder {
  private:
   const uint8_t *d_;
   size_t n_, pos_ = 0;
+  size_t limit_;  // the end of the bytes that PIL's reads have handed over
   uint16_t qt_[4][64] = {};
   bool qt_present_[4] = {};
   Huffman dc_[4], ac_[4];
@@ -114,103 +195,205 @@ class Decoder {
   int restart_interval_ = 0;
   // scan state
   int scan_comp_[4] = {}, scan_n_ = 0, ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;
-  int eobrun_ = 0;
-  // bit reader (jdhuff.c's fill_bit_buffer: a marker ends the data and
-  // zeros are supplied after it)
-  uint32_t bits_ = 0;
-  int nbits_ = 0, real_bits_ = 0;
-  bool marker_hit_ = false, insufficient_ = false;
+  int eobrun_ = 0, scans_ = 0;
+  bool multi_scan_ = false;
+  // jdcoefct.c's last_good_iMCU_row: the last iMCU row at which an MCU
+  // was started with data left
+  int last_good_row_ = 0;
+  // the bit reader (jdhuff.c's bitread state): bits_left_ valid bits at
+  // the bottom of gbuf_; unread_marker_ the marker that ended the data,
+  // pos_ then at its last 0xFF
+  uint64_t gbuf_ = 0;
+  int bits_left_ = 0, unread_marker_ = 0;
+  size_t marker_end_ = 0;  // the byte after unread_marker_
+  bool insufficient_ = false;
+  bool fast_ = false, fast_marker_ = false;
+  int next_rst_ = 0;
 
   uint8_t byte() {
-    if (pos_ >= n_) throw Error{"JPEG: the file ends inside a header"};
+    if (pos_ >= n_) {
+      if (pil) throw Suspend{};
+      throw Error{"JPEG: the file ends inside a header"};
+    }
     return d_[pos_++];
   }
   int u16() {
     int hi = byte();
     return (hi << 8) | byte();
   }
-  void fill() {
-    while (nbits_ <= 24) {
-      uint32_t b = 0;
-      if (!marker_hit_ && pos_ < n_) {
-        b = d_[pos_];
-        if (b == 0xFF) {
-          uint8_t next = pos_ + 1 < n_ ? d_[pos_ + 1] : 0;
-          if (next == 0x00) {
-            pos_ += 2;
-            real_bits_ += 8;
-          } else {
-            marker_hit_ = true;
-            b = 0;
-          }
-        } else {
-          pos_++;
-          real_bits_ += 8;
-        }
-      }
-      bits_ |= b << (24 - nbits_);
-      nbits_ += 8;
+  // the next byte of entropy-coded data, or -1 where libtiff's source
+  // supplies its fake EOI
+  int data_byte() {
+    if (pos_ >= limit_) {
+      if (limit_ < n_) throw ReadEnd{};
+      if (pil) throw Suspend{};
+      return -1;
     }
+    return d_[pos_++];
   }
-  // jdhuff.c's insufficient_data: set once a code reads past the data
-  // (zeros stuffed after a marker); the MCUs after it are left zero
-  void consume(int k) {
-    bits_ <<= k;
-    nbits_ -= k;
-    if (k > real_bits_) insufficient_ = true;
-    real_bits_ = k > real_bits_ ? 0 : real_bits_ - k;
+  void fill(int nbits);
+  void fast_fill();
+  int peek(int k) const {
+    return static_cast<int>((gbuf_ >> (bits_left_ - k)) & ((1u << k) - 1));
   }
   int get_bits(int k) {
     if (k == 0) return 0;
-    fill();
-    int v = static_cast<int>(bits_ >> (32 - k));
-    consume(k);
-    return v;
+    if (fast_)
+      fast_fill();
+    else if (bits_left_ < k)
+      fill(k);
+    bits_left_ -= k;
+    return static_cast<int>((gbuf_ >> bits_left_) & ((1u << k) - 1));
   }
   int get_bit() { return get_bits(1); }
-  int decode_huff(const Huffman &t) {
-    fill();
-    for (int len = 1; len <= 16; len++) {
-      int code = static_cast<int>(bits_ >> (32 - len));
-      if (code <= t.maxcode[len]) {
-        consume(len);
-        return t.vals[(t.valoffset[len] + code) & 0xFF];
-      }
-    }
-    // a corrupt code: libjpeg reads a 17th bit, warns and returns 0
-    consume(16);
-    fill();
-    consume(1);
-    return 0;
-  }
+  int decode_huff(const Huffman &t);
   static int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
   }
   void reset_bits() {
-    bits_ = 0;
-    nbits_ = 0;
-    real_bits_ = 0;
-    marker_hit_ = false;
+    gbuf_ = 0;
+    bits_left_ = 0;
   }
-  void restart();
+  int next_marker();
+  void process_restart();
   bool restart_strict();
-  int next_rst_ = 0;
 
   void read_sof(int marker);
   void read_dht();
+  void std_huff_tables();
+  void read_dac();
+  void misplaced_marker(int m) const;
   void read_dqt();
   void read_sos();
   void read_app(int marker);
+  // jdmarker.c skip_variable: a length below 2 skips nothing
   void skip_segment() {
     int len = u16();
-    if (len < 2 || pos_ + len - 2 > n_)
+    if (len < 2) return;
+    if (pos_ + len - 2 > n_) {
+      if (pil) throw Suspend{};
       throw Error{"JPEG: a marker segment runs past the end of the file"};
+    }
     pos_ += len - 2;
   }
   void decode_scan();
+  void decode_mcu(int mx, int my, int bx, int by);
   void decode_block(Component &c, int16_t *blk);
-  void idct_plane(Component &c, std::vector<uint8_t> &plane);
+  bool smoothing_ok(int latch[4][2][10]) const;
+  void smooth(Component &c, const int latch[2][10],
+              std::vector<int16_t> &out) const;
+  void idct_plane(Component &c, std::vector<uint8_t> &plane,
+                  const int16_t *coef = nullptr);
 };
+
+// jdhuff.c's jpeg_fill_bit_buffer: load bytes until 57 bits are in the
+// buffer, a marker ends the data (then zeros, and insufficient_data once
+// a code needs them), or the data ends (libjpeg suspends)
+void Decoder::fill(int nbits) {
+  if (!unread_marker_) {
+    while (bits_left_ < kMinGetBits) {
+      size_t at = pos_;
+      int c = data_byte();
+      if (c == 0xFF) {
+        do {
+          at = pos_ - 1;
+          c = data_byte();
+        } while (c == 0xFF);
+        if (c == 0) {
+          c = 0xFF;
+        } else {
+          unread_marker_ = c < 0 ? 0xD9 : c;
+          marker_end_ = c < 0 ? n_ : pos_;
+          pos_ = c < 0 ? n_ : at;
+          break;
+        }
+      } else if (c < 0) {
+        unread_marker_ = 0xD9;
+        marker_end_ = pos_ = n_;
+        break;
+      }
+      gbuf_ = (gbuf_ << 8) | static_cast<uint64_t>(c);
+      bits_left_ += 8;
+    }
+    if (!unread_marker_) return;
+  }
+  if (nbits > bits_left_) {
+    insufficient_ = true;
+    gbuf_ <<= kMinGetBits - bits_left_;
+    bits_left_ = kMinGetBits;
+  }
+}
+
+// decode_mcu_fast's FILL_BIT_BUFFER_FAST: six bytes once 16 bits or fewer
+// are left; a marker among them sends the MCU to the slow path
+void Decoder::fast_fill() {
+  if (bits_left_ > 16) return;
+  for (int i = 0; i < 6; i++) {
+    int c0 = d_[pos_++];
+    int c1 = pos_ < n_ ? d_[pos_] : 0;
+    gbuf_ = (gbuf_ << 8) | static_cast<uint64_t>(c0);
+    bits_left_ += 8;
+    if (c0 == 0xFF) {
+      pos_++;
+      if (c1 != 0) {
+        fast_marker_ = true;
+        pos_ -= 2;
+        gbuf_ &= ~static_cast<uint64_t>(0xFF);
+      }
+    }
+  }
+}
+
+// HUFF_DECODE (jdhuff.h) and jpeg_huff_decode, or HUFF_DECODE_FAST
+int Decoder::decode_huff(const Huffman &t) {
+  if (fast_) {
+    fast_fill();
+    int e = t.lookup[peek(8)];
+    int nb = e >> 8, s = e & 0xFF;
+    bits_left_ -= nb;
+    if (nb > 8) {
+      s = static_cast<int>((gbuf_ >> bits_left_) & ((1u << nb) - 1));
+      while (s > t.maxcode[nb]) {
+        s <<= 1;
+        bits_left_ -= 1;
+        s |= static_cast<int>((gbuf_ >> bits_left_) & 1);
+        nb++;
+      }
+      s = nb > 16 ? 0 : t.vals[(s + t.valoffset[nb]) & 0xFF];
+    }
+    return s;
+  }
+  int l = 1;
+  if (bits_left_ < 8) fill(0);
+  if (bits_left_ >= 8) {
+    int e = t.lookup[peek(8)];
+    if ((e >> 8) <= 8) {
+      bits_left_ -= e >> 8;
+      return e & 0xFF;
+    }
+    l = 9;
+  }
+  int code = get_bits(l);
+  while (code > t.maxcode[l]) {  // maxcode[17] ends a corrupt code
+    code = (code << 1) | get_bits(1);
+    l++;
+  }
+  return l > 16 ? 0 : t.vals[(t.valoffset[l] + code) & 0xFF];
+}
+
+// jdmarker.c read_markers: the markers it skips or reads; any other (DHP,
+// EXP, JPGn, the reserved 0x02-0xBF) is libjpeg's "Unsupported marker
+// type" error
+void check_marker(int m) {
+  bool known = (m >= 0xC0 && m <= 0xDD) || (m >= 0xE0 && m <= 0xEF) ||
+               m == 0xFE || m == 0x01;
+  if (!known) {
+    char hex[8];
+    snprintf(hex, sizeof(hex), "0x%02X", m);
+    throw Error{std::string("JPEG: an unsupported marker ") + hex +
+                ": PIL refuses it (libjpeg: \"Unsupported marker type\")"};
+  }
+}
 
 void Decoder::read_sof(int marker) {
   switch (marker) {
@@ -290,8 +473,9 @@ void Decoder::read_sof(int marker) {
 }
 
 void Decoder::read_dht() {
+  // jdmarker.c get_dht
   int len = u16() - 2;
-  while (len > 0) {
+  while (len > 16) {
     int tc_th = byte();
     int tc = tc_th >> 4, th = tc_th & 15;
     if (tc > 1 || th > 3) throw Error{"JPEG: bad Huffman table id"};
@@ -301,11 +485,20 @@ void Decoder::read_dht() {
       counts[i] = byte();
       total += counts[i];
     }
-    if (total > 256) throw Error{"JPEG: bad Huffman table"};
+    len -= 17;
+    if (total > 256 || total > len)
+      throw Error{"JPEG: a bad Huffman table: PIL refuses it (libjpeg: "
+                  "\"Bogus Huffman table definition\")"};
     Huffman &t = tc == 0 ? dc_[th] : ac_[th];
+    memset(t.vals, 0, sizeof(t.vals));
     for (int i = 0; i < total; i++) t.vals[i] = byte();
-    // canonical codes (jdhuff.c jpeg_make_d_derived_tbl)
-    int code = 0, k = 0;
+    // canonical codes (jdhuff.c jpeg_make_d_derived_tbl), and its checks:
+    // no length's codes may run out of its bits, and a DC table's symbols
+    // are 0..15
+    int code = 0, k = 0, last = 0;
+    for (int l = 1; l <= 16; l++)
+      if (counts[l]) last = l;
+    t.valid = true;
     for (int l = 1; l <= 16; l++) {
       if (counts[l]) {
         t.valoffset[l] = k - code;
@@ -316,13 +509,76 @@ void Decoder::read_dht() {
         t.valoffset[l] = 0;
         t.maxcode[l] = -1;
       }
+      if (l <= last && code >= (1 << l)) t.valid = false;
       code <<= 1;
     }
+    t.dc_ok = true;
+    for (int i = 0; i < total; i++) t.dc_ok = t.dc_ok && t.vals[i] <= 15;
     t.maxcode[17] = 0x7FFFFFFF;
+    for (int look = 0; look < 256; look++) {
+      t.lookup[look] = 9 << 8;
+      for (int l = 1; l <= 8; l++) {
+        int c = look >> (8 - l);
+        if (c <= t.maxcode[l]) {
+          t.lookup[look] =
+              static_cast<uint16_t>((l << 8) | t.vals[(t.valoffset[l] + c) & 0xFF]);
+          break;
+        }
+      }
+    }
     t.present = true;
-    len -= 17 + total;
+    len -= total;
   }
   if (len != 0) throw Error{"JPEG: bad DHT length"};
+}
+
+// jstdhuff.c std_huff_tables, which jdhuff.c's jinit_huff_decoder (not
+// the progressive decoder's) runs once the headers up to the first scan
+// are read: tables 0 and 1 that no DHT has defined are the standard ones
+// (Motion-JPEG frames carry none)
+void Decoder::std_huff_tables() {
+  Huffman dc[2] = {dc_[0], dc_[1]}, ac[2] = {ac_[0], ac_[1]};
+  const uint8_t *d = d_;
+  size_t n = n_, pos = pos_;
+  bool p = pil;
+  d_ = kStdHuffman;
+  n_ = sizeof(kStdHuffman);
+  pos_ = 2;
+  pil = false;
+  read_dht();
+  d_ = d;
+  n_ = n;
+  pos_ = pos;
+  pil = p;
+  for (int i = 0; i < 2; i++) {
+    if (dc[i].present) dc_[i] = dc[i];
+    if (ac[i].present) ac_[i] = ac[i];
+  }
+}
+
+// jdmarker.c get_dac: the arithmetic coding conditioning, parsed and
+// checked (a Huffman-coded file never uses it)
+void Decoder::read_dac() {
+  int len = u16() - 2;
+  while (len > 0) {
+    int index = byte(), val = byte();
+    len -= 2;
+    if (index >= 32 || (index < 16 && (val & 15) > (val >> 4)))
+      throw Error{"JPEG: a bad DAC segment: PIL refuses it (libjpeg's "
+                  "JERR_DAC_INDEX or JERR_DAC_VALUE)"};
+  }
+  if (len != 0) throw Error{"JPEG: bad DAC length"};
+}
+
+// jdmarker.c read_markers: a second SOI, and JPG (0xC8) among the frame
+// types libjpeg does not decode
+void Decoder::misplaced_marker(int m) const {
+  if (m == 0xD8)
+    throw Error{"JPEG: a second SOI marker: PIL refuses it (libjpeg: "
+                "\"Invalid JPEG file structure: two SOI markers\")"};
+  if (m == 0xC8)
+    throw Error{"JPEG: a JPG (0xC8) marker: PIL refuses it (libjpeg: "
+                "\"Unsupported JPEG process\")"};
 }
 
 void Decoder::read_dqt() {
@@ -342,7 +598,9 @@ void Decoder::read_dqt() {
 void Decoder::read_app(int marker) {
   size_t start = pos_;
   int len = u16();
-  if (len < 2 || start + len > n_)
+  if (len < 2) return;  // jdmarker.c reads and skips nothing
+  if (start + len > n_ && pil) throw Suspend{};
+  if (start + len > n_)
     throw Error{"JPEG: a marker segment runs past the end of the file"};
   const uint8_t *p = d_ + start + 2;
   int body = len - 2;
@@ -367,10 +625,8 @@ void Decoder::read_sos() {
       if (comp_[j].id == id) ci = j;
     if (ci < 0) throw Error{"JPEG: a scan names an unknown component"};
     scan_comp_[i] = ci;
-    comp_[ci].dc_tbl = tables >> 4;
+    comp_[ci].dc_tbl = tables >> 4;  // checked where a scan uses it
     comp_[ci].ac_tbl = tables & 15;
-    if (comp_[ci].dc_tbl > 3 || comp_[ci].ac_tbl > 3)
-      throw Error{"JPEG: bad Huffman table id in a scan"};
   }
   ss_ = byte();
   se_ = byte();
@@ -378,26 +634,93 @@ void Decoder::read_sos() {
   ah_ = a >> 4;
   al_ = a & 15;
   if (progressive_) {
+    // jdphuff.c start_pass_phuff_decoder; a refinement has Al = Ah - 1
     if (ss_ > 63 || se_ > 63 || ss_ > se_ || (ss_ == 0 && se_ != 0) ||
-        (ss_ > 0 && scan_n_ != 1) || al_ > 13)
+        (ss_ > 0 && scan_n_ != 1) || al_ > 13 || (ah_ && al_ != ah_ - 1))
       throw Error{"JPEG: bad progressive scan parameters"};
   } else {
     ss_ = 0;
     se_ = 63;
     ah_ = al_ = 0;
   }
+  // jdmarker.c get_sos counts the scan; jdinput.c initial_setup decides
+  // at the first whether the file has more; jdphuff.c start_pass_phuff_
+  // decoder updates the progression status
+  scans_++;
+  if (scans_ == 1) multi_scan_ = progressive_ || scan_n_ < ncomp;
+  if (!progressive_) return;
+  for (int i = 0; i < scan_n_; i++) {
+    Component &c = comp_[scan_comp_[i]];
+    for (int k = std::min(ss_, 1); k <= std::max(se_, 9) && k < 10; k++)
+      c.prev_coef_bits[k] = scans_ > 1 ? c.coef_bits[k] : 0;
+    for (int k = ss_; k <= se_ && k < 10; k++) c.coef_bits[k] = al_;
+  }
 }
 
-void Decoder::restart() {
-  // jdhuff.c process_restart: drop the bits left, read the RSTn marker,
-  // reset the DC predictions and the end-of-band run
-  reset_bits();
-  while (pos_ + 1 < n_ &&
-         !(d_[pos_] == 0xFF && d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7))
-    pos_++;
-  if (pos_ + 1 < n_) pos_ += 2;
+// jdmarker.c next_marker: skip to an 0xFF, past fill bytes, and past
+// stuffed 0xFF 0x00 pairs; the unread marker that ended a scan's data
+// comes first.  At the end of the data libjpeg suspends (PIL's rules) or
+// reads libtiff's fake EOI.
+int Decoder::next_marker() {
+  if (unread_marker_) {
+    int m = unread_marker_;
+    unread_marker_ = 0;
+    pos_ = marker_end_;
+    return m;
+  }
+  auto next = [&]() {
+    if (pos_ >= n_) {
+      if (pil) throw Suspend{};
+      return -1;
+    }
+    while (pos_ >= limit_) limit_ = std::min(n_, limit_ + kPilRead);
+    return static_cast<int>(d_[pos_++]);
+  };
+  while (true) {
+    int c = next();
+    while (c >= 0 && c != 0xFF) c = next();
+    do {
+      c = c < 0 ? c : next();
+    } while (c == 0xFF);
+    if (c < 0) return 0xD9;
+    if (c != 0) return c;
+  }
+}
+
+// jdhuff.c process_restart: drop the bits left, read the RSTn marker
+// (jdmarker.c read_restart_marker, jpeg_resync_to_restart's recovery
+// where it is not the expected one), reset the DC predictions and the
+// end-of-band run
+void Decoder::process_restart() {
+  bits_left_ = 0;
+  int m = next_marker();
+  int desired = next_rst_;
+  auto rst = [](int k) { return 0xD0 + (k & 7); };
+  while (m != rst(desired)) {
+    int action;
+    if (m < 0xC0)
+      action = 2;
+    else if (m < 0xD0 || m > 0xD7)
+      action = 3;
+    else if (m == rst(desired + 1) || m == rst(desired + 2))
+      action = 3;
+    else if (m == rst(desired - 1) || m == rst(desired - 2))
+      action = 2;
+    else
+      action = 1;
+    if (action == 1) break;
+    if (action == 3) {  // leave the marker for the scan's end
+      unread_marker_ = m;
+      marker_end_ = pos_;
+      pos_ = pos_ >= 2 ? pos_ - 2 : 0;
+      break;
+    }
+    m = next_marker();
+  }
+  next_rst_ = (next_rst_ + 1) & 7;
   for (int i = 0; i < ncomp; i++) comp_[i].pred = 0;
   eobrun_ = 0;
+  if (!unread_marker_) insufficient_ = false;
 }
 
 // jdmarker.c read_restart_marker with tif_ojpeg.c's resync_to_restart:
@@ -405,6 +728,7 @@ void Decoder::restart() {
 // next RSTn in turn, or libjpeg's error ends the decoding
 bool Decoder::restart_strict() {
   reset_bits();
+  unread_marker_ = 0;
   while (pos_ + 1 < n_ &&
          !(d_[pos_] == 0xFF && d_[pos_ + 1] != 0x00 && d_[pos_ + 1] != 0xFF))
     pos_++;
@@ -417,8 +741,9 @@ bool Decoder::restart_strict() {
 }
 
 void Decoder::decode_block(Component &c, int16_t *blk) {
-  const Huffman &dct = dc_[c.dc_tbl];
-  const Huffman &act = ac_[c.ac_tbl];
+  // decode_scan checked the ids of the tables that this scan uses
+  const Huffman &dct = dc_[c.dc_tbl & 3];
+  const Huffman &act = ac_[c.ac_tbl & 3];
   if (!progressive_) {
     // jdhuff.c decode_mcu
     int s = decode_huff(dct);
@@ -498,7 +823,9 @@ void Decoder::decode_block(Component &c, int16_t *blk) {
         }
         k++;
       } while (k <= se_);
-      if (s && k <= 63) blk[kNatural[k]] = static_cast<int16_t>(s);
+      // a run past the band's end (zeros read after a marker, say) puts
+      // the new coefficient at jpeg_natural_order[64], which is 63
+      if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
     }
   }
   if (eobrun_ > 0) {
@@ -511,67 +838,118 @@ void Decoder::decode_block(Component &c, int16_t *blk) {
 }
 
 void Decoder::decode_scan() {
+  if (scans_ == 1 && !progressive_) std_huff_tables();  // jdhuff.c only
   for (int i = 0; i < scan_n_; i++) {
     Component &c = comp_[scan_comp_[i]];
     bool needs_dc = !progressive_ || (ss_ == 0 && ah_ == 0);
     bool needs_ac = !progressive_ || ss_ > 0;
+    if ((needs_dc && c.dc_tbl > 3) || (needs_ac && c.ac_tbl > 3))
+      throw Error{"JPEG: bad Huffman table id in a scan"};
     if ((needs_dc && !dc_[c.dc_tbl].present) ||
         (needs_ac && !ac_[c.ac_tbl].present))
       throw Error{"JPEG: a scan uses an undefined Huffman table"};
+    if ((needs_dc && (!dc_[c.dc_tbl].valid || !dc_[c.dc_tbl].dc_ok)) ||
+        (needs_ac && !ac_[c.ac_tbl].valid))
+      throw Error{"JPEG: a bad Huffman table: PIL refuses it (libjpeg: "
+                  "\"Bogus Huffman table definition\")"};
     c.pred = 0;
   }
   eobrun_ = 0;
   reset_bits();
+  unread_marker_ = 0;
+  insufficient_ = false;
+  next_rst_ = 0;
+  // the end of PIL's read that holds the scan's first byte; a progressive
+  // scan has no fast path, so only the file's end matters there
+  if (!pil || progressive_) {
+    limit_ = n_;
+  } else {
+    while (limit_ < pos_) limit_ += kPilRead;
+    limit_ = std::min(limit_, n_);
+  }
+  int blocks_in_mcu = 0;
+  for (int i = 0; i < scan_n_; i++)
+    blocks_in_mcu += scan_n_ == 1 ? 1 : comp_[scan_comp_[i]].h * comp_[scan_comp_[i]].v;
   int restarts_left = restart_interval_;
   int64_t mcu = -1;
-  next_rst_ = 0;
-  insufficient_ = false;
-  auto next_mcu = [&]() {
+  // decode_mcu, from jdcoefct.c's loop over the MCUs of an iMCU row
+  auto next_mcu = [&](int imcu_row, const auto &blocks) {
     mcu++;
-    if (!restart_interval_) return true;
-    if (restarts_left == 0) {
-      if (strict_restarts) {
-        if (!restart_strict()) {
-          fail_mcu = mcu;
-          return false;
+    if (!insufficient_) last_good_row_ = imcu_row;
+    if (restart_interval_) {
+      if (restarts_left == 0) {
+        if (strict_restarts) {
+          if (!restart_strict()) {
+            fail_mcu = mcu;
+            return false;
+          }
+          insufficient_ = false;
+        } else {
+          process_restart();
         }
-      } else {
-        restart();
+        restarts_left = restart_interval_;
       }
-      insufficient_ = false;
-      restarts_left = restart_interval_;
+      restarts_left--;
     }
-    restarts_left--;
-    return true;
+    if (insufficient_) return true;
+    if (progressive_) {
+      blocks();
+      return true;
+    }
+    while (true) {
+      size_t pos = pos_, marker_end = marker_end_;
+      uint64_t gbuf = gbuf_;
+      int bits_left = bits_left_, unread = unread_marker_;
+      int preds[4];
+      for (int i = 0; i < ncomp; i++) preds[i] = comp_[i].pred;
+      auto restore = [&]() {
+        pos_ = pos;
+        marker_end_ = marker_end;
+        gbuf_ = gbuf;
+        bits_left_ = bits_left;
+        unread_marker_ = unread;
+        for (int i = 0; i < ncomp; i++) comp_[i].pred = preds[i];
+        fast_ = fast_marker_ = false;
+      };
+      try {
+        if (!restart_interval_ && !unread_marker_ && pos_ <= limit_ &&
+            limit_ - pos_ >= static_cast<size_t>(kFastBytes) * blocks_in_mcu) {
+          fast_ = true;
+          fast_marker_ = false;
+          blocks();
+          fast_ = false;
+          if (!fast_marker_) return true;
+          restore();  // decode_mcu_fast met a marker: the slow path
+        }
+        blocks();
+        return true;
+      } catch (const ReadEnd &) {
+        restore();
+        limit_ = std::min(n_, limit_ + kPilRead);
+      }
+    }
   };
   if (scan_n_ == 1) {
     // non-interleaved: one block an MCU over the component's own blocks
     Component &c = comp_[scan_comp_[0]];
     for (int by = 0; by < c.height_in_blocks; by++)
-      for (int bx = 0; bx < c.width_in_blocks; bx++) {
-        if (!next_mcu()) return;
-        if (!insufficient_) decode_block(c, c.block(by, bx));
-      }
+      for (int bx = 0; bx < c.width_in_blocks; bx++)
+        if (!next_mcu(by / c.v, [&]() { decode_block(c, c.block(by, bx)); }))
+          return;
   } else {
     for (int my = 0; my < mcuy_; my++)
       for (int mx = 0; mx < mcux_; mx++) {
-        if (!next_mcu()) return;
-        if (insufficient_) continue;
-        for (int i = 0; i < scan_n_; i++) {
-          Component &c = comp_[scan_comp_[i]];
-          for (int v = 0; v < c.v; v++)
-            for (int h = 0; h < c.h; h++)
-              decode_block(c, c.block(my * c.v + v, mx * c.h + h));
-        }
+        auto blocks = [&]() {
+          for (int i = 0; i < scan_n_; i++) {
+            Component &c = comp_[scan_comp_[i]];
+            for (int v = 0; v < c.v; v++)
+              for (int h = 0; h < c.h; h++)
+                decode_block(c, c.block(my * c.v + v, mx * c.h + h));
+          }
+        };
+        if (!next_mcu(my, blocks)) return;
       }
   }
-  // leave the position at the next marker
-  reset_bits();
-  while (pos_ + 1 < n_ &&
-         !(d_[pos_] == 0xFF && d_[pos_ + 1] != 0x00 &&
-           !(d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7) &&
-           d_[pos_ + 1] != 0xFF))
-    pos_++;
 }
 
 void Decoder::read_headers() {
@@ -594,14 +972,17 @@ void Decoder::read_headers() {
       if (u16() != 4) throw Error{"JPEG: bad DRI length"};
       restart_interval_ = u16();
     } else if (m == 0xCC) {
-      throw Error{"JPEG: arithmetic-coded files are not supported"};
+      read_dac();
     } else if (m >= 0xE0 && m <= 0xEF) {
       read_app(m);
+    } else if (m == 0xD8 || m == 0xC8) {
+      misplaced_marker(m);
     } else if (m == 0xD9 || m == 0xDA) {
       throw Error{"JPEG: no frame header before the first scan"};
-    } else if (m >= 0xD0 && m <= 0xD7) {
-      continue;
+    } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x00 || m == 0x01) {
+      continue;  // RSTn, TEM, and a stuffed 0xFF 0x00 that next_marker skips
     } else {
+      check_marker(m);
       skip_segment();
     }
   }
@@ -659,33 +1040,57 @@ void Decoder::check_tiff_sampling(int hs, int vs) const {
 }
 
 void Decoder::decode() {
-  while (true) {
-    while (pos_ < n_ && d_[pos_] != 0xFF) pos_++;
-    while (pos_ < n_ && d_[pos_] == 0xFF) pos_++;
-    if (pos_ >= n_) break;  // a truncated file: keep what was decoded
-    int m = d_[pos_++];
-    if (m == 0xD9) break;
-    if (m == 0xDA) {
-      read_sos();
-      decode_scan();
-      if (fail_mcu >= 0) break;
-    } else if (m == 0xC4) {
-      read_dht();
-    } else if (m == 0xDB) {
-      read_dqt();
-    } else if (m == 0xDD) {
-      if (u16() != 4) throw Error{"JPEG: bad DRI length"};
-      restart_interval_ = u16();
-    } else if (m >= 0xE0 && m <= 0xEF) {
-      read_app(m);
-    } else if (m >= 0xD0 && m <= 0xD7) {
-      continue;
-    } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
-               m != 0xCC) {
-      throw Error{"JPEG: more than one frame header"};
-    } else {
-      skip_segment();
+  // PIL: a single-scan file whose scan is decoded; what follows it is
+  // jpeg_finish_decompress's, whose suspension Pillow ignores
+  bool finishing = false;
+  if (pil) limit_ = 0;  // PIL's reads so far: none
+  try {
+    while (true) {
+      int m = next_marker();
+      if (m == 0xD9) break;
+      if (m == 0xDA) {
+        if (finishing)
+          throw Error{"JPEG: a second scan after a single-scan frame: PIL "
+                      "refuses it (libjpeg: \"Didn't expect more than one "
+                      "scan\")"};
+        read_sos();
+        decode_scan();
+        if (fail_mcu >= 0) break;
+        finishing = pil && !multi_scan_;
+      } else if (m == 0xC4) {
+        read_dht();
+      } else if (m == 0xDB) {
+        read_dqt();
+      } else if (m == 0xDD) {
+        if (u16() != 4) throw Error{"JPEG: bad DRI length"};
+        restart_interval_ = u16();
+      } else if (m >= 0xE0 && m <= 0xEF) {
+        read_app(m);
+      } else if (m >= 0xD0 && m <= 0xD7) {
+        continue;
+      } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
+                 m != 0xCC) {
+        throw Error{"JPEG: more than one frame header"};
+      } else if (m == 0x01) {  // TEM: no segment
+        continue;
+      } else if (m == 0xCC) {
+        read_dac();
+      } else if (m == 0xD8 || m == 0xC8) {
+        misplaced_marker(m);
+      } else {
+        check_marker(m);
+        skip_segment();
+      }
     }
+    // JpegImagePlugin._open walks the markers to the first SOS
+    if (pil && scans_ == 0)
+      throw Error{"JPEG: no scan before the EOI marker: PIL cannot "
+                  "identify the file"};
+  } catch (const Suspend &) {
+    if (finishing) return;
+    throw Error{"JPEG: the file is truncated (libjpeg runs out of data "
+                "before the image's end): PIL refuses it (\"image file is "
+                "truncated\")"};
   }
 }
 
@@ -790,14 +1195,189 @@ void idct_islow(const int16_t *in, const uint16_t *q, uint8_t *out,
   }
 }
 
-void Decoder::idct_plane(Component &c, std::vector<uint8_t> &plane) {
+// jdcoefct.c's decompress_smooth_data (libjpeg-turbo 3.1): each block's
+// first AC coefficients that are still zero and not known to full
+// precision are estimated from the DC values of its 5x5 neighbourhood
+// (rows and columns past the image's edge repeat the last), and where no
+// AC coefficient is known at all (change_dc) the DC too.  iMCU rows past
+// the one where the last scan's data ran out take the precisions from
+// before that scan.  `latch` holds coef_bits then prev_coef_bits as
+// smoothing_ok latches them; the smoothed blocks go to `out`.
+void Decoder::smooth(Component &c, const int latch[2][10],
+                     std::vector<int16_t> &out) const {
+  const uint16_t *q = qt_[c.tq];
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9],
+                Q02 = q[2], Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  const int last_row = mcuy_ - 1;
+  const int last_col = c.width_in_blocks - 1;
+  const int16_t *coef = c.coef.data();
+  auto dc = [&](int by, int bx) {
+    return static_cast<int>(coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64]);
+  };
+  auto estimate = [](int64_t num, int64_t Qk, int Al, bool clamp) {
+    int64_t pred;
+    if (num >= 0) {
+      pred = ((Qk << 7) + num) / (Qk << 8);
+      if (clamp && Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+    } else {
+      pred = ((Qk << 7) - num) / (Qk << 8);
+      if (clamp && Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+      pred = -pred;
+    }
+    return static_cast<int16_t>(pred);
+  };
+  for (int r = 0; r <= last_row; r++) {
+    int block_rows = c.v;
+    if (r == last_row) {
+      block_rows = c.height_in_blocks % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    const int *bits = latch[r > last_good_row_ ? 1 : 0];
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++) change_dc = change_dc && bits[k] == -1;
+    // as libjpeg counts them: block_rows of the iMCU row being put out
+    int image_block_rows = block_rows * mcuy_;
+    for (int br = 0; br < block_rows; br++) {
+      int ibr = r * block_rows + br;
+      int by = r * c.v + br;
+      int prev = ibr > 0 ? by - 1 : by;
+      int pprev = ibr > 1 ? by - 2 : prev;
+      int next = ibr < image_block_rows - 1 ? by + 1 : by;
+      int nnext = ibr < image_block_rows - 2 ? by + 2 : next;
+      const int rows[5] = {pprev, prev, by, next, nnext};
+      // the sliding registers DC01..DC25, row by row: D[row][col]
+      int D[5][5];
+      for (int i = 0; i < 5; i++)
+        for (int j = 0; j < 5; j++) D[i][j] = dc(rows[i], 0);
+      for (int bx = 0; bx <= last_col; bx++) {
+        int16_t *w = &out[(static_cast<size_t>(by) * c.blocks_w + bx) * 64];
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 5; j++)
+            D[i][j] = dc(rows[i], std::min(last_col, std::max(0, bx + j - 2)));
+        const int DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2],
+                  DC04 = D[0][3], DC05 = D[0][4], DC06 = D[1][0],
+                  DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3],
+                  DC10 = D[1][4], DC11 = D[2][0], DC12 = D[2][1],
+                  DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4],
+                  DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2],
+                  DC19 = D[3][3], DC20 = D[3][4], DC21 = D[4][0],
+                  DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3],
+                  DC25 = D[4][4];
+        int Al;
+        if ((Al = bits[1]) != 0 && w[1] == 0)  // AC01
+          w[1] = estimate(
+              Q00 * (change_dc
+                         ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 +
+                            13 * DC07 - 13 * DC09 + 3 * DC10 - 3 * DC11 +
+                            38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+                            13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                            DC24 + DC25)
+                         : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+              Q01, Al, true);
+        if ((Al = bits[2]) != 0 && w[8] == 0)  // AC10
+          w[8] = estimate(
+              Q00 * (change_dc
+                         ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 -
+                            DC06 + 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 +
+                            DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 +
+                            DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                         : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+              Q10, Al, true);
+        if ((Al = bits[3]) != 0 && w[16] == 0)  // AC20
+          w[16] = estimate(
+              Q00 * (change_dc
+                         ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 -
+                            5 * DC12 - 14 * DC13 - 5 * DC14 + 2 * DC17 +
+                            7 * DC18 + 2 * DC19 + DC23)
+                         : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 -
+                            DC23)),
+              Q20, Al, true);
+        if ((Al = bits[4]) != 0 && w[9] == 0)  // AC11
+          w[9] = estimate(
+              Q00 * (change_dc
+                         ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                            9 * DC19 + DC21 - DC25)
+                         : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 -
+                            DC20 + DC22 - DC24 + DC04 - DC06 + 10 * DC07 -
+                            10 * DC09)),
+              Q11, Al, true);
+        if ((Al = bits[5]) != 0 && w[2] == 0)  // AC02
+          w[2] = estimate(
+              Q00 * (change_dc
+                         ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 +
+                            7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+                            2 * DC17 - 5 * DC18 + 2 * DC19)
+                         : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 -
+                            DC15)),
+              Q02, Al, true);
+        if (change_dc) {
+          if ((Al = bits[6]) != 0 && w[3] == 0)  // AC03
+            w[3] = estimate(
+                Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03,
+                Al, true);
+          if ((Al = bits[7]) != 0 && w[10] == 0)  // AC12
+            w[10] = estimate(
+                Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12,
+                Al, true);
+          if ((Al = bits[8]) != 0 && w[17] == 0)  // AC21
+            w[17] = estimate(
+                Q00 * (DC07 - 3 * DC12 + DC17 - DC09 + 3 * DC14 - DC19), Q21,
+                Al, true);
+          if ((Al = bits[9]) != 0 && w[24] == 0)  // AC30
+            w[24] = estimate(
+                Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30,
+                Al, true);
+          // coef_bits[0] is non-negative: smoothing_ok checked it
+          w[0] = estimate(
+              Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                     6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                     8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+                     8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                     6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                     2 * DC25),
+              Q00, 0, false);
+        }
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 4; j++) D[i][j] = D[i][j + 1];
+      }
+    }
+  }
+}
+
+// jdcoefct.c's smoothing_ok: a progressive file whose components all have
+// some DC bits and non-zero quantizers for the 10 coefficients smoothed,
+// and one of whose first 9 AC coefficients is not at full precision
+bool Decoder::smoothing_ok(int latch[4][2][10]) const {
+  if (!progressive_) return false;
+  bool useful = false;
+  for (int i = 0; i < ncomp; i++) {
+    const Component &c = comp_[i];
+    if (!qt_present_[c.tq]) return false;
+    const uint16_t *q = qt_[c.tq];
+    for (int k : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+      if (q[k] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    latch[i][0][0] = c.coef_bits[0];
+    for (int k = 1; k < 10; k++) {
+      latch[i][1][k] = scans_ > 1 ? c.prev_coef_bits[k] : -1;
+      latch[i][0][k] = c.coef_bits[k];
+      if (c.coef_bits[k] != 0) useful = true;
+    }
+  }
+  return useful;
+}
+
+void Decoder::idct_plane(Component &c, std::vector<uint8_t> &plane,
+                         const int16_t *coef) {
   if (!qt_present_[c.tq])
     throw Error{"JPEG: a component uses an undefined quantization table"};
+  if (!coef) coef = c.coef.data();
   int stride = c.blocks_w * 8;
   plane.assign(static_cast<size_t>(stride) * c.blocks_h * 8, 0);
   for (int by = 0; by < c.blocks_h; by++)
     for (int bx = 0; bx < c.blocks_w; bx++)
-      idct_islow(c.block(by, bx), qt_[c.tq],
+      idct_islow(coef + (static_cast<size_t>(by) * c.blocks_w + bx) * 64,
+                 qt_[c.tq],
                  &plane[static_cast<size_t>(by) * 8 * stride + bx * 8],
                  stride);
 }
@@ -881,10 +1461,18 @@ void Decoder::output(uint8_t *out) {
                 std::to_string(adobe_transform_) + ") is not supported"};
   std::vector<uint8_t> planes[4];
   int widths[4];
+  int latch[4][2][10];
+  bool smoothing = smoothing_ok(latch);
   for (int i = 0; i < ncomp; i++) {
     Component &c = comp_[i];
     std::vector<uint8_t> plane;
-    idct_plane(c, plane);
+    if (smoothing) {
+      std::vector<int16_t> smoothed(c.coef);
+      smooth(c, latch[i], smoothed);
+      idct_plane(c, plane, smoothed.data());
+    } else {
+      idct_plane(c, plane);
+    }
     planes[i] = upsample(plane, c.blocks_w * 8, c.ds_w, c.ds_h,
                          hmax_ / c.h, vmax_ / c.v, widths[i]);
   }
@@ -1015,6 +1603,7 @@ extern "C" int mods_jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
     dec.read_headers();
     int64_t need = static_cast<int64_t>(dec.width) * dec.height * dec.ncomp;
     if (need > cap) throw Error{"JPEG: the output buffer is too small"};
+    dec.pil = true;
     dec.decode();
     dec.output(out);
     return 0;

@@ -44,10 +44,23 @@
 //   - mods_xbm_decode: libImaging/XbmDecode.c: each byte is the two
 //     characters after the next 'x', read as hex (a character that is not
 //     a hex digit counts 0).
+//   - mods_fli_decode: libImaging/FliDecode.c on one FLI/FLC frame: its
+//     16-bit LE chunk types 4 and 11 (colour, left to FliImagePlugin), 7
+//     (SS2 word delta), 12 (LC byte delta), 13 (black), 15 (BRUN), 16
+//     (copy) and 18 (stamp, ignored), each moved past by its own length;
+//     any other type, or a chunk that runs past the frame, fails.
+//   - mods_pcd_decode: libImaging/PcdDecode.c and Pillow's "YCC;P"
+//     unpacker (UnpackYCC.c): each pair of 768-sample luma lines shares
+//     the chroma samples that follow them, and each PhotoYCC triplet goes
+//     to RGB through UnpackYCC.c's tables (L is round(1.3584 y); the four
+//     chroma tables are Pillow 12.1.0's, read out of its build) with
+//     clamping to 0..255.
 //
 // Every function returns 0 (or the output's length), -1 where Pillow's
 // decoder reports an overrun or a malformed file, or -2 where the data
-// ends before the image does.
+// ends before the image does (mods_fli_decode: -3 for an unknown chunk,
+// Pillow's IMAGING_CODEC_UNKNOWN, and -4 for a chunk that does not move,
+// its IMAGING_CODEC_BROKEN).
 
 #include <cstdint>
 #include <cstring>
@@ -550,6 +563,264 @@ extern "C" int mods_xbm_decode(const uint8_t *data, int64_t n,
     if (n - pos < 3) return -2;
     out[i++] = hex_digit(data[pos + 1]) << 4 | hex_digit(data[pos + 2]);
     pos += 3;
+  }
+  return 0;
+}
+
+namespace {
+
+inline int fli16(const uint8_t *p) { return p[0] + (p[1] << 8); }
+inline int fli32(const uint8_t *p) {
+  return static_cast<int>(static_cast<uint32_t>(p[0]) | p[1] << 8 |
+                          p[2] << 16 | static_cast<uint32_t>(p[3]) << 24);
+}
+
+}  // namespace
+
+// One frame at `buf` (the `bytes` that FliImagePlugin's load hands the
+// decoder) into `out`, xsize x ysize indices, which hold the frame before
+// (zeros for the first).
+extern "C" int mods_fli_decode(const uint8_t *buf, int64_t bytes, int xsize,
+                               int ysize, uint8_t *out) {
+  if (bytes < 4) return -2;
+  const uint8_t *ptr = buf;
+  int framesize = fli32(ptr);
+  if (bytes + (bytes % 2) < framesize) return -2;  // one pad byte allowed
+  if (bytes < 8) return -1;
+  if (fli16(ptr + 4) != 0xF1FA) return -3;
+  int chunks = fli16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  auto row = [&](int y) { return out + static_cast<int64_t>(y) * xsize; };
+  for (int c = 0; c < chunks; c++) {
+    if (bytes < 10) return -1;
+    const uint8_t *data = ptr + 6;
+    auto oob = [&](int64_t k) { return data + k > ptr + bytes; };
+    int x = 0, y, i;
+    switch (fli16(ptr + 4)) {
+      case 4:
+      case 11:  // colour: FliImagePlugin's palette
+        break;
+      case 7: {  // SS2, word delta
+        int lines = fli16(data);
+        data += 2;
+        int l;
+        for (l = y = 0; l < lines && y < ysize; l++, y++) {
+          uint8_t *local = row(y);
+          if (oob(2)) return -1;
+          int packets = fli16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {  // skip lines
+              y += 65536 - packets;
+              if (y >= ysize) return -1;
+              local = row(y);
+            } else {  // the last byte of an odd-width line
+              local[xsize - 1] = static_cast<uint8_t>(packets);
+            }
+            if (oob(2)) return -1;
+            packets = fli16(data);
+            data += 2;
+          }
+          int p;
+          for (p = x = 0; p < packets; p++) {
+            if (oob(2)) return -1;
+            x += data[0];
+            if (data[1] >= 128) {
+              if (oob(4)) return -1;
+              i = 256 - data[1];
+              if (x + i + i > xsize) break;
+              for (int j = 0; j < i; j++) {
+                local[x++] = data[2];
+                local[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * static_cast<int>(data[1]);
+              if (x + i > xsize) break;
+              if (oob(2 + i)) return -1;
+              memcpy(local + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return -1;
+        break;
+      }
+      case 12: {  // LC, byte delta
+        y = fli16(data);
+        int ymax = y + fli16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ysize; y++) {
+          uint8_t *o = row(y);
+          if (oob(1)) return -1;
+          int p, packets = *data++;
+          for (p = x = 0; p < packets; p++, x += i) {
+            if (oob(2)) return -1;
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xsize) break;
+              if (oob(3)) return -1;
+              memset(o + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xsize) break;
+              if (oob(2 + i)) return -1;
+              memcpy(o + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return -1;
+        break;
+      }
+      case 13:  // black
+        memset(out, 0, static_cast<size_t>(xsize) * ysize);
+        break;
+      case 15:  // BRUN, byte run length
+        for (y = 0; y < ysize; y++) {
+          uint8_t *o = row(y);
+          data += 1;  // the packet count is ignored
+          for (x = 0; x < xsize; x += i) {
+            if (oob(2)) return -1;
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xsize) break;
+              if (oob(i + 1)) return -1;
+              memcpy(o + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xsize) break;
+              memset(o + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != xsize) return -1;
+        }
+        break;
+      case 16:  // copy
+        if (INT32_MAX / xsize < ysize) return -1;
+        if (oob(static_cast<int64_t>(xsize) * ysize)) return -2;
+        for (y = 0; y < ysize; y++) {
+          memcpy(row(y), data, xsize);
+          data += xsize;
+        }
+        break;
+      case 18:  // postage stamp
+        break;
+      default:
+        return -3;
+    }
+    int advance = fli32(ptr);
+    if (advance == 0) return -4;
+    if (advance < 0 || advance > bytes) return -1;
+    ptr += advance;
+    bytes -= advance;
+  }
+  return 0;
+}
+
+namespace {
+
+const int16_t kCb[256] = {
+    -345, -343, -341, -338, -336, -334, -332, -329, -327, -325, -323, -321, -318, -316, -314, -312,
+    -310, -307, -305, -303, -301, -298, -296, -294, -292, -290, -287, -285, -283, -281, -278, -276,
+    -274, -272, -270, -267, -265, -263, -261, -258, -256, -254, -252, -250, -247, -245, -243, -241,
+    -239, -236, -234, -232, -230, -227, -225, -223, -221, -219, -216, -214, -212, -210, -207, -205,
+    -203, -201, -199, -196, -194, -192, -190, -188, -185, -183, -181, -179, -176, -174, -172, -170,
+    -168, -165, -163, -161, -159, -156, -154, -152, -150, -148, -145, -143, -141, -139, -137, -134,
+    -132, -130, -128, -125, -123, -121, -119, -117, -114, -112, -110, -108, -105, -103, -101, -99,
+    -97, -94, -92, -90, -88, -85, -83, -81, -79, -77, -74, -72, -70, -68, -66, -63,
+    -61, -59, -57, -54, -52, -50, -48, -46, -43, -41, -39, -37, -34, -32, -30, -28,
+    -26, -23, -21, -19, -17, -15, -12, -10, -8, -6, -3, -1, 0, 2, 4, 7,
+    9, 11, 13, 16, 18, 20, 22, 24, 27, 29, 31, 33, 35, 38, 40, 42,
+    44, 47, 49, 51, 53, 55, 58, 60, 62, 64, 67, 69, 71, 73, 75, 78,
+    80, 82, 84, 86, 89, 91, 93, 95, 98, 100, 102, 104, 106, 109, 111, 113,
+    115, 118, 120, 122, 124, 126, 129, 131, 133, 135, 138, 140, 142, 144, 146, 149,
+    151, 153, 155, 157, 160, 162, 164, 166, 169, 171, 173, 175, 177, 180, 182, 184,
+    186, 189, 191, 193, 195, 197, 200, 202, 204, 206, 208, 211, 213, 215, 217, 220};
+const int16_t kGb[256] = {
+    67, 67, 66, 66, 65, 65, 65, 64, 64, 63, 63, 62, 62, 62, 61, 61,
+    60, 60, 59, 59, 59, 58, 58, 57, 57, 56, 56, 56, 55, 55, 54, 54,
+    53, 53, 52, 52, 52, 51, 51, 50, 50, 49, 49, 49, 48, 48, 47, 47,
+    46, 46, 46, 45, 45, 44, 44, 43, 43, 43, 42, 42, 41, 41, 40, 40,
+    40, 39, 39, 38, 38, 37, 37, 37, 36, 36, 35, 35, 34, 34, 34, 33,
+    33, 32, 32, 31, 31, 31, 30, 30, 29, 29, 28, 28, 28, 27, 27, 26,
+    26, 25, 25, 25, 24, 24, 23, 23, 22, 22, 22, 21, 21, 20, 20, 19,
+    19, 19, 18, 18, 17, 17, 16, 16, 15, 15, 15, 14, 14, 13, 13, 12,
+    12, 12, 11, 11, 10, 10, 9, 9, 9, 8, 8, 7, 7, 6, 6, 6,
+    5, 5, 4, 4, 3, 3, 3, 2, 2, 1, 1, 0, 0, 0, 0, 0,
+    -1, -1, -2, -2, -2, -3, -3, -4, -4, -5, -5, -5, -6, -6, -7, -7,
+    -8, -8, -8, -9, -9, -10, -10, -11, -11, -11, -12, -12, -13, -13, -14, -14,
+    -14, -15, -15, -16, -16, -17, -17, -18, -18, -18, -19, -19, -20, -20, -21, -21,
+    -21, -22, -22, -23, -23, -24, -24, -24, -25, -25, -26, -26, -27, -27, -27, -28,
+    -28, -29, -29, -30, -30, -30, -31, -31, -32, -32, -33, -33, -33, -34, -34, -35,
+    -35, -36, -36, -36, -37, -37, -38, -38, -39, -39, -39, -40, -40, -41, -41, -42};
+const int16_t kCr[256] = {
+    -249, -247, -245, -243, -241, -239, -238, -236, -234, -232, -230, -229, -227, -225, -223, -221,
+    -219, -218, -216, -214, -212, -210, -208, -207, -205, -203, -201, -199, -198, -196, -194, -192,
+    -190, -188, -187, -185, -183, -181, -179, -178, -176, -174, -172, -170, -168, -167, -165, -163,
+    -161, -159, -157, -156, -154, -152, -150, -148, -147, -145, -143, -141, -139, -137, -136, -134,
+    -132, -130, -128, -127, -125, -123, -121, -119, -117, -116, -114, -112, -110, -108, -106, -105,
+    -103, -101, -99, -97, -96, -94, -92, -90, -88, -86, -85, -83, -81, -79, -77, -76,
+    -74, -72, -70, -68, -66, -65, -63, -61, -59, -57, -55, -54, -52, -50, -48, -46,
+    -45, -43, -41, -39, -37, -35, -34, -32, -30, -28, -26, -25, -23, -21, -19, -17,
+    -15, -14, -12, -10, -8, -6, -4, -3, -1, 0, 2, 4, 5, 7, 9, 11,
+    13, 15, 16, 18, 20, 22, 24, 26, 27, 29, 31, 33, 35, 36, 38, 40,
+    42, 44, 46, 47, 49, 51, 53, 55, 56, 58, 60, 62, 64, 66, 67, 69,
+    71, 73, 75, 77, 78, 80, 82, 84, 86, 87, 89, 91, 93, 95, 97, 98,
+    100, 102, 104, 106, 107, 109, 111, 113, 115, 117, 118, 120, 122, 124, 126, 128,
+    129, 131, 133, 135, 137, 138, 140, 142, 144, 146, 148, 149, 151, 153, 155, 157,
+    158, 160, 162, 164, 166, 168, 169, 171, 173, 175, 177, 179, 180, 182, 184, 186,
+    188, 189, 191, 193, 195, 197, 199, 200, 202, 204, 206, 208, 209, 211, 213, 215};
+const int16_t kGr[256] = {
+    127, 126, 125, 124, 123, 122, 121, 121, 120, 119, 118, 117, 116, 115, 114, 113,
+    112, 111, 110, 109, 108, 108, 107, 106, 105, 104, 103, 102, 101, 100, 99, 98,
+    97, 96, 95, 95, 94, 93, 92, 91, 90, 89, 88, 87, 86, 85, 84, 83,
+    83, 82, 81, 80, 79, 78, 77, 76, 75, 74, 73, 72, 71, 70, 70, 69,
+    68, 67, 66, 65, 64, 63, 62, 61, 60, 59, 58, 57, 57, 56, 55, 54,
+    53, 52, 51, 50, 49, 48, 47, 46, 45, 45, 44, 43, 42, 41, 40, 39,
+    38, 37, 36, 35, 34, 33, 32, 32, 31, 30, 29, 28, 27, 26, 25, 24,
+    23, 22, 21, 20, 19, 19, 18, 17, 16, 15, 14, 13, 12, 11, 10, 9,
+    8, 7, 6, 6, 5, 4, 3, 2, 1, 0, 0, -1, -2, -3, -4, -5,
+    -5, -6, -7, -8, -9, -10, -11, -12, -13, -14, -15, -16, -17, -18, -18, -19,
+    -20, -21, -22, -23, -24, -25, -26, -27, -28, -29, -30, -31, -31, -32, -33, -34,
+    -35, -36, -37, -38, -39, -40, -41, -42, -43, -44, -44, -45, -46, -47, -48, -49,
+    -50, -51, -52, -53, -54, -55, -56, -56, -57, -58, -59, -60, -61, -62, -63, -64,
+    -65, -66, -67, -68, -69, -69, -70, -71, -72, -73, -74, -75, -76, -77, -78, -79,
+    -80, -81, -82, -82, -83, -84, -85, -86, -87, -88, -89, -90, -91, -92, -93, -94,
+    -94, -95, -96, -97, -98, -99, -100, -101, -102, -103, -104, -105, -106, -107, -107, -108};
+
+}  // namespace
+
+// The 768x512 image base of a Photo CD file from byte 96 * 2048: `n`
+// bytes at `data`, RGB into `out`.
+extern "C" int mods_pcd_decode(const uint8_t *data, int64_t n, uint8_t *out) {
+  const int xsize = 768, ysize = 512, chunk = 3 * xsize;
+  auto put = [&](uint8_t *o, int yy, int cb, int cr) {
+    int l = (yy * 13584 + 5000) / 10000;  // no ties: 1698 y = 625 mod 1250
+    int r = l + kCr[cr], g = l + kGr[cr] + kGb[cb], b = l + kCb[cb];
+    o[0] = static_cast<uint8_t>(r <= 0 ? 0 : r >= 255 ? 255 : r);
+    o[1] = static_cast<uint8_t>(g <= 0 ? 0 : g >= 255 ? 255 : g);
+    o[2] = static_cast<uint8_t>(b <= 0 ? 0 : b >= 255 ? 255 : b);
+  };
+  const uint8_t *ptr = data;
+  for (int y = 0; y < ysize; y += 2) {
+    if (n < chunk) return -2;  // two lines and their chroma
+    for (int line = 0; line < 2; line++) {
+      uint8_t *o = out + static_cast<int64_t>(y + line) * xsize * 3;
+      for (int x = 0; x < xsize; x++)
+        put(o + 3 * x, ptr[x + line * xsize], ptr[(x + 4 * xsize) / 2],
+            ptr[(x + 5 * xsize) / 2]);
+    }
+    ptr += chunk;
+    n -= chunk;
   }
   return 0;
 }

@@ -142,8 +142,8 @@ import struct
 
 import numpy as np
 
-from mods_tpu_torch.io import (blp, dds, fits, icns, im, png, psd, raster,
-                                tiff, x11)
+from mods_tpu_torch.io import (blp, dds, fits, icns, im, png, probed, psd,
+                                raster, tiff, x11)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
@@ -155,8 +155,7 @@ J2K_SOURCE = os.path.join(_PKG, "csrc", "j2k_decode.cpp")
 J2K_ENCODER_SOURCE = os.path.join(_PKG, "csrc", "j2k_encode.cpp")
 
 # magic bytes of formats that PIL 12.1.0 opens and this module does not
-_OTHER_FORMATS = ((b"FTEX", "FTEX"), (b"\x80\xe8\x00\x00", "PIXAR"),
-                  (b"\x00\x00\x01\xb3", "MPEG"), (b"%!PS", "EPS"),
+_OTHER_FORMATS = ((b"\x00\x00\x01\xb3", "MPEG"), (b"%!PS", "EPS"),
                   (b"\xc5\xd0\xd3\xc6", "EPS"),
                   (b"\x89HDF\r\n\x1a\n", "HDF5"), (b"BUFR", "BUFR"),
                   (b"ZCZC", "BUFR"), (b"GRIB", "GRIB"),
@@ -165,107 +164,100 @@ _OTHER_FORMATS = ((b"FTEX", "FTEX"), (b"\x80\xe8\x00\x00", "PIXAR"),
 _AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 _READ_NAMES = ("PNG, JPEG, PNM, PFM, BMP, DIB, TIFF, GIF, WebP, JPEG 2000, "
                "ICO, CUR, TGA, SGI, PCX, QOI, PSD, DCX, FITS, DDS, ICNS, IM, "
-               "MSP, XBM, XPM, Sun raster and BLP")
-# formats known by their first bytes, and the plugins whose _accept takes
-# them, those that PIL tries before GbrImagePlugin first: DdsImagePlugin,
-# FitsImagePlugin, DcxImagePlugin, BlpImagePlugin; PsdImagePlugin,
-# IcnsImagePlugin, MspImagePlugin, SunImagePlugin, XpmImagePlugin
-_SIGNATURES = ((b"DDS ", "DDS"), (b"SIMPLE", "FITS"),
-               (b"\xb1\x68\xde\x3a", "DCX"), (b"BLP1", "BLP"),
-               (b"BLP2", "BLP"))
-_LATER_SIGNATURES = ((b"8BPS", "PSD"), (b"icns", "ICNS"), (b"DanM", "MSP"),
-                     (b"LinS", "MSP"), (b"\x59\xa6\x6a\x95", "SUN"),
-                     (b"/* XPM */", "XPM"))
+               "MSP, XBM, XPM, Sun raster, BLP, SPIDER, GBR, XVTHUMB, IMT, "
+               "FLI, FTEX, McIdas, PCD, IPTC and PIXAR")
 
 
-def _gbr_claims(data: bytes) -> bool:
-    """GbrImageFile._open's checks, which PIL runs before most formats: a
-    header size of at least 20, version 1 or 2 (2 with "GIMP" at byte 20),
-    non-zero sides and a colour depth of 1 or 4, all big-endian.  A Sun
-    raster 1 pixel wide whose length field is 1 or 4 passes them."""
-    if len(data) < 20:
-        return False
-    size, version, w, h, depth = struct.unpack_from(">5I", data)
-    return (size >= 20 and version in (1, 2) and w > 0 and h > 0
-            and depth in (1, 4)
-            and (version == 1 or (data[20:24] == b"GIMP"
-                                  and len(data) >= 28)))
+def _refused(name: str):
+    def refuse(data: bytes, path):
+        raise ValueError(f"{path}: {name} images are not supported "
+                         f"({_READ_NAMES} are)")
+    return refuse
+
+
+def _plugins(head: bytes, data: bytes, path) -> tuple:
+    """``Image.ID`` after ``Image.init()`` in PIL 12.1.0: each plugin's name,
+    whether its ``_accept`` takes the file (True where it has none), and
+    the probe that runs its ``_open`` (raising ``raster.NotThisFormat``
+    where ``Image.open`` goes on to the next plugin), or None where the
+    port's reader takes every file accepted."""
+    other = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
+    return (
+        ("AVIF", head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS,
+         _refused("AVIF")),
+        ("BLP", head.startswith((b"BLP1", b"BLP2")), None),
+        ("BMP", head.startswith(b"BM"), None),
+        ("DIB", len(head) >= 4 and _u32(head, 0) in _BMP_HEADER_SIZES, None),
+        ("BUFR", other == "BUFR", _refused("BUFR")),
+        ("CUR", head.startswith(b"\x00\x00\x02\x00"),
+         lambda d, p: raster.cur_entry(d)),
+        ("PCX", head[:1] == b"\x0a" and head[1:2] in (b"\x00", b"\x02",
+                                                      b"\x03", b"\x05"),
+         raster.pcx_header),
+        ("DCX", head.startswith(b"\xb1\x68\xde\x3a"), None),
+        ("DDS", head.startswith(b"DDS "), None),
+        ("EPS", other == "EPS", _refused("EPS")),
+        ("FITS", head.startswith(b"SIMPLE"), None),
+        ("FLI", probed.fli_accept(head), probed.fli_header),
+        ("FTEX", head.startswith(b"FTEX"), probed.ftex_header),
+        ("GBR", probed.gbr_accept(head), probed.gbr_header),
+        ("GIF", head[:6] in (b"GIF87a", b"GIF89a"), None),
+        ("GRIB", other == "GRIB" and head[7:8] == b"\x01", _refused("GRIB")),
+        ("HDF5", other == "HDF5", _refused("HDF5")),
+        ("PNG", head.startswith(png._SIGNATURE), None),
+        ("JPEG2000", head.startswith((_J2K_CODESTREAM, _JP2_SIGNATURE)),
+         None),
+        ("ICNS", head.startswith(b"icns"), None),
+        # IcoImageFile._open loads the frame
+        ("ICO", head.startswith(b"\x00\x00\x01\x00"), raster.read_ico),
+        # ImImageFile, ImtImageFile, IptcImageFile: _open on every file
+        ("IM", True, im.im_header),
+        ("IMT", True, probed.imt_header),
+        ("IPTC", True, probed.iptc_header),
+        ("JPEG", head.startswith(b"\xff\xd8\xff"), None),
+        ("MCIDAS", head.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+         probed.mcidas_header),
+        ("MPEG", other == "MPEG", _refused("MPEG")),
+        ("TIFF", head[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00",
+                              b"MM\x00+"), None),
+        ("MSP", head.startswith((b"DanM", b"LinS")), None),
+        ("PCD", True, probed.pcd_header),           # no _accept either
+        ("PIXAR", head.startswith(b"\x80\xe8\x00\x00"), probed.pixar_header),
+        ("PNM", head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4",
+                                                  b"5", b"6", b"f"), None),
+        ("PSD", head.startswith(b"8BPS"), None),
+        ("QOI", head.startswith(b"qoif"), lambda d, p: raster.qoi_header(d)),
+        ("SGI", head.startswith(b"\x01\xda"), raster.sgi_header),
+        ("SPIDER", True, probed.spider_header),     # no _accept
+        ("SUN", head.startswith(b"\x59\xa6\x6a\x95"), None),
+        ("TGA", True, lambda d, p: raster.tga_header(d)),   # no _accept
+        ("WEBP", head.startswith(b"RIFF") and head[8:12] == b"WEBP", None),
+        ("WMF", other == "WMF" or (head.startswith(b"\x01\x00\x00\x00")
+                                   and data[40:44] == b" EMF"),
+         _refused("WMF")),
+        ("XBM", head.lstrip().startswith(b"#define"), None),
+        ("XPM", head.startswith(b"/* XPM */"), None),
+        ("XVTHUMB", head.startswith(b"P7 332"), probed.xvthumb_header))
 
 
 def _format(data: bytes, path) -> str:
-    """The format of the file ``data`` as ``Image.open`` finds it: by its
-    magic bytes, and where a plugin passes the file on, TGA (which has
-    none, and which PIL tries last)."""
+    """The format of the file ``data`` as ``Image.open`` finds it: each
+    plugin in ``Image.ID``'s order whose ``_accept`` takes the file and
+    whose ``_open`` does not pass it on."""
     head = data[:16]
-    if head.startswith(png._SIGNATURE):
-        return "PNG"
-    if head.startswith(b"\xff\xd8\xff"):
-        return "JPEG"
-    if head.startswith(b"BM"):
-        return "BMP"
-    if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5",
-                                          b"6", b"f"):
-        return "PNM"
-    if head[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        return "TIFF"
-    if head[:6] in (b"GIF87a", b"GIF89a"):
-        return "GIF"
-    if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
-        return "WEBP"
-    if head.startswith((_J2K_CODESTREAM, _JP2_SIGNATURE)):
-        return "JPEG2000"
-    for magic, fmt in _SIGNATURES:
-        if head.startswith(magic):
+    for fmt, accepted, probe in _plugins(head, data, path):
+        if not accepted:
+            continue
+        if probe is None:
             return fmt
-    if _gbr_claims(data):
-        raise ValueError(f"{path}: GBR images are not supported "
-                         f"({_READ_NAMES} are; PIL opens this file as a GIMP "
-                         f"brush)")
-    for magic, fmt in _LATER_SIGNATURES:
-        if head.startswith(magic):
+        try:
+            probe(data, path)
             return fmt
-    if head.lstrip().startswith(b"#define"):         # XbmImagePlugin
-        return "XBM"
-    name = next((n for m, n in _OTHER_FORMATS if head.startswith(m)), None)
-    if head[4:8] == b"ftyp" and head[8:12] in _AVIF_BRANDS:
-        name = "AVIF"
-    if head.startswith(b"\x01\x00\x00\x00") and data[40:44] == b" EMF":
-        name = "WMF"
-    if name:
-        raise ValueError(f"{path}: {name} images are not supported "
-                         f"({_READ_NAMES} are)")
+        except raster.NotThisFormat:
+            pass
     if head.startswith(b"#?RADIANCE"):
         raise ValueError(f"{path}: HDR images are not supported (PIL 12.1.0 "
                          f"does not open them either)")
-    if len(head) >= 4 and _u32(head, 0) in _BMP_HEADER_SIZES:
-        return "DIB"
-    # the plugins that accept what can also be a TGA header, in PIL's
-    # order; a file that one fails as PIL's passes it on goes on to TGA
-    probes = (
-        ("CUR", head.startswith(b"\x00\x00\x02\x00"), raster.cur_entry),
-        ("PCX", head[:1] == b"\x0a" and head[1:2] in (b"\x00", b"\x02",
-                                                      b"\x03", b"\x05"),
-         lambda d: raster.pcx_header(d, path)),
-        # IcoImageFile._open loads the frame
-        ("ICO", head.startswith(b"\x00\x00\x01\x00"),
-         lambda d: raster.read_ico(d, path)),
-        # ImImageFile._open, which PIL runs on every file that reaches it
-        ("IM", True, lambda d: im.im_header(d, path)),
-        ("QOI", head.startswith(b"qoif"), raster.qoi_header),
-        ("SGI", head.startswith(b"\x01\xda"),
-         lambda d: raster.sgi_header(d, path)))
-    for fmt, accepted, probe in probes:
-        if accepted:
-            try:
-                probe(data)
-                return fmt
-            except raster.NotThisFormat:
-                pass
-    try:
-        raster.tga_header(data)
-        return "TGA"
-    except raster.NotThisFormat:
-        pass
     raise ValueError(f"{path}: not an image format this reader knows "
                      f"({_READ_NAMES})")
 
@@ -284,7 +276,11 @@ def _array_mode(a: np.ndarray) -> str:
 def _read(path) -> tuple[np.ndarray, str]:
     """``np.asarray(Image.open(path))`` and ``Image.open(path).mode``."""
     with open(path, "rb") as f:
-        data = f.read()
+        return _read_data(f.read(), path)
+
+
+def _read_data(data: bytes, path) -> tuple[np.ndarray, str]:
+    """``_read`` of the file's bytes ``data``."""
     fmt = _format(data, path)
     if fmt in _HEADERS:
         # Image.open's _decompression_bomb_check, before any pixel is read
@@ -294,6 +290,8 @@ def _read(path) -> tuple[np.ndarray, str]:
                              f"it (a decompression bomb)")
     if fmt in _RASTER_READERS:
         return _RASTER_READERS[fmt](data, path)
+    if fmt == "IPTC":
+        return probed.read_iptc(data, path, _read_data)
     if fmt == "PNG":
         a = png.read_png(path)
         palette = data[25:26] == b"\x03"           # IHDR colour type 3
@@ -327,7 +325,11 @@ _RASTER_READERS = {"ICO": raster.read_ico, "CUR": raster.read_cur,
                    "ICNS": icns.read_icns, "IM": im.read_im,
                    "MSP": raster.read_msp, "SUN": raster.read_sun,
                    "XBM": x11.read_xbm, "XPM": x11.read_xpm,
-                   "BLP": blp.read_blp}
+                   "BLP": blp.read_blp, "SPIDER": probed.read_spider,
+                   "GBR": probed.read_gbr, "XVTHUMB": probed.read_xvthumb,
+                   "IMT": probed.read_imt, "FLI": probed.read_fli,
+                   "FTEX": probed.read_ftex, "MCIDAS": probed.read_mcidas,
+                   "PCD": probed.read_pcd, "PIXAR": probed.read_pixar}
 # the size that Image.open reports, from the header
 _HEADERS = {"TGA": lambda d, p: raster.tga_header(d),
             "QOI": lambda d, p: raster.qoi_header(d),
@@ -337,7 +339,12 @@ _HEADERS = {"TGA": lambda d, p: raster.tga_header(d),
             "DCX": lambda d, p: raster.pcx_header(raster.dcx_page(d, p), p),
             "IM": im.im_header, "MSP": raster.msp_header,
             "SUN": raster.sun_header, "XBM": x11.xbm_header,
-            "XPM": x11.xpm_header, "BLP": blp.blp_header}
+            "XPM": x11.xpm_header, "BLP": blp.blp_header,
+            "SPIDER": probed.spider_header, "GBR": probed.gbr_header,
+            "XVTHUMB": probed.xvthumb_header, "IMT": probed.imt_header,
+            "FLI": probed.fli_header, "FTEX": probed.ftex_header,
+            "MCIDAS": probed.mcidas_header, "PCD": probed.pcd_header,
+            "IPTC": probed.iptc_header, "PIXAR": probed.pixar_header}
 
 
 def read_image(path) -> np.ndarray:
@@ -732,6 +739,7 @@ def _jpeg_lib():
 
 
 def _read_jpeg(data: bytes, path) -> np.ndarray:
+    _jpeg_size_of(data, path)           # JpegImageFile._open's marker walk
     lib = _jpeg_lib()
     err = ctypes.create_string_buffer(256)
     info = (ctypes.c_int32 * 4)()
@@ -752,22 +760,52 @@ def _jpeg_size(path) -> tuple[int, int]:
 
 
 def _jpeg_size_of(data: bytes, path) -> tuple[int, int]:
-    """``_jpeg_size`` of the JPEG stream ``data``."""
+    """``_jpeg_size`` of the JPEG stream ``data``: the size of the last
+    frame header (SOFn or DHP) before the first SOS, once
+    ``JpegImageFile._open``'s walk over the markers has read that scan's
+    header whole, as ``Image.open`` needs it to."""
+    size = None
     pos = 2
-    while pos + 4 <= len(data):
-        if data[pos] != 0xFF:
+    while True:
+        if pos >= len(data):
+            raise ValueError(f"{path}: the JPEG ends before its first scan: "
+                             f"PIL cannot identify it")
+        if data[pos] != 0xFF:                       # junk before a marker
             pos += 1
             continue
+        if pos + 1 >= len(data):
+            raise ValueError(f"{path}: the JPEG ends before its first scan: "
+                             f"PIL cannot identify it")
         m = data[pos + 1]
-        if m == 0xFF or 0xD0 <= m <= 0xD8 or m == 0x01:
-            pos += 1 if m == 0xFF else 2
+        if m == 0xFF:                               # a fill byte
+            pos += 1
             continue
-        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
-            h = int.from_bytes(data[pos + 5:pos + 7], "big")
-            w = int.from_bytes(data[pos + 7:pos + 9], "big")
-            return w, h
-        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
-    raise ValueError(f"{path}: JPEG without a frame header")
+        if m == 0x00:                               # an escaped 0xFF
+            pos += 2
+            continue
+        if m < 0xC0:
+            raise ValueError(f"{path}: no JPEG marker at byte {pos}: PIL "
+                             f"cannot identify it")
+        if m == 0xC8 or 0xD0 <= m <= 0xD9 or 0xF0 <= m <= 0xFD:
+            pos += 2                                # no segment read
+            continue
+        if pos + 4 > len(data):
+            raise ValueError(f"{path}: the JPEG ends before its first scan: "
+                             f"PIL cannot identify it")
+        n = int.from_bytes(data[pos + 2:pos + 4], "big")
+        if pos + 2 + n > len(data):
+            raise ValueError(f"{path}: a JPEG marker segment runs past the "
+                             f"end of the file: PIL refuses it (Truncated "
+                             f"File Read)")
+        if (0xC0 <= m <= 0xCF and m not in (0xC4, 0xCC)) or m == 0xDE:
+            if n >= 7:
+                size = (int.from_bytes(data[pos + 7:pos + 9], "big"),
+                        int.from_bytes(data[pos + 5:pos + 7], "big"))
+        if m == 0xDA:
+            if size is None:
+                raise ValueError(f"{path}: JPEG without a frame header")
+            return size
+        pos += 2 + max(n, 2)            # a length below 2 reads nothing
 
 
 # ---------------------------------------------------------------------------

@@ -87,7 +87,9 @@ def _codec():
                      ("mods_qoi_decode", [p, i64, i64, i, p]),
                      ("mods_packbits_decode", [p, i64, i64, i, p]),
                      ("mods_sun_rle_decode", [p, i64, i64, i, p]),
-                     ("mods_xbm_decode", [p, i64, i64, i, p])):
+                     ("mods_xbm_decode", [p, i64, i64, i, p]),
+                     ("mods_fli_decode", [p, i64, i, i, p]),
+                     ("mods_pcd_decode", [p, i64, p])):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = args
     lib.mods_pcx_encode.restype = ctypes.c_int64

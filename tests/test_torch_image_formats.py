@@ -491,12 +491,12 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """GBR, AVIF and YCCK JPEG: PIL reads each; SGILog TIFFs (libtiff's
-    LogLuvSetupDecode refuses what PIL hands it), ThunderScan and
-    tiff_raw_16 TIFFs of 8-bit samples (libtiff refuses those) and WebP in
-    TIFF (this libtiff lacks it): the port raises a ValueError that names
-    each.  A Zstandard TIFF of PIL's and an old-style JPEG TIFF are read
-    as PIL reads them."""
+    """AVIF and YCCK JPEG: PIL reads each; HDF5: PIL opens it; SGILog TIFFs
+    (libtiff's LogLuvSetupDecode refuses what PIL hands it), ThunderScan
+    and tiff_raw_16 TIFFs of 8-bit samples (libtiff refuses those) and
+    WebP in TIFF (this libtiff lacks it): the port raises a ValueError
+    that names each.  A Zstandard TIFF of PIL's, an old-style JPEG TIFF
+    and a GIMP brush are read as PIL reads them."""
     p = tmp_path / "z.tif"
     Image.fromarray(GRAY).save(p, compression="zstd")
     got, mode = read_image(p), Image.open(p).mode
@@ -511,7 +511,11 @@ def test_refusals_name_the_case(tmp_path):
     p.write_bytes(struct.pack(">5I", 25, 1, w, h, 1) + b"name\0"
                   + GRAY.tobytes())
     np.testing.assert_array_equal(np.asarray(Image.open(p)), GRAY)
-    with pytest.raises(ValueError, match="GBR"):
+    np.testing.assert_array_equal(read_image(p), GRAY)
+    p = tmp_path / "x.h5"            # HDF5: PIL's stub opens the signature
+    p.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    assert Image.open(p).format == "HDF5"
+    with pytest.raises(ValueError, match="HDF5"):
         read_image(p)
     cases = [("x.avif", {}, RGB, "AVIF")]
     for name, kw, a, match in cases:

@@ -289,10 +289,10 @@ def test_read_image_equals_pil(tmp_path, case):
 
 
 def test_other_formats_raise_naming_them(tmp_path):
-    """TIFF, GIF, PFM, WebP and PSD read as PIL reads them (they raised
-    before the port read them); so do the RLE-compressed and the 16-bit
-    BMP.  FTEX, which PIL reads and the port does not, and an unknown file
-    raise a ValueError that names the format."""
+    """TIFF, GIF, PFM, WebP, PSD and FTEX read as PIL reads them (they
+    raised before the port read them); so do the RLE-compressed and the
+    16-bit BMP.  MPEG, which PIL opens and the port does not, and an
+    unknown file raise a ValueError that names the format."""
     for fmt in ("TIFF", "GIF", "PFM", "WebP"):
         p = tmp_path / f"x.{fmt.lower()}"
         Image.fromarray(GRAY.astype(np.float32) if fmt == "PFM"
@@ -310,9 +310,14 @@ def test_other_formats_raise_naming_them(tmp_path):
     p.write_bytes(b"FTEX" + struct.pack("<7i", 0, w, h, 1, 1, 1, 32)
                   + struct.pack("<i", rgb.size) + rgb.tobytes())
     np.testing.assert_array_equal(np.asarray(Image.open(p)), rgb)
-    with pytest.raises(ValueError, match="FTEX"):
+    _hold_read(p)
+    p = tmp_path / "x.mpg"        # MPEG: a sequence header, 352x240
+    p.write_bytes(b"\x00\x00\x01\xb3" + bytes([0x16, 0x00, 0xF0, 0x14])
+                  + bytes(8))
+    assert Image.open(p).size == (352, 240)
+    with pytest.raises(ValueError, match="MPEG"):
         read_image(p)
-    with pytest.raises(ValueError, match="FTEX"):
+    with pytest.raises(ValueError, match="MPEG"):
         image_size(p)
     p = tmp_path / "x.bin"
     p.write_bytes(b"\x00\x01\x02\x03" * 8)
