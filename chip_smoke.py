@@ -315,7 +315,19 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    PIL's hash (libjpeg's block smoothing); (zh) ``cli match`` on zoom2x's
    pair written as 1-byte McIdas area files (``mcidas_file``): its
    launches held to the plan, its figures to ``JAX_MCIDAS_REFERENCE`` by
-   phase 6's rule and its tentatives within 20 %.
+   phase 6's rule and its tentatives within 20 %; (zi) 14x's ten canvases
+   written as .pdf (``io/pdf.py``: "1" as CCITT Group 4 by
+   ``csrc/fax4_encode.cpp``, gray and RGB as JPEG, "LA" and RGBA as JP2),
+   .eps and .ps (``io/eps.py``) and .palm where PIL takes the mode, the
+   clock fixed at ``PDF_CLOCK``, each file's SHA-256 held to PIL's
+   (``PDF_ENCODE_SHA256``, ``EPS_ENCODE_SHA256``,
+   ``PALM_ENCODE_SHA256``), every other mode refused naming the format,
+   the median encode ms of three and the "1" canvas's G4 stream bytes
+   printed; (zj) ``cli match`` on zoom2x's PNG pair: its launches held to
+   the plan, its figures to ``JAX_PDF_REFERENCE`` by phase 6's rule and
+   its tentatives within 20 %, its drawings named .pdf (the xref's offsets
+   at their objects, the image stream the JPEG of ``viz``'s canvas) and
+   .eps (its hex that canvas).
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -1946,15 +1958,16 @@ def _build_native() -> None:
     ``csrc/zstd_decode.cpp``, the JPEG 2000 decoder
     ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``, the RLE
     and QOI codecs ``csrc/raster_codec.cpp``, the ICO and ICNS writers'
-    Lanczos and bicubic resampler ``csrc/resample.cpp`` and the DDS block
-    decoders ``csrc/bcn_decode.cpp`` (g++,
+    Lanczos and bicubic resampler ``csrc/resample.cpp``, the DDS block
+    decoders ``csrc/bcn_decode.cpp`` and the PDF writer's CCITT Group 4
+    coder ``csrc/fax4_encode.cpp`` (g++,
     one process a source, all started together, into
     ``mods_tpu_torch/_build/native``); raises when g++ or OpenMP is
     missing."""
     import os
     from concurrent.futures import ThreadPoolExecutor
     from mods_tpu_torch.detectors import mser
-    from mods_tpu_torch.io import dds, image, raster, tiff
+    from mods_tpu_torch.io import dds, image, pdf, raster, tiff
     from mods_tpu_torch.ops import host_render
     out = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True, timeout=60)
@@ -1965,7 +1978,7 @@ def _build_native() -> None:
               image._jpeg_encoder, image._webp_lib, image._webp_encoder,
               image._gif_encoder, tiff._lib, tiff._zstd_lib, image._j2k_lib,
               image._j2k_encoder, raster._codec, raster._resampler,
-              dds._bcn_lib)
+              dds._bcn_lib, pdf._fax4_lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
@@ -1974,7 +1987,7 @@ def _build_native() -> None:
           f"jpeg_encode.cpp, webp_decode.cpp, webp_encode.cpp, "
           f"gif_encode.cpp, tiff_decode.cpp, zstd_decode.cpp, "
           f"j2k_decode.cpp, j2k_encode.cpp, raster_codec.cpp, "
-          f"resample.cpp, bcn_decode.cpp built into "
+          f"resample.cpp, bcn_decode.cpp, fax4_encode.cpp built into "
           f"{mser.BUILD_DIR} in {time.perf_counter() - t0:.1f} s; host "
           f"cores {os.cpu_count()}, OpenMP threads "
           f"{host_render.omp_max_threads()}", flush=True)
@@ -5804,6 +5817,68 @@ JPEG_CLOSED_SHA256 = {
 # --jax-mcidas``
 JAX_MCIDAS_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                             gt_consistent=37, corner_error_px=4.04)
+# 14zi: the instant ``time.gmtime`` gives while 14zi writes, so that a
+# PDF's CreationDate and ModDate are fixed (``fixed_gmtime``)
+PDF_CLOCK = (2026, 1, 2, 3, 4, 5, 4, 2, 0)
+# 14zi: the SHA-256 of PIL's file of each of 14x's canvases
+# (``raster_encode_canvases``) named ``canvas_{i}`` + the extension, in
+# each extension of ``pdf_eps_palm_extensions``, the clock at
+# ``PDF_CLOCK``; ``.eps`` and ``.ps`` are the same bytes
+# (tests/test_torch_pdf_eps_palm.py::test_pdf_eps_palm_hashes_are_pils;
+# ``python tests/test_torch_pdf_eps_palm.py --hashes``)
+PDF_ENCODE_SHA256 = {
+    "a 12-row strip of the RGB canvas": (
+        "3f5e6ae450b8f72ffb0610a739920bf4"
+        "972d92b9b69212a510d9d63a574f92e9"),
+    "zoom2x_1 1": (
+        "b743e145a05e2d3b82c17226d69e163e"
+        "9e72122e617a3e85f97865cdf8b1e4dc"),
+    "zoom2x_1 L": (
+        "605c34bd00b6cdee3d51994d6a8a251c"
+        "7e5b754c1980538cbc21963a3b301199"),
+    "zoom2x_1 RGB with coloured lines": (
+        "342ec87948bccd39de54a5af7ba8f535"
+        "29b21f5024187ef3813b1966c657f83b"),
+    "zoom2x_1, zoom2x_2 LA": (
+        "a79ad9732587cd8f65224d0067a98f62"
+        "42f6db82d980a9b55c8a23d58bb3ac52"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        "5cf8d5ed455151713aa34e24ba047d11"
+        "1359b8ac7355b430eb5769eef0230cba"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGBA": (
+        "685586a038e64a11e1c40e4193ef5412"
+        "7020c6e063ef58a70dd43e8003d2d759"),
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": (
+        "0c2f1abd8989325ef7a58a76bcc32e44"
+        "8aa4beb6179f8ca12ff27558a0494ffd"),
+}
+EPS_ENCODE_SHA256 = {
+    "a 12-row strip of the RGB canvas": (
+        "97a77f2f26d51aa616cd30dd48576031"
+        "122244ca7f98fb863890f44c7e73fe8d"),
+    "zoom2x_1 L": (
+        "2ef0a56201435caa6532b86e7d552353"
+        "90ae81e02e1fa1f2742034a430e3a62d"),
+    "zoom2x_1 RGB with coloured lines": (
+        "e13e3a8f45768e07b9fb5160133cffdc"
+        "532abc4fb4205292c197bd7ef6e06bdb"),
+    "zoom2x_1, zoom2x_2, tilt4_1 RGB": (
+        "25205f18973625e0f2cb03f4739aa64a"
+        "7effb4a6f51444671cddb65c7a73f462"),
+    "zoom2x_1, zoom2x_2, zoom2x_1 turned RGB": (
+        "b863cc51ee1755113a0cc7b29510e04e"
+        "0bb290ff7b215a671e5a6407f7709a24"),
+}
+PALM_ENCODE_SHA256 = {
+    "zoom2x_1 1": (
+        "381d76e3992bb851d3815a8e5acb77ee"
+        "4c50c74c4587f498a0d08a6b83227719"),
+}
+# 14zj, the JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# zoom2x's PNG pair, its drawings named .pdf and .eps, on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_pdf_eps_palm.py --jax-pdf``
+JAX_PDF_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                         gt_consistent=37, corner_error_px=4.04)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -7220,11 +7295,158 @@ def _match_mcidas_pair(held, work: Path) -> list:
     return failures
 
 
+# the modes PIL 12.1.0 writes in each of 14zi's extensions
+PDF_EPS_PALM_MODES = {".pdf": ("1", "L", "LA", "RGB", "RGBA"),
+                      ".eps": ("L", "RGB"), ".ps": ("L", "RGB"),
+                      ".palm": ("1",)}
+
+
+def pdf_eps_palm_extensions(canvas) -> tuple:
+    """The extensions of 14zi that PIL writes ``canvas`` in: PDF from
+    modes "1", "L", "LA", "RGB" and "RGBA", EPS (``.eps``, ``.ps``) from
+    "L" and "RGB", PALM from "1" (the test holds these to PIL's saves)."""
+    from mods_tpu_torch.io.image import _mode
+    mode = _mode(canvas)
+    return tuple(ext for ext, modes in PDF_EPS_PALM_MODES.items()
+                 if mode in modes)
+
+
+def pdf_eps_palm_name(i: int, ext: str) -> str:
+    return f"canvas_{i}{ext}"
+
+
+class fixed_gmtime:
+    """``time.gmtime`` giving ``PDF_CLOCK`` inside a ``with``, as both
+    packages' PDF writers read it at save time."""
+
+    def __enter__(self):
+        self._saved = time.gmtime
+        time.gmtime = lambda *a: time.struct_time(PDF_CLOCK)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        time.gmtime = self._saved
+
+
+def pdf_parts(data: bytes) -> tuple:
+    """A one-page PDF as PdfImagePlugin writes it -> (whether the xref's
+    free entry is PIL's and every other entry's offset points at its ``N
+    0 obj``, the image object's stream)."""
+    start = int(data[data.rindex(b"startxref\n") + 10:].split(b"\n")[0])
+    head = re.compile(rb"xref\n0 (\d+)\n").match(data, start)
+    rows = data[head.end():head.end() + 20 * int(head.group(1))]
+    offsets = {i: int(rows[20 * i:20 * i + 10])
+               for i in range(1, int(head.group(1)))}
+    ok = rows[:20] == b"0000000000 65536 f \n" and all(
+        data.startswith(b"%d 0 obj" % i, at) for i, at in offsets.items())
+    body = re.compile(rb"/Length (\d+)\n>>stream\n").search(data,
+                                                            offsets[1])
+    return ok, data[body.end():body.end() + int(body.group(1))]
+
+
+def eps_pixels(data: bytes) -> tuple:
+    """An EPS as EpsImagePlugin writes it -> (whether every hex line but
+    the last holds 78 digits, the bytes its hex gives)."""
+    bind = b"{ currentfile buf readhexstring pop } bind\n"
+    begin = data.index(b"\n", data.index(bind) + len(bind)) + 1
+    lines = data[begin:data.rindex(b"\n%%%%EndBinary\n")].split(b"\n")
+    return (all(len(x) == 78 for x in lines[:-1]),
+            bytes.fromhex(b"".join(lines).decode("ascii")))
+
+
+def _encode_pdf_eps_palm(work: Path) -> list:
+    """14zi: each of ``raster_encode_canvases`` written by ``save_image``
+    in each of ``pdf_eps_palm_extensions`` with the clock at
+    ``PDF_CLOCK``, the file's SHA-256 against PIL's
+    (``PDF_ENCODE_SHA256``, ``EPS_ENCODE_SHA256``, ``PALM_ENCODE_SHA256``)
+    and the median encode ms of three; the G4 stream's bytes of the "1"
+    canvas's PDF; and every other extension of the four refused naming
+    its format, no file left."""
+    import hashlib
+    from mods_tpu_torch.io.image import read_image, save_image
+    views = [read_image(PAIRS / f"{n}.png")
+             for n in ("zoom2x_1", "zoom2x_2", "tilt4_1")]
+    tables = {".pdf": PDF_ENCODE_SHA256, ".eps": EPS_ENCODE_SHA256,
+              ".ps": EPS_ENCODE_SHA256, ".palm": PALM_ENCODE_SHA256}
+    names = {".pdf": "PDF", ".eps": "EPS", ".ps": "EPS", ".palm": "Palm"}
+    out, failures = {}, []
+    with fixed_gmtime():
+        for i, (name, canvas) in enumerate(
+                raster_encode_canvases(views).items()):
+            written = pdf_eps_palm_extensions(canvas)
+            for ext in tables:
+                p = work / pdf_eps_palm_name(i, ext)
+                if ext not in written:
+                    try:
+                        save_image(p, canvas)
+                        r = dict(refused=False)
+                    except ValueError as e:
+                        r = dict(refused=names[ext] in str(e)
+                                 and not p.exists())
+                    out[f"{name} {ext}"] = r
+                    if not r["refused"]:
+                        failures.append(f"14zi {name} {ext}: not refused "
+                                        f"naming {names[ext]}")
+                    continue
+                ms = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    save_image(p, canvas)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                data = p.read_bytes()
+                r = dict(bytes=len(data), encode_ms=statistics.median(ms),
+                         sha256_equal_to_pil=hashlib.sha256(
+                             data).hexdigest() == tables[ext].get(name))
+                if ext == ".pdf" and canvas.dtype == bool:
+                    r["g4_stream_bytes"] = len(pdf_parts(data)[1])
+                out[f"{name} {ext}"] = r
+                if not r["sha256_equal_to_pil"]:
+                    failures.append(f"14zi {name} {ext}: {r}")
+    print(f"[14] zi, PDF, EPS and PALM encode on the host: "
+          f"{json.dumps(out)}", flush=True)
+    return failures
+
+
+def _match_png_pair_pdf_eps(held, work: Path) -> list:
+    """14zj: ``cli match`` on zoom2x's PNG pair against
+    ``JAX_PDF_REFERENCE`` (``_held_cli_match``, tentatives within 20 %),
+    its drawings named .pdf and .eps: the PDF's xref offsets each at
+    their object and its image stream the JPEG of ``viz``'s canvas
+    (``_jpeg_bytes``), the EPS's hex that canvas exactly."""
+    import numpy as np
+    from mods_tpu_torch.io.image import _jpeg_bytes
+    res, failures, drawings = _held_cli_match(
+        held, work, "zoom2x PNG",
+        [PAIRS / f"zoom2x_{i}.png" for i in (1, 2)],
+        (work / "o1.pdf", work / "o2.eps"), JAX_PDF_REFERENCE)
+    ref = JAX_PDF_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14zj: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    (pdf_path, pdf_canvas), (eps_path, eps_canvas) = drawings
+    xref_ok, stream = pdf_parts(pdf_path.read_bytes())
+    res["pdf_xref_offsets_at_their_objects"] = xref_ok
+    res["pdf_stream_is_the_canvas_jpeg"] = ok = \
+        stream == _jpeg_bytes(np.ascontiguousarray(pdf_canvas), "RGB")
+    if not (xref_ok and ok):
+        failures.append(f"14zj {pdf_path.name}: xref at its objects "
+                        f"{xref_ok}, stream the canvas's JPEG {ok}")
+    lines_ok, pixels = eps_pixels(eps_path.read_bytes())
+    res["eps_hex_is_the_canvas"] = ok = lines_ok and \
+        pixels == np.ascontiguousarray(eps_canvas).tobytes()
+    if not ok:
+        failures.append(f"14zj {eps_path.name}: its hex is not viz's "
+                        f"canvas")
+    print(f"[14] zj, cli match on the PNG pair, .pdf and .eps drawings: "
+          f"{json.dumps(res)}", flush=True)
+    return failures
+
+
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14y, 14za-14zh), on the card machine without PIL.
+    """Phase 14 (14a-14y, 14za-14zj), on the card machine without PIL.
     Raises with every failure of its parts; returns each kernel's launches
-    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc, 14zf and 14zh
-    (2 ``window_sampler`` each, 24 in all)."""
+    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc, 14zf, 14zh and
+    14zj (2 ``window_sampler`` each, 26 in all)."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -7273,6 +7495,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     failures += _decode_probed()
     with tempfile.TemporaryDirectory() as d:
         failures += _match_mcidas_pair(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _encode_pdf_eps_palm(Path(d))
+        failures += _match_png_pair_pdf_eps(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -7459,7 +7684,8 @@ def main() -> int:
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
           f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000, "
-          f"TGA, PSD, IM and McIdas pairs' commands: "
+          f"TGA, PSD, IM and McIdas pairs' commands and the PNG pair's "
+          f"with .pdf and .eps drawings: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "
@@ -7488,6 +7714,7 @@ def main() -> int:
             launches_plugins_and_commands=phase12_launches[name],
             launches_mesh_batched_f_monolith=phase13_launches[name],
             launches_replayed_in_monolith_graphs=replayed[name],
+            launches_image_commands_not_in_launches=phase14_launches[name],
             captured_in_monolith_graphs_not_run=captured[name],
             max_abs_err=max(g["max_abs_err"] for g in checks),
             ms=main_geom["ms"], plain_ms=main_geom["plain_ms"],

@@ -121,12 +121,16 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   ``io/im.py``; ``.msp`` and ``.xbm`` (PIL's bytes of a bool array; every
   other mode refused as PIL refuses it) by ``io/raster.py`` and
   ``io/x11.py``; ``.blp`` refused for every array, as PIL writes BLP from
-  mode "P" only.
+  mode "P" only; ``.pdf`` (one page: bool as CCITT Group 4 by
+  ``csrc/fax4_encode.cpp``, gray and RGB as PIL's JPEG, gray+alpha and
+  RGBA as its JP2; the file's stem as the title, the dates from
+  ``time.gmtime()``) by ``io/pdf.py``, ``.eps`` and ``.ps`` (gray and RGB
+  as hex) by ``io/eps.py`` and ``.palm`` (bool) by ``io/raster.py``, PIL's
+  bytes.
   int8 arrays are PIL's unsigned "I;8" and uint32 arrays its "I;32",
   their bits as int32, in every format that writes "I".  Every other
-  extension that PIL writes (``.pdf``, ``.palm``, ...) and every array
-  that PIL refuses to write in that format raise a ``ValueError`` naming
-  them.
+  extension that PIL writes (``.avif``) and every array that PIL refuses
+  to write in that format raise a ``ValueError`` naming them.
 * ``adaptive_palette(array)``: the indices and the palette of
   ``Image.fromarray(array).convert("P", palette=Image.Palette.ADAPTIVE)``
   (Pillow's median cut for gray and RGB, its fast octree for RGBA).
@@ -142,8 +146,8 @@ import struct
 
 import numpy as np
 
-from mods_tpu_torch.io import (blp, dds, fits, icns, im, png, probed, psd,
-                                raster, tiff, x11)
+from mods_tpu_torch.io import (blp, dds, eps, fits, icns, im, pdf, png,
+                                probed, psd, raster, tiff, x11)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_SOURCE = os.path.join(_PKG, "csrc", "jpeg_decode.cpp")
@@ -1188,10 +1192,10 @@ _SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".pbm": "PNM", ".pgm": "PNM",
                  ".vda": "TGA", ".vst": "TGA", ".sgi": "SGI", ".bw": "SGI",
                  ".rgb": "SGI", ".rgba": "SGI", ".pcx": "PCX", ".qoi": "QOI",
                  ".dds": "DDS", ".icns": "ICNS", ".im": "IM", ".msp": "MSP",
-                 ".xbm": "XBM", ".blp": "BLP"}
+                 ".xbm": "XBM", ".blp": "BLP", ".pdf": "PDF", ".ps": "EPS",
+                 ".eps": "EPS", ".palm": "PALM"}
 # the extensions of the other formats that PIL 12.1.0 writes here
-_NOT_WRITTEN = {".palm": "PALM", ".pdf": "PDF", ".ps": "EPS", ".eps": "EPS",
-                ".avif": "AVIF", ".avifs": "AVIF"}
+_NOT_WRITTEN = {".avif": "AVIF", ".avifs": "AVIF"}
 # PIL's stubs: formats it names but cannot save without a handler
 _STUBS = {".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
           ".wmf": "WMF", ".emf": "WMF"}
@@ -1618,6 +1622,8 @@ def save_image(path, array) -> None:
             data = raster.sgi_bytes(a, mode, path)
         elif fmt == "IM":
             data = im.im_bytes(a, mode, path)
+        elif fmt == "PDF":                     # the name is the title
+            data = pdf.pdf_bytes(a, mode, path)
         else:
             data = {"PNM": _pnm_bytes, "BMP": _bmp_bytes, "DIB": _dib_bytes,
                     "TIFF": _tiff_bytes, "JPEG": _jpeg_bytes,
@@ -1626,7 +1632,8 @@ def save_image(path, array) -> None:
                     "PCX": raster.pcx_bytes, "QOI": raster.qoi_bytes,
                     "DDS": dds.dds_bytes, "ICNS": icns.icns_bytes,
                     "MSP": raster.msp_bytes, "XBM": x11.xbm_bytes,
-                    "BLP": blp.blp_bytes}[fmt](a, mode)
+                    "BLP": blp.blp_bytes, "EPS": eps.eps_bytes,
+                    "PALM": raster.palm_bytes}[fmt](a, mode)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
     with open(path, "wb") as f:

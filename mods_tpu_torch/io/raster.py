@@ -1,5 +1,5 @@
-"""ICO, CUR, TGA, SGI, PCX, DCX, QOI, MSP and Sun raster files as PIL 12.1.0
-reads and writes them for the JAX commands (``Image.open``,
+"""ICO, CUR, TGA, SGI, PCX, DCX, QOI, MSP, Sun raster and PALM files as PIL
+12.1.0 reads and writes them for the JAX commands (``Image.open``,
 ``Image.fromarray(a).save``).
 
 ``io/image.py`` picks the format and calls these; each reader returns
@@ -49,6 +49,11 @@ the ICO writer's thumbnails and its bicubic for ``io/icns.py``'s frames;
   bits; type 2 is Pillow's SunRleDecode.c (``mods_sun_rle_decode``), whose
   lines are not padded.  PIL cannot load a colour map on a 1-bit or RGB
   image.
+* PALM (PalmImagePlugin), written only, as PIL writes it: mode "1" as
+  version 0 without compression (its 16-byte header big-endian), each row
+  inverted (a set bit black) and padded with zeros to a whole number of
+  16-bit words; every other mode refused as PIL refuses it (PIL takes
+  "L" only with a ``bpp`` that ``Image.fromarray`` never sets).
 
 A file that PIL's ``Image.open`` would pass on to the next plugin raises
 ``NotThisFormat``: ``io/image.py`` then tries TGA, which PIL tries last.
@@ -809,6 +814,20 @@ def msp_bytes(a: np.ndarray, mode: str) -> bytes:
     for word in words[:12]:
         words[12] ^= word
     return struct.pack("<16H", *words) + np.packbits(a, axis=1).tobytes()
+
+
+def palm_bytes(a: np.ndarray, mode: str) -> bytes:
+    """PIL's PALM of a bool array (module docstring)."""
+    if mode != "1":
+        raise ValueError(f"cannot write mode {mode} as Palm")
+    h, w = a.shape
+    rowbytes = int((w + 15) / 16) * 2
+    rows = np.zeros((h, rowbytes), np.uint8)
+    rows[:, :(w + 7) // 8] = np.packbits(~a, axis=1)
+    # width, height, row bytes, flags, bits a pixel, version 0, offset 0,
+    # transparent index, compression 0xFF (none), reserved
+    return struct.pack(">4H2BH2BH", w, h, rowbytes, 0, 1, 0, 0, 0, 0xFF,
+                       0) + rows.tobytes()
 
 
 # ---------------------------------------------------------------------------

@@ -445,15 +445,20 @@ def test_refused_extensions_name_the_format(tmp_path, ext):
         assert I._NOT_WRITTEN[ext] in Image.SAVE
 
 
-@pytest.mark.parametrize("ext", [".blp", ".im", ".msp", ".xbm"])
+@pytest.mark.parametrize("ext", [".blp", ".im", ".msp", ".xbm", ".eps",
+                                 ".palm", ".pdf", ".ps"])
 def test_bitmap_extensions_write_or_refuse_as_pil(tmp_path, ext):
     """The extensions that left the refused ones when the port learnt to
-    write them: an RGB array is written as PIL writes it to ``.im`` (its
-    bytes) and refused with PIL's reason as ``.msp``, ``.xbm`` and
-    ``.blp`` (MSP and XBM take mode "1" only, BLP "P" only)."""
+    write them: an RGB array is written as PIL writes it to ``.im``,
+    ``.pdf``, ``.eps`` and ``.ps`` (its bytes, a PDF's with the clock
+    fixed) and refused with PIL's reason as ``.msp``, ``.xbm``, ``.blp``
+    and ``.palm`` (MSP, XBM and PALM take mode "1" only, BLP "P"
+    only)."""
     a = arrays(1, 8, 8)["RGB"]
-    hold_write(tmp_path, f"x{ext}", a)
-    assert (tmp_path / "port" / f"x{ext}").exists() == (ext == ".im")
+    with chip_smoke.fixed_gmtime():
+        hold_write(tmp_path, f"x{ext}", a)
+    assert (tmp_path / "port" / f"x{ext}").exists() == (
+        ext in (".im", ".pdf", ".eps", ".ps"))
 
 
 def test_every_pil_writer_is_written_or_refused():
