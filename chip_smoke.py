@@ -327,7 +327,16 @@ Phases (each raises on failure; the exit status is 0 only when all pass):
    the plan, its figures to ``JAX_PDF_REFERENCE`` by phase 6's rule and
    its tentatives within 20 %, its drawings named .pdf (the xref's offsets
    at their objects, the image stream the JPEG of ``viz``'s canvas) and
-   .eps (its hex that canvas).
+   .eps (its hex that canvas); (zk) the YCCK, lossless (SOF3) and
+   arithmetic-coded (SOF9, SOF10) JPEGs of ``CODING_FIXTURES`` decoded on
+   the host by ``csrc/jpeg_decode.cpp``, each array's shape, mode and
+   SHA-256 held to PIL's (``CODING_FIXTURE_SHA256``) or its refusal to
+   PIL's reason (``CODING_FIXTURE_REFUSALS``), the decode ms printed, and
+   zoom2x_1 written as a 1000x598 lossless JPEG (``lossless_jpeg``) and
+   read back to the PNG's array, the write and read ms printed; (zl)
+   ``cli match`` on zoom2x's pair written so: its launches held to the
+   plan, its figures to ``JAX_LOSSLESS_REFERENCE`` by phase 6's rule and
+   its tentatives within 20 %.
 
 The last lines are one JSON line of phase 10's batched figures under
 bench.py's names, the card (nvidia-smi), one JSON line of kernel
@@ -5879,6 +5888,57 @@ PALM_ENCODE_SHA256 = {
 # ``JAX_PLATFORMS=cpu python tests/test_torch_pdf_eps_palm.py --jax-pdf``
 JAX_PDF_REFERENCE = dict(steps=1, tentatives=126, matches=37,
                          gt_consistent=37, corner_error_px=4.04)
+# 14zk: YCCK, lossless and arithmetic-coded JPEGs, built by
+# tests/test_torch_jpeg_codings.py (``python
+# tests/test_torch_jpeg_codings.py --fixtures``): PIL's shape, mode and
+# SHA-256 of each that PIL reads (``--hashes``;
+# test_torch_jpeg_codings.py::test_coding_fixtures_are_pils), and a part
+# of PIL's reason, as the port words it, for each that PIL refuses
+CODING_FIXTURE_SHA256 = {
+    "coding_arith_420_restart_dac.jpg": (
+        (96, 128, 3), "RGB",
+        "ed57f2d2bbaadb71f4e30a25ac3bd134"
+        "5a165599b460c8f5758cd9d9eaa965b7"),
+    "coding_arith_progressive.jpg": (
+        (96, 128, 3), "RGB",
+        "63624db698c603d0191a2a6e7e24f4fd"
+        "18b25e7b620562ebb84b00d59aa92ed0"),
+    "coding_arith_progressive_reads.jpg": (
+        (96, 128), "L",
+        "1a367da329e6fdd4d8418d56c608bc97"
+        "841a138c5f2cd59c9ec53984a60e6136"),
+    "coding_lossless_cmyk_scans.jpg": (
+        (96, 128, 4), "CMYK",
+        "81e24053f35634a35f9f355e75d70d64"
+        "903ade03cb4c9b022ca55f8383328661"),
+    "coding_lossless_gray_p7_pt1.jpg": (
+        (96, 128), "L",
+        "bde093a12569aeaa435eba2b45905fd5"
+        "6ef784c4f3cb940625114af73b4cc9d1"),
+    "coding_lossless_rgb_422_restart.jpg": (
+        (96, 128, 3), "RGB",
+        "286b14e7a081a0479b0c444cba388a3a"
+        "62130060398e89aa8013a1e2c60650dd"),
+    "coding_ycck_420.jpg": (
+        (96, 128, 4), "CMYK",
+        "665120801ded8d551ce0d59fe0b51ee1"
+        "2f50f3e622e8ba8c4f58703464827418"),
+    "coding_ycck_pil.jpg": (
+        (96, 128, 4), "CMYK",
+        "73b6d0f86d8ee717c34bd238cb1b4860"
+        "9acbae4f2e42e3b8e43d9a5c5470e1f2"),
+}
+CODING_FIXTURE_REFUSALS = {
+    "coding_lossless_jfif.jpg": "lossless (SOF3) file in YCbCr",
+    "coding_arith_past_read.jpg": "past one of PIL's 64 KiB reads",
+}
+CODING_FIXTURES = tuple(CODING_FIXTURE_SHA256) + tuple(CODING_FIXTURE_REFUSALS)
+# 14zl, the JAX command (LORANSACH, this script's CVIU-shaped INI files) on
+# zoom2x's pair as lossless JPEGs (``lossless_jpeg``), on the CPU:
+# ``JAX_PLATFORMS=cpu python tests/test_torch_jpeg_codings.py
+# --jax-lossless``
+JAX_LOSSLESS_REFERENCE = dict(steps=1, tentatives=126, matches=37,
+                              gt_consistent=37, corner_error_px=4.04)
 # what 4:2:0 quality 75 loses on a drawing (thin coloured lines over the
 # views): at most this mean absolute error a channel, and at least this
 # PSNR, of the decoded file against ``viz``'s canvas (a 40-match drawing
@@ -6182,16 +6242,17 @@ def _large_reads(work: Path, read_image, save_image) -> dict:
     return out
 
 
-def _hold_tiff_fixtures(label: str, names, failures: list) -> dict:
+def _hold_tiff_fixtures(label: str, names, failures: list,
+                        table: dict | None = None) -> dict:
     """Each fixture of ``names`` decoded on the host (``io/image.py``):
-    its array's shape, mode and SHA-256 against PIL's
-    (``FORMAT_FIXTURE_SHA256``; a failure appended to ``failures``) and
+    its array's shape, mode and SHA-256 against PIL's (``table``, or
+    ``FORMAT_FIXTURE_SHA256``; a failure appended to ``failures``) and
     the median decode ms of three."""
     import hashlib
     from mods_tpu_torch.io.image import _read
     out = {}
     for name in names:
-        shape, mode, sha = FORMAT_FIXTURE_SHA256[name]
+        shape, mode, sha = (table or FORMAT_FIXTURE_SHA256)[name]
         ms = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -6202,7 +6263,7 @@ def _hold_tiff_fixtures(label: str, names, failures: list) -> dict:
                               else a).tobytes()).hexdigest()
         equal = a.shape == tuple(shape) and got_mode == mode and got == sha
         out[name] = dict(shape=list(a.shape), mode=got_mode,
-                         decode_ms=statistics.median(ms),
+                         decode_ms=statistics.median(ms), sha256=got,
                          sha256_equal_to_pil=equal)
         if not equal:
             failures.append(f"{label} {name}: decoded {a.dtype} {a.shape} "
@@ -7442,11 +7503,187 @@ def _match_png_pair_pdf_eps(held, work: Path) -> list:
     return failures
 
 
+def optimal_huffman_table(freq: dict) -> tuple:
+    """(16 counts, symbols) of a Huffman table for the symbols ``freq``
+    counts, no code longer than 16 bits and none all ones (T.81 K.2, as
+    jchuff.c's jpeg_gen_optimal_table builds it)."""
+    f = [0] * 257
+    for sym, n in freq.items():
+        f[sym] = n
+    f[256] = 1                       # the reserved all-ones code
+    size, other = [0] * 257, [-1] * 257
+    while True:
+        c1 = c2 = -1
+        for i in range(257):
+            if f[i] and (c1 < 0 or f[i] <= f[c1]):
+                c1 = i
+        for i in range(257):
+            if f[i] and i != c1 and (c2 < 0 or f[i] <= f[c2]):
+                c2 = i
+        if c2 < 0:
+            break
+        f[c1] += f[c2]
+        f[c2] = 0
+        size[c1] += 1
+        while other[c1] >= 0:
+            c1 = other[c1]
+            size[c1] += 1
+        other[c1] = c2
+        size[c2] += 1
+        while other[c2] >= 0:
+            c2 = other[c2]
+            size[c2] += 1
+    bits = [0] * 33
+    for i in range(257):
+        if size[i]:
+            bits[size[i]] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1                     # drop the reserved code
+    order = sorted((size[sym], sym) for sym in range(256) if size[sym])
+    return bytes(bits[1:17]), bytes(sym for _, sym in order)
+
+
+def lossless_jpeg(plane, predictor: int = 1) -> bytes:
+    """A lossless (SOF3) JPEG of a (h, w) uint8 plane, as lossless
+    encoders of DICOM and camera software write one: one scan of
+    predictor ``predictor`` (1-7, no point transform; the first row from
+    its left neighbour and 128, every other row's first sample from the
+    one above: T.81 H.1.2.1), the differences' categories coded with one
+    Huffman table of their counts, then each difference's extra bits;
+    no JFIF marker (libjpeg would take the samples for YCbCr)."""
+    import struct
+
+    import numpy as np
+    x = plane.astype(np.int64)
+    h, w = x.shape
+    ra = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb = np.zeros_like(x)
+    rb[1:] = x[:-1]
+    rc = np.zeros_like(x)
+    rc[1:, 1:] = x[:-1, :-1]
+    pred = [ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+            rb + ((ra - rc) >> 1), (ra + rb) >> 1][predictor - 1].copy()
+    pred[:, 0] = rb[:, 0]
+    pred[0, 1:] = x[0, :-1]
+    pred[0, 0] = 128
+    d = (x - pred).ravel()                 # -255..255 for 8-bit samples
+    cat = np.frexp(np.abs(d).astype(np.float64))[1].astype(np.int64)
+    extra = np.where(d >= 0, d, d - 1 + (1 << cat)) & ((1 << cat) - 1)
+    counts, symbols = optimal_huffman_table(
+        {c: int(n) for c, n in enumerate(np.bincount(cat)) if n})
+    code, length = np.zeros(17, np.int64), np.zeros(17, np.int64)
+    c = k = 0
+    for bits, n in enumerate(counts, 1):
+        for sym in symbols[k:k + n]:
+            code[sym], length[sym] = c, bits
+            c += 1
+        k += n
+        c <<= 1
+    value = (code[cat] << cat) | extra
+    nbits = length[cat] + cat
+    # the bits, most significant first, padded with 1-bits to a byte; an
+    # 0x00 after each 0xFF
+    at = np.repeat(np.arange(len(nbits)), nbits)
+    shift = np.repeat(np.cumsum(nbits), nbits) - 1 - np.arange(int(
+        nbits.sum()))
+    stream = ((value[at] >> shift) & 1).astype(np.uint8)
+    stream = np.packbits(np.concatenate(
+        [stream, np.ones(-len(stream) % 8, np.uint8)]))
+    stream = np.insert(stream, np.flatnonzero(stream == 0xFF) + 1, 0)
+    return (b"\xff\xd8\xff\xc3" + struct.pack(">HBHHB", 11, 8, h, w, 1)
+            + b"\x01\x11\x00\xff\xc4"
+            + struct.pack(">HB", 19 + len(symbols), 0) + counts + symbols
+            + b"\xff\xda\x00\x08\x01\x01\x00"
+            + bytes([predictor, 0, 0]) + stream.tobytes() + b"\xff\xd9")
+
+
+def _decode_codings(work: Path) -> list:
+    """14zk: each JPEG of ``CODING_FIXTURES`` decoded on the host
+    (``csrc/jpeg_decode.cpp``), its array's shape, mode and SHA-256
+    against PIL's (``CODING_FIXTURE_SHA256``) or its refusal against
+    PIL's reason (``CODING_FIXTURE_REFUSALS``), the median decode ms of
+    three; zoom2x_1 written as a 1000x598 lossless JPEG
+    (``lossless_jpeg``) and read back to the PNG's array, the write ms and
+    the median read ms of three."""
+    import numpy as np
+    from mods_tpu_torch.io.image import _read, read_image
+    failures = []
+    out = _hold_tiff_fixtures("14zk", CODING_FIXTURE_SHA256, failures,
+                              CODING_FIXTURE_SHA256)
+    for name, reason in CODING_FIXTURE_REFUSALS.items():
+        try:
+            a, mode = _read(IMAGE_FIXTURES / name)
+            got = f"read as {mode} {a.shape}"
+        except ValueError as e:
+            got = str(e)
+        out[name] = dict(refused_with_pils_reason=reason in got)
+        if reason not in got:
+            failures.append(f"14zk {name}: {got}; PIL refuses it ({reason})")
+    view = read_image(PAIRS / "zoom2x_1.png")
+    t0 = time.perf_counter()
+    path = work / "zoom2x_1_lossless.jpg"
+    path.write_bytes(lossless_jpeg(view))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        a = read_image(path)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    equal = a.shape == view.shape and bool(np.array_equal(a, view))
+    if not equal:
+        failures.append(f"14zk {path.name}: not the PNG's array")
+    large = dict(bytes=path.stat().st_size, write_ms=write_ms,
+                 read_ms=statistics.median(ms), equal_to_png=equal)
+    print(f"[14] zk, YCCK, lossless and arithmetic-coded JPEGs decoded on the "
+          f"host: {json.dumps(out)}; zoom2x_1 as a 1000x598 lossless JPEG: "
+          f"{json.dumps(large)}", flush=True)
+    return failures
+
+
+def _match_lossless_pair(held, work: Path) -> list:
+    """14zl: ``cli match`` on zoom2x's pair written as lossless JPEGs
+    (``lossless_jpeg``, each read back to the PNG's array) against
+    ``JAX_LOSSLESS_REFERENCE`` (``_held_cli_match``, tentatives within
+    20 %); the drawings go to .png."""
+    import numpy as np
+    from mods_tpu_torch.io.image import read_image
+    failures, files = [], []
+    for i in (1, 2):
+        view = read_image(PAIRS / f"zoom2x_{i}.png")
+        files.append(work / f"zoom2x_{i}_lossless.jpg")
+        files[-1].write_bytes(lossless_jpeg(view))
+        if not np.array_equal(read_image(files[-1]), view):
+            failures.append(f"14zl {files[-1].name} is not the view")
+    res, fails, _ = _held_cli_match(
+        held, work, "zoom2x lossless JPEG", files,
+        (work / "o1.png", work / "o2.png"), JAX_LOSSLESS_REFERENCE)
+    failures += fails
+    ref = JAX_LOSSLESS_REFERENCE["tentatives"]
+    if abs(res["tentatives"] - ref) > 0.2 * ref:
+        failures.append(f"14zl: {res['tentatives']} tentatives, JAX {ref} "
+                        f"(+-20 %)")
+    print(f"[14] zl, cli match on the lossless JPEG pair: {json.dumps(res)}",
+          flush=True)
+    return failures
+
+
 def _drive_phase14(wrappers: dict) -> dict:
-    """Phase 14 (14a-14y, 14za-14zj), on the card machine without PIL.
+    """Phase 14 (14a-14y, 14za-14zl), on the card machine without PIL.
     Raises with every failure of its parts; returns each kernel's launches
-    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc, 14zf, 14zh and
-    14zj (2 ``window_sampler`` each, 26 in all)."""
+    in 14c, 14g, 14k, 14m, 14o, 14q, 14s, 14u, 14y, 14zc, 14zf, 14zh,
+    14zj and 14zl (2 ``window_sampler`` each, 28 in all)."""
     import tempfile
     t0 = time.perf_counter()
     total = dict.fromkeys(wrappers, 0)
@@ -7498,6 +7735,9 @@ def _drive_phase14(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as d:
         failures += _encode_pdf_eps_palm(Path(d))
         failures += _match_png_pair_pdf_eps(held, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        failures += _decode_codings(Path(d))
+        failures += _match_lossless_pair(held, Path(d))
     print(f"[14] took {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         raise RuntimeError(f"phase 14: {failures}")
@@ -7684,8 +7924,8 @@ def main() -> int:
     phase14_launches = _drive_phase14(wrappers)
     print(f"[14] kernel launches on the JPEG, TIFF, WebP, WebP-to-GIF, "
           f"JPEG-in-TIFF, Zstandard TIFF, old-style JPEG TIFF, JPEG 2000, "
-          f"TGA, PSD, IM and McIdas pairs' commands and the PNG pair's "
-          f"with .pdf and .eps drawings: "
+          f"TGA, PSD, IM, McIdas and lossless JPEG pairs' commands and "
+          f"the PNG pair's with .pdf and .eps drawings: "
           f"{json.dumps(phase14_launches)}", flush=True)
     if phase14_launches["window_sampler"] <= 0:
         raise RuntimeError("window_sampler was not launched on phase 14's "

@@ -1,6 +1,7 @@
 // JPEG decoder for io/image.py::read_image: Huffman sequential (SOF0,
-// SOF1) and progressive (SOF2) files of 8-bit precision with 1, 3 or 4
-// components, bound with ctypes.
+// SOF1), progressive (SOF2) and lossless (SOF3) files and arithmetic-coded
+// sequential (SOF9) and progressive (SOF10) files of 8-bit precision with
+// 1, 3 or 4 components, bound with ctypes.
 //
 // It reproduces libjpeg-turbo's default decompression, the one PIL runs
 // for Image.open(path), so that the port reads the same pixels as the
@@ -15,8 +16,10 @@
 //     fraction bits), or no conversion where an Adobe marker (transform
 //     0) or the component ids 'R', 'G', 'B' say the file is RGB;
 //   - 4 components as CMYK (an Adobe marker with transform 0, or none:
-//     jdapimin.c), each sample inverted as PIL's "CMYK;I" raw mode
-//     inverts the Adobe convention.
+//     jdapimin.c) or YCCK (any other transform: jdcolor.c's
+//     ycck_cmyk_convert, Y, Cb and Cr to RGB as above, then each of C, M
+//     and Y 255 less it, K as stored), each sample inverted as PIL's
+//     "CMYK;I" raw mode inverts the Adobe convention.
 // A progressive file is decoded as jdphuff.c decodes it (DC first and
 // refinement, AC first and refinement with end-of-band runs).  Where its
 // coefficients are not all at full precision after the last scan (an
@@ -24,9 +27,20 @@
 // smoothing (jdcoefct.c: smoothing_ok, decompress_smooth_data) estimates
 // the low AC coefficients, and the DC where no AC is known, from the 5x5
 // neighbourhood of DC values, as PIL's decode does by default.
-// Restart intervals (DRI, RSTn) are honoured.  Arithmetic coding,
-// lossless and hierarchical files, 12-bit precision, 2 components and
-// YCCK (4 components, Adobe transform other than 0) are refused with a
+// Arithmetic-coded scans are jdarith.c's: the QM decoder on jaricom.c's
+// jpeg_aritab, DC statistics conditioned by the DAC segment's L and U and
+// AC statistics by its Kx, the sequential MCU and the four progressive
+// passes, zeros fed once a marker is met, and a bad code (ct = -1)
+// leaving the rest of the scan at zero.  A lossless file is jdlossls.c's:
+// jdlhuff.c's differences (category 16: 32768), jdpred.c's predictors
+// 1-7 undone modulo 2^16 (each scan's, restart interval's and
+// out-of-data row's first row from its left neighbour and 2^(7-Pt)), the
+// point transform undone by a shift, plain replication for the upsampling
+// (jdsample.c takes no fancy upsampling with 1-sample blocks) and no
+// colour conversion (libjpeg-turbo refuses one in lossless mode).
+// Restart intervals (DRI, RSTn) are honoured.  Hierarchical files (SOF5-7,
+// SOF13-15), arithmetic-coded lossless files (SOF11), precisions other
+// than 8 bits and 2 components are refused, as PIL refuses them, with a
 // message naming the case.
 //
 // The end of the data follows PIL's rules in mods_jpeg_decode: PIL hands
@@ -40,14 +54,18 @@
 // with the next.  A progressive or multi-scan file must reach its EOI
 // marker (jpeg_start_decompress reads it all); a single-scan file only
 // its last MCU, since Pillow ignores jpeg_finish_decompress's
-// suspension once every line is out.  The JPEG-in-TIFF entry points
+// suspension once every line is out.  An arithmetic-coded scan cannot
+// suspend (jdarith.c's get_byte): a byte past PIL's reads so far, or past
+// the file's end, is PIL's refusal.  The JPEG-in-TIFF entry points
 // keep libtiff's rule instead: the end of the data reads as an EOI
 // marker (tif_jpeg.c's std_fill_input_buffer).
 //
 // Interface: mods_jpeg_info(data, n, info[4], err, errlen) fills width,
-// height, channels; mods_jpeg_decode(data, n, out, cap, err, errlen)
-// writes (height, width[, channels]) uint8 pixels.  Both return 0, or -1 with a
-// message in err.  mods_jpeg_decode_tiff decodes one strip or tile of a
+// height, channels; mods_jpeg_decode(data, n, jpegmode, out, cap, err,
+// errlen) writes (height, width[, channels]) uint8 pixels, jpegmode -1
+// where the markers decide the colour space, 0 where Pillow names CMYK
+// (BlpImagePlugin's BLP1 JPEG: no YCCK conversion).  Both return 0, or -1
+// with a message in err.  mods_jpeg_decode_tiff decodes one strip or tile of a
 // JPEG-in-TIFF file as libtiff's JPEG codec does for PIL: the JPEGTables
 // stream read first, the sampling factors checked against the TIFF's, and
 // the colour transform taken from the TIFF's photometric interpretation
@@ -124,6 +142,30 @@ const uint8_t kStdHuffman[] = {
     0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
     0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
+// jaricom.c's jpeg_aritab, the QM coder's probability estimation (T.81
+// Table D.2): Qe << 16 | the next state after an MPS << 8 | the MPS switch
+// << 7 | the next state after an LPS
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
 struct Huffman {
   bool present = false;
   int maxcode[18];
@@ -132,7 +174,8 @@ struct Huffman {
   // jpeg_make_d_derived_tbl's look-ahead: (length << 8) | value for a
   // code of 8 bits or fewer, 9 << 8 for a longer one
   uint16_t lookup[256];
-  bool valid = false, dc_ok = false;  // the derived table's checks
+  bool valid = false;  // the derived table's checks
+  int max_val = 0;     // the largest symbol: 15 for DC, 16 for lossless
 };
 
 struct Component {
@@ -142,12 +185,20 @@ struct Component {
   int blocks_w = 0, blocks_h = 0;                 // allocated: whole MCUs
   int ds_w = 0, ds_h = 0;                         // downsampled size
   int pred = 0;
+  int dc_context = 0;  // jdarith.c's DC conditioning category
+  // jdpred.c: the next row is undone as a first row (from its left
+  // neighbour) after the scan's start, a restart or an out-of-data row
+  bool first_row = true;
+  int pt = 0;  // the point transform of the scan that coded it
   // jdphuff.c's coef_bits: the precision (Al) each of the first 10
   // coefficients has after the scans so far, -1 before any; and as they
   // were before the component's latest scan
   int coef_bits[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
   int prev_coef_bits[10] = {};
   std::vector<int16_t> coef;  // blocks_h * blocks_w blocks of 64
+  // a lossless file's samples before the point transform's shift: rows
+  // of blocks_w (blocks of 1 sample)
+  std::vector<uint16_t> samp;
   int16_t *block(int by, int bx) {
     return &coef[(static_cast<size_t>(by) * blocks_w + bx) * 64];
   }
@@ -155,7 +206,13 @@ struct Component {
 
 class Decoder {
  public:
-  Decoder(const uint8_t *d, size_t n) : d_(d), n_(n), limit_(n) {}
+  Decoder(const uint8_t *d, size_t n) : d_(d), n_(n), limit_(n) {
+    for (int i = 0; i < 16; i++) {
+      dc_l_[i] = 0;
+      dc_u_[i] = 1;
+      ac_k_[i] = 5;
+    }
+  }
 
   void read_headers();
   void load_tables(const uint8_t *t, size_t nt);
@@ -169,6 +226,9 @@ class Decoder {
   // -1: the colour transform from the markers; 0: none (the components
   // as stored); 1: YCbCr -> RGB (a JPEG-in-TIFF strip or tile)
   int transform = -1;
+  // Pillow's jpegmode: -1 none (libjpeg guesses the colour space from the
+  // markers), else colour()'s value for the space it names
+  int jpegmode = -1;
   // PIL's rules for the end of the data (the file header comment);
   // false: libtiff's, where it reads as an EOI marker
   bool pil = false;
@@ -190,12 +250,14 @@ class Decoder {
   Component comp_[4];
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   bool sof_seen_ = false, progressive_ = false;
+  bool arith_ = false, lossless_ = false;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
+  int colour_ = -1;  // colour() as the first scan found it
   int restart_interval_ = 0;
   // scan state
   int scan_comp_[4] = {}, scan_n_ = 0, ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;
-  int eobrun_ = 0, scans_ = 0;
+  int eobrun_ = 0, scans_ = 0, blocks_in_mcu_ = 0;
   bool multi_scan_ = false;
   // jdcoefct.c's last_good_iMCU_row: the last iMCU row at which an MCU
   // was started with data left
@@ -209,6 +271,16 @@ class Decoder {
   bool insufficient_ = false;
   bool fast_ = false, fast_marker_ = false;
   int next_rst_ = 0;
+  // jdarith.c: the DAC segment's conditioning (jdmarker.c get_soi's
+  // defaults), the statistics bins, the C and A registers and the bit
+  // counter (-1 after a bad code), and the bin of probability 0.5
+  int dc_l_[16], dc_u_[16], ac_k_[16];
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  int64_t ar_c_ = 0, ar_a_ = 0;
+  int ar_ct_ = -16;
+  uint8_t fixed_bin_ = 113;
+  // a read past PIL's reads ends the decoding (arithmetic-coded data)
+  bool no_suspend_ = false;
 
   uint8_t byte() {
     if (pos_ >= n_) {
@@ -255,8 +327,18 @@ class Decoder {
     bits_left_ = 0;
   }
   int next_marker();
+  void read_restart_marker();
   void process_restart();
   bool restart_strict();
+  int arith_decode(uint8_t *st);
+  void arith_restart();
+  bool arith_dc(Component &c);
+  int arith_magnitude(uint8_t *st, int tbl, int k);
+  bool arith_block(Component &c, int16_t *blk);
+  int colour() const;
+  void lossless_checks() const;
+  void decode_lossless_scan();
+  void undifference(Component &c, int y, const int32_t *diff);
 
   void read_sof(int marker);
   void read_dht();
@@ -277,6 +359,7 @@ class Decoder {
     pos_ += len - 2;
   }
   void decode_scan();
+  void decode_mcus();
   void decode_mcu(int mx, int my, int bx, int by);
   void decode_block(Component &c, int16_t *blk);
   bool smoothing_ok(int latch[4][2][10]) const;
@@ -404,20 +487,29 @@ void Decoder::read_sof(int marker) {
       progressive_ = true;
       break;
     case 0xC3:
-      throw Error{"JPEG: lossless (SOF3) files are not supported"};
+      lossless_ = true;
+      break;
+    case 0xC9:
+      arith_ = true;
+      break;
+    case 0xCA:
+      arith_ = progressive_ = true;
+      break;
+    // jdmarker.c: JERR_SOF_UNSUPPORTED; libjpeg-turbo's lossless mode has
+    // no arithmetic decoder (jdmaster.c: JERR_ARITH_NOTIMPL)
     case 0xC5:
     case 0xC6:
     case 0xC7:
-      throw Error{"JPEG: hierarchical (SOF5-7) files are not supported"};
-    case 0xC9:
-    case 0xCA:
-      throw Error{"JPEG: arithmetic-coded files are not supported"};
-    case 0xCB:
     case 0xCD:
     case 0xCE:
     case 0xCF:
-      throw Error{"JPEG: arithmetic-coded lossless/hierarchical files are "
-                  "not supported"};
+      throw Error{"JPEG: a hierarchical (SOF5-7, SOF13-15) file: PIL "
+                  "refuses it (libjpeg: \"Unsupported JPEG process\", "
+                  "\"broken data stream\")"};
+    case 0xCB:
+      throw Error{"JPEG: an arithmetic-coded lossless (SOF11) file: PIL "
+                  "refuses it (libjpeg-turbo: \"Sorry, arithmetic coding is "
+                  "not supported\", \"broken data stream\")"};
     default:
       throw Error{"JPEG: unknown frame type"};
   }
@@ -428,9 +520,10 @@ void Decoder::read_sof(int marker) {
   height = u16();
   width = u16();
   ncomp = byte();
-  if (precision != 8)
+  if (precision != 8)  // JpegImagePlugin.SOF
     throw Error{"JPEG: " + std::to_string(precision) +
-                "-bit precision is not supported (8-bit only)"};
+                "-bit precision: PIL refuses it (\"cannot handle " +
+                std::to_string(precision) + "-bit layers\")"};
   if (ncomp != 1 && ncomp != 3 && ncomp != 4)
     throw Error{"JPEG: " + std::to_string(ncomp) +
                 " components are not supported (1, 3 or 4)"};
@@ -449,26 +542,29 @@ void Decoder::read_sof(int marker) {
     hmax_ = std::max(hmax_, c.h);
     vmax_ = std::max(vmax_, c.v);
   }
-  mcux_ = (width + 8 * hmax_ - 1) / (8 * hmax_);
-  mcuy_ = (height + 8 * vmax_ - 1) / (8 * vmax_);
+  // jdinput.c: blocks of DCTSIZE samples a side, or of 1 (lossless)
+  const long du = lossless_ ? 1 : 8;
+  mcux_ = static_cast<int>((width + du * hmax_ - 1) / (du * hmax_));
+  mcuy_ = static_cast<int>((height + du * vmax_ - 1) / (du * vmax_));
   for (int i = 0; i < ncomp; i++) {
     Component &c = comp_[i];
     if (hmax_ % c.h || vmax_ % c.v)
       throw Error{"JPEG: non-integral sampling ratios are not supported"};
-    // jdinput.c: ceil(image size * factor / (max factor * DCTSIZE))
-    c.width_in_blocks =
-        static_cast<int>((static_cast<long>(width) * c.h + 8L * hmax_ - 1) /
-                         (8L * hmax_));
-    c.height_in_blocks =
-        static_cast<int>((static_cast<long>(height) * c.v + 8L * vmax_ - 1) /
-                         (8L * vmax_));
+    // jdinput.c: ceil(image size * factor / (max factor * block size))
+    c.width_in_blocks = static_cast<int>(
+        (static_cast<long>(width) * c.h + du * hmax_ - 1) / (du * hmax_));
+    c.height_in_blocks = static_cast<int>(
+        (static_cast<long>(height) * c.v + du * vmax_ - 1) / (du * vmax_));
     c.ds_w = static_cast<int>(
         (static_cast<long>(width) * c.h + hmax_ - 1) / hmax_);
     c.ds_h = static_cast<int>(
         (static_cast<long>(height) * c.v + vmax_ - 1) / vmax_);
     c.blocks_w = mcux_ * c.h;
     c.blocks_h = mcuy_ * c.v;
-    c.coef.assign(static_cast<size_t>(c.blocks_w) * c.blocks_h * 64, 0);
+    if (lossless_)
+      c.samp.assign(static_cast<size_t>(c.blocks_w) * c.blocks_h, 0);
+    else
+      c.coef.assign(static_cast<size_t>(c.blocks_w) * c.blocks_h * 64, 0);
   }
 }
 
@@ -512,8 +608,9 @@ void Decoder::read_dht() {
       if (l <= last && code >= (1 << l)) t.valid = false;
       code <<= 1;
     }
-    t.dc_ok = true;
-    for (int i = 0; i < total; i++) t.dc_ok = t.dc_ok && t.vals[i] <= 15;
+    t.max_val = 0;
+    for (int i = 0; i < total; i++)
+      t.max_val = std::max<int>(t.max_val, t.vals[i]);
     t.maxcode[17] = 0x7FFFFFFF;
     for (int look = 0; look < 256; look++) {
       t.lookup[look] = 9 << 8;
@@ -556,8 +653,8 @@ void Decoder::std_huff_tables() {
   }
 }
 
-// jdmarker.c get_dac: the arithmetic coding conditioning, parsed and
-// checked (a Huffman-coded file never uses it)
+// jdmarker.c get_dac: the arithmetic coding conditioning, L and U of a
+// DC table (index 0-15), Kx of an AC table (16-31)
 void Decoder::read_dac() {
   int len = u16() - 2;
   while (len > 0) {
@@ -566,6 +663,12 @@ void Decoder::read_dac() {
     if (index >= 32 || (index < 16 && (val & 15) > (val >> 4)))
       throw Error{"JPEG: a bad DAC segment: PIL refuses it (libjpeg's "
                   "JERR_DAC_INDEX or JERR_DAC_VALUE)"};
+    if (index >= 16) {
+      ac_k_[index - 16] = val;
+    } else {
+      dc_l_[index] = val & 15;
+      dc_u_[index] = val >> 4;
+    }
   }
   if (len != 0) throw Error{"JPEG: bad DAC length"};
 }
@@ -637,8 +740,14 @@ void Decoder::read_sos() {
     // jdphuff.c start_pass_phuff_decoder; a refinement has Al = Ah - 1
     if (ss_ > 63 || se_ > 63 || ss_ > se_ || (ss_ == 0 && se_ != 0) ||
         (ss_ > 0 && scan_n_ != 1) || al_ > 13 || (ah_ && al_ != ah_ - 1))
-      throw Error{"JPEG: bad progressive scan parameters"};
-  } else {
+      throw Error{std::string("JPEG: bad parameters of a progressive ") +
+                  (arith_ ? "arithmetic-coded" : "Huffman-coded") +
+                  " scan (Ss=" +
+                  std::to_string(ss_) + " Se=" + std::to_string(se_) +
+                  " Ah=" + std::to_string(ah_) + " Al=" +
+                  std::to_string(al_) + "): PIL refuses it (libjpeg: "
+                  "\"Invalid progressive/lossless parameters\")"};
+  } else if (!lossless_) {  // jdlossls.c checks a lossless scan's
     ss_ = 0;
     se_ = 63;
     ah_ = al_ = 0;
@@ -673,6 +782,7 @@ int Decoder::next_marker() {
       if (pil) throw Suspend{};
       return -1;
     }
+    if (pos_ >= limit_ && no_suspend_) throw ReadEnd{};
     while (pos_ >= limit_) limit_ = std::min(n_, limit_ + kPilRead);
     return static_cast<int>(d_[pos_++]);
   };
@@ -687,12 +797,9 @@ int Decoder::next_marker() {
   }
 }
 
-// jdhuff.c process_restart: drop the bits left, read the RSTn marker
-// (jdmarker.c read_restart_marker, jpeg_resync_to_restart's recovery
-// where it is not the expected one), reset the DC predictions and the
-// end-of-band run
-void Decoder::process_restart() {
-  bits_left_ = 0;
+// jdmarker.c read_restart_marker: read the RSTn marker, with
+// jpeg_resync_to_restart's recovery where it is not the expected one
+void Decoder::read_restart_marker() {
   int m = next_marker();
   int desired = next_rst_;
   auto rst = [](int k) { return 0xD0 + (k & 7); };
@@ -718,6 +825,13 @@ void Decoder::process_restart() {
     m = next_marker();
   }
   next_rst_ = (next_rst_ + 1) & 7;
+}
+
+// jdhuff.c process_restart: drop the bits left, read the RSTn marker,
+// reset the DC predictions and the end-of-band run
+void Decoder::process_restart() {
+  bits_left_ = 0;
+  read_restart_marker();
   for (int i = 0; i < ncomp; i++) comp_[i].pred = 0;
   eobrun_ = 0;
   if (!unread_marker_) insufficient_ = false;
@@ -740,7 +854,227 @@ bool Decoder::restart_strict() {
   return true;
 }
 
+// jdarith.c arith_decode: one binary decision with statistics bin *st,
+// its renormalisation and data input (T.81 D.2.6) reading jdarith.c's
+// get_byte; a marker in the data feeds zeros from there on
+int Decoder::arith_decode(uint8_t *st) {
+  while (ar_a_ < 0x8000) {
+    if (--ar_ct_ < 0) {
+      int data = 0;
+      if (!unread_marker_) {
+        size_t at = pos_;
+        data = data_byte();
+        if (data == 0xFF) {
+          do {
+            at = pos_ - 1;
+            data = data_byte();
+          } while (data == 0xFF);
+          if (data == 0) {
+            data = 0xFF;
+          } else {  // a marker, or libtiff's EOI at the data's end
+            unread_marker_ = data < 0 ? 0xD9 : data;
+            marker_end_ = data < 0 ? n_ : pos_;
+            pos_ = data < 0 ? n_ : at;
+            data = 0;
+          }
+        } else if (data < 0) {
+          unread_marker_ = 0xD9;
+          marker_end_ = pos_ = n_;
+          data = 0;
+        }
+      }
+      ar_c_ = (ar_c_ << 8) | data;
+      // the first two bytes fill C; then A is 0x10000
+      if ((ar_ct_ += 8) < 0 && ++ar_ct_ == 0) ar_a_ = 0x8000;
+    }
+    ar_a_ <<= 1;
+  }
+  int sv = *st;
+  uint32_t qe = kAritab[sv & 0x7F];
+  int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+  qe >>= 16;
+  int64_t temp = ar_a_ - qe;
+  ar_a_ = temp;
+  temp <<= ar_ct_;
+  if (ar_c_ >= temp) {
+    ar_c_ -= temp;
+    if (ar_a_ < qe) {  // conditional LPS exchange
+      ar_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    } else {
+      ar_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (ar_a_ < 0x8000) {  // conditional MPS exchange
+    if (ar_a_ < qe) {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+// jdarith.c process_restart: the RSTn marker, then the statistics of the
+// scan's components and the coder reset
+void Decoder::arith_restart() {
+  read_restart_marker();
+  for (int i = 0; i < scan_n_; i++) {
+    Component &c = comp_[scan_comp_[i]];
+    if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+      memset(dc_stats_[c.dc_tbl], 0, sizeof(dc_stats_[0]));
+      c.pred = c.dc_context = 0;
+    }
+    if (!progressive_ || ss_)
+      memset(ac_stats_[c.ac_tbl], 0, sizeof(ac_stats_[0]));
+  }
+  ar_c_ = ar_a_ = 0;
+  ar_ct_ = -16;
+}
+
+// jdarith.c's DC difference (T.81 F.19-F.24), conditioned by the
+// previous one's category; c.pred becomes the new DC value modulo 2^16.
+// false: a bad code (ct = -1)
+bool Decoder::arith_dc(Component &c) {
+  const int tbl = c.dc_tbl;
+  uint8_t *st = dc_stats_[tbl] + c.dc_context;
+  if (arith_decode(st) == 0) {
+    c.dc_context = 0;
+    return true;
+  }
+  int sign = arith_decode(st + 1);
+  st += 2 + sign;
+  int m = arith_decode(st);
+  if (m) {
+    st = dc_stats_[tbl] + 20;  // X1
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ar_ct_ = -1;
+        return false;
+      }
+      st++;
+    }
+  }
+  if (m < (1 << dc_l_[tbl]) >> 1)
+    c.dc_context = 0;
+  else if (m > (1 << dc_u_[tbl]) >> 1)
+    c.dc_context = 12 + sign * 4;
+  else
+    c.dc_context = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) v |= m;
+  v += 1;
+  c.pred = (c.pred + (sign ? -v : v)) & 0xFFFF;
+  return true;
+}
+
+// the sign and magnitude of a non-zero AC coefficient at k, st at its
+// SN/SP bin (T.81 F.21-F.24); 0 for a bad code (ct = -1)
+int Decoder::arith_magnitude(uint8_t *st, int tbl, int k) {
+  int sign = arith_decode(&fixed_bin_);
+  st += 2;
+  int m = arith_decode(st);
+  if (m && arith_decode(st)) {
+    m <<= 1;
+    st = ac_stats_[tbl] + (k <= ac_k_[tbl] ? 189 : 217);
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ar_ct_ = -1;
+        return 0;
+      }
+      st++;
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+// one block of an arithmetic-coded scan: jdarith.c decode_mcu (sequential)
+// or decode_mcu_DC_first, _AC_first, _DC_refine, _AC_refine; false where
+// a bad code ends the MCU
+bool Decoder::arith_block(Component &c, int16_t *blk) {
+  if (progressive_ && ss_ == 0) {
+    if (ah_) {  // DC refinement: the next bit, at probability 0.5
+      if (arith_decode(&fixed_bin_))
+        blk[0] = static_cast<int16_t>(blk[0] | (1 << al_));
+      return true;
+    }
+    if (!arith_dc(c)) return false;
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.pred) << al_);
+    return true;
+  }
+  const int tbl = c.ac_tbl;
+  int ss = 1, se = 63, al = 0;
+  if (!progressive_) {
+    if (!arith_dc(c)) return false;
+    blk[0] = static_cast<int16_t>(c.pred);
+  } else {
+    ss = ss_;
+    se = se_;
+    al = al_;
+  }
+  if (!progressive_ || ah_ == 0) {
+    for (int k = ss; k <= se; k++) {
+      uint8_t *st = ac_stats_[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // end of block
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {  // spectral overflow
+          ar_ct_ = -1;
+          return false;
+        }
+      }
+      int v = arith_magnitude(st, tbl, k);
+      if (!v) return false;
+      blk[kNatural[k]] =
+          static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+    return true;
+  }
+  // AC refinement: past the previous stage's end of block, an EOB flag
+  const int p1 = 1 << al_, m1 = -p1;
+  int kex = se_;
+  while (kex > 0 && !blk[kNatural[kex]]) kex--;
+  for (int k = ss_; k <= se_; k++) {
+    uint8_t *st = ac_stats_[tbl] + 3 * (k - 1);
+    if (k > kex && arith_decode(st)) break;
+    while (true) {
+      int16_t *coef = blk + kNatural[k];
+      if (*coef) {  // a correction bit
+        if (arith_decode(st + 2))
+          *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (arith_decode(st + 1)) {  // newly non-zero
+        *coef = static_cast<int16_t>(arith_decode(&fixed_bin_) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se_) {
+        ar_ct_ = -1;
+        return false;
+      }
+    }
+  }
+  return true;
+}
+
 void Decoder::decode_block(Component &c, int16_t *blk) {
+  if (arith_) {
+    // a bad code leaves the rest of the scan (to the next restart) alone;
+    // a DC refinement has no bad code, and no such check
+    if (ar_ct_ == -1 && !(progressive_ && ss_ == 0 && ah_)) return;
+    arith_block(c, blk);
+    return;
+  }
   // decode_scan checked the ids of the tables that this scan uses
   const Huffman &dct = dc_[c.dc_tbl & 3];
   const Huffman &act = ac_[c.ac_tbl & 3];
@@ -837,45 +1171,263 @@ void Decoder::decode_block(Component &c, int16_t *blk) {
   }
 }
 
-void Decoder::decode_scan() {
-  if (scans_ == 1 && !progressive_) std_huff_tables();  // jdhuff.c only
+// the colour conversion that jdapimin.c's default_decompress_parms picks
+// at the first scan: 0 none (gray, RGB or CMYK as stored), 1 YCbCr -> RGB,
+// 2 YCCK -> CMYK
+int Decoder::colour() const {
+  if (transform >= 0) return transform;
+  if (jpegmode >= 0) return jpegmode;
+  if (ncomp == 4) return adobe_ && adobe_transform_ != 0 ? 2 : 0;
+  if (ncomp != 3) return 0;
+  if (jfif_) return 1;
+  if (adobe_) return adobe_transform_ == 0 ? 0 : 1;
+  // the component ids: 'R', 'G', 'B' is RGB; a lossless file is RGB
+  // whatever its ids
+  bool rgb = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
+  return rgb || lossless_ ? 0 : 1;
+}
+
+// jdcolor.c jinit_color_deconverter: no colour conversion in lossless mode
+void Decoder::lossless_checks() const {
+  const int conv = colour_;
+  if (lossless_ && conv)
+    throw Error{std::string("JPEG: a lossless (SOF3) file in ") +
+                (conv == 1 ? "YCbCr" : "YCCK") +
+                " (a JFIF or Adobe marker says so): PIL refuses it "
+                "(libjpeg-turbo converts no colour in lossless mode: "
+                "\"broken data stream when reading image file\")"};
+}
+
+// jdpred.c: row y of component c undone from its differences, modulo 2^16,
+// by the scan's predictor (Ss), or as a first row
+void Decoder::undifference(Component &c, int y, const int32_t *diff) {
+  uint16_t *out = &c.samp[static_cast<size_t>(y) * c.blocks_w];
+  const int w = c.width_in_blocks;
+  if (c.first_row) {  // jpeg_undifference_first_row
+    int ra = (diff[0] + (1 << (7 - al_))) & 0xFFFF;
+    out[0] = static_cast<uint16_t>(ra);
+    for (int x = 1; x < w; x++) {
+      ra = (diff[x] + ra) & 0xFFFF;
+      out[x] = static_cast<uint16_t>(ra);
+    }
+    c.first_row = false;
+    return;
+  }
+  const uint16_t *prev = out - c.blocks_w;
+  int rb = prev[0], ra = (diff[0] + rb) & 0xFFFF;
+  out[0] = static_cast<uint16_t>(ra);
+  for (int x = 1; x < w; x++) {
+    int rc = rb, p;
+    rb = prev[x];
+    switch (ss_) {
+      case 1: p = ra; break;
+      case 2: p = rb; break;
+      case 3: p = rc; break;
+      case 4: p = ra + rb - rc; break;
+      case 5: p = ra + ((rb - rc) >> 1); break;
+      case 6: p = rb + ((ra - rc) >> 1); break;
+      default: p = (ra + rb) >> 1; break;
+    }
+    ra = (diff[x] + p) & 0xFFFF;
+    out[x] = static_cast<uint16_t>(ra);
+  }
+}
+
+// jddiffct.c decompress_data over a lossless scan: iMCU row by iMCU row,
+// each MCU row's differences (jdlhuff.c decode_mcus: H x V samples of each
+// component an MCU, one sample of a lone component), then each row
+// undone and kept with the scan's point transform
+void Decoder::decode_lossless_scan() {
+  // jdlossls.c start_pass_lossless
+  if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= 8)
+    throw Error{"JPEG: bad lossless scan parameters (Ss=" +
+                std::to_string(ss_) + " Se=" + std::to_string(se_) +
+                " Ah=" + std::to_string(ah_) + " Al=" + std::to_string(al_) +
+                "): PIL refuses it (libjpeg: \"Invalid progressive/lossless "
+                "parameters\")"};
+  const bool lone = scan_n_ == 1;
+  Component &c0 = comp_[scan_comp_[0]];
+  const int per_row = lone ? c0.width_in_blocks : mcux_;
+  // jddiffct.c start_input_pass
+  if (restart_interval_ % per_row)
+    throw Error{"JPEG: a lossless file's restart interval of " +
+                std::to_string(restart_interval_) +
+                " MCUs is no whole number of MCU rows (" +
+                std::to_string(per_row) + " MCUs): PIL refuses it "
+                "(libjpeg-turbo: \"Invalid restart interval\")"};
+  int rows_to_go = restart_interval_ / per_row;
+  auto reset_predictors = [&]() {
+    for (int i = 0; i < ncomp; i++) comp_[i].first_row = true;
+  };
+  reset_predictors();
+  // one iMCU row's differences: v rows of blocks_w a component
+  std::vector<int32_t> diff[4];
   for (int i = 0; i < scan_n_; i++) {
     Component &c = comp_[scan_comp_[i]];
-    bool needs_dc = !progressive_ || (ss_ == 0 && ah_ == 0);
-    bool needs_ac = !progressive_ || ss_ > 0;
-    if ((needs_dc && c.dc_tbl > 3) || (needs_ac && c.ac_tbl > 3))
-      throw Error{"JPEG: bad Huffman table id in a scan"};
-    if ((needs_dc && !dc_[c.dc_tbl].present) ||
-        (needs_ac && !ac_[c.ac_tbl].present))
-      throw Error{"JPEG: a scan uses an undefined Huffman table"};
-    if ((needs_dc && (!dc_[c.dc_tbl].valid || !dc_[c.dc_tbl].dc_ok)) ||
-        (needs_ac && !ac_[c.ac_tbl].valid))
-      throw Error{"JPEG: a bad Huffman table: PIL refuses it (libjpeg: "
-                  "\"Bogus Huffman table definition\")"};
-    c.pred = 0;
+    c.pt = al_;
+    diff[i].assign(static_cast<size_t>(c.v) * c.blocks_w, 0);
   }
+  auto rows_of = [&](const Component &c, int r) {
+    if (r < mcuy_ - 1) return c.v;
+    int last = c.height_in_blocks % c.v;
+    return last ? last : c.v;
+  };
+  auto sample = [&](const Component &c) {
+    int s = decode_huff(dc_[c.dc_tbl]);
+    if (s == 16) return 32768;
+    return s ? extend(get_bits(s), s) : 0;
+  };
+  for (int r = 0; r < mcuy_; r++) {
+    const int mcu_rows = lone ? rows_of(c0, r) : 1;
+    for (int y = 0; y < mcu_rows; y++) {
+      if (restart_interval_) {
+        if (rows_to_go == 0) {
+          process_restart();
+          reset_predictors();
+          rows_to_go = restart_interval_ / per_row;
+        }
+        rows_to_go--;
+      }
+      if (insufficient_) {  // out of data: zeros, and first rows again
+        for (int i = 0; i < scan_n_; i++) {
+          Component &c = comp_[scan_comp_[i]];
+          int32_t *d = lone ? &diff[i][static_cast<size_t>(y) * c.blocks_w]
+                            : diff[i].data();
+          std::fill(d, d + (lone ? c.blocks_w : c.v * c.blocks_w), 0);
+        }
+        reset_predictors();
+        continue;
+      }
+      for (int mx = 0; mx < per_row; mx++) {
+        if (lone) {
+          diff[0][static_cast<size_t>(y) * c0.blocks_w + mx] = sample(c0);
+          continue;
+        }
+        for (int i = 0; i < scan_n_; i++) {
+          Component &c = comp_[scan_comp_[i]];
+          for (int v = 0; v < c.v; v++)
+            for (int h = 0; h < c.h; h++)
+              diff[i][static_cast<size_t>(v) * c.blocks_w + mx * c.h + h] =
+                  sample(c);
+        }
+      }
+    }
+    for (int i = 0; i < scan_n_; i++) {
+      Component &c = comp_[scan_comp_[i]];
+      for (int y = 0; y < rows_of(c, r); y++)
+        undifference(c, r * c.v + y,
+                     &diff[i][static_cast<size_t>(y) * c.blocks_w]);
+    }
+  }
+}
+
+// PIL's refusal of arithmetic-coded data past what it has handed libjpeg
+[[noreturn]] void arith_refusal() {
+  throw Error{"JPEG: arithmetic-coded data past the end of the file, or "
+              "past one of PIL's 64 KiB reads: PIL refuses it (libjpeg's "
+              "arithmetic decoder cannot suspend: \"broken data stream "
+              "when reading image file\")"};
+}
+
+void Decoder::decode_scan() {
+  // jdhuff.c's and jdlhuff.c's start of a pass: the standard tables where
+  // none is defined (jdhuff.c only), and the checks of the tables the scan
+  // uses (the symbols of a DC table are categories: at most 15, 16
+  // lossless)
+  if (!arith_) {
+    if (scans_ == 1 && !progressive_ && !lossless_) std_huff_tables();
+    for (int i = 0; i < scan_n_; i++) {
+      Component &c = comp_[scan_comp_[i]];
+      bool needs_dc = lossless_ || !progressive_ || (ss_ == 0 && ah_ == 0);
+      bool needs_ac = !lossless_ && (!progressive_ || ss_ > 0);
+      if ((needs_dc && c.dc_tbl > 3) || (needs_ac && c.ac_tbl > 3))
+        throw Error{"JPEG: bad Huffman table id in a scan"};
+      if ((needs_dc && !dc_[c.dc_tbl].present) ||
+          (needs_ac && !ac_[c.ac_tbl].present))
+        throw Error{"JPEG: a scan uses an undefined Huffman table: PIL "
+                    "refuses it (libjpeg: \"Huffman table was not "
+                    "defined\")"};
+      if ((needs_dc && (!dc_[c.dc_tbl].valid ||
+                        dc_[c.dc_tbl].max_val > (lossless_ ? 16 : 15))) ||
+          (needs_ac && !ac_[c.ac_tbl].valid))
+        throw Error{"JPEG: a bad Huffman table: PIL refuses it (libjpeg: "
+                    "\"Bogus Huffman table definition\")"};
+    }
+  }
+  for (int i = 0; i < scan_n_; i++) {
+    Component &c = comp_[scan_comp_[i]];
+    c.pred = 0;
+    // jdarith.c start_pass: the statistics of the bins the scan codes
+    if (arith_ && (!progressive_ || (ss_ == 0 && ah_ == 0))) {
+      memset(dc_stats_[c.dc_tbl], 0, sizeof(dc_stats_[0]));
+      c.dc_context = 0;
+    }
+    if (arith_ && (!progressive_ || ss_))
+      memset(ac_stats_[c.ac_tbl], 0, sizeof(ac_stats_[0]));
+  }
+  // jdinput.c per_scan_setup: an interleaved MCU of at most 10 blocks
+  blocks_in_mcu_ = 0;
+  for (int i = 0; i < scan_n_; i++)
+    blocks_in_mcu_ += comp_[scan_comp_[i]].h * comp_[scan_comp_[i]].v;
+  if (scan_n_ > 1 && blocks_in_mcu_ > 10)
+    throw Error{"JPEG: an MCU of " + std::to_string(blocks_in_mcu_) +
+                " blocks: PIL refuses it (libjpeg: \"Sampling factors too "
+                "large for interleaved scan\")"};
+  ar_c_ = ar_a_ = 0;
+  ar_ct_ = -16;
   eobrun_ = 0;
   reset_bits();
   unread_marker_ = 0;
   insufficient_ = false;
   next_rst_ = 0;
-  // the end of PIL's read that holds the scan's first byte; a progressive
-  // scan has no fast path, so only the file's end matters there
-  if (!pil || progressive_) {
+  // the end of PIL's read that holds the scan's first byte.  A
+  // progressive or lossless Huffman scan has no fast path, and suspends
+  // and resumes alike wherever a read ends, so only the file's end
+  // matters there; an arithmetic-coded scan cannot suspend.
+  if (!pil || (!arith_ && (progressive_ || lossless_))) {
     limit_ = n_;
   } else {
     while (limit_ < pos_) limit_ += kPilRead;
     limit_ = std::min(limit_, n_);
   }
-  int blocks_in_mcu = 0;
-  for (int i = 0; i < scan_n_; i++)
-    blocks_in_mcu += scan_n_ == 1 ? 1 : comp_[scan_comp_[i]].h * comp_[scan_comp_[i]].v;
+  if (lossless_) {
+    decode_lossless_scan();
+    return;
+  }
+  if (arith_) {
+    no_suspend_ = pil;
+    try {
+      decode_mcus();
+    } catch (const ReadEnd &) {
+      arith_refusal();
+    } catch (const Suspend &) {
+      arith_refusal();
+    }
+    no_suspend_ = false;
+    return;
+  }
+  decode_mcus();
+}
+
+void Decoder::decode_mcus() {
+  const int blocks_in_mcu = scan_n_ == 1 ? 1 : blocks_in_mcu_;
   int restarts_left = restart_interval_;
   int64_t mcu = -1;
   // decode_mcu, from jdcoefct.c's loop over the MCUs of an iMCU row
   auto next_mcu = [&](int imcu_row, const auto &blocks) {
     mcu++;
     if (!insufficient_) last_good_row_ = imcu_row;
+    if (arith_) {
+      if (restart_interval_) {
+        if (restarts_left == 0) {
+          arith_restart();
+          restarts_left = restart_interval_;
+        }
+        restarts_left--;
+      }
+      blocks();
+      return true;
+    }
     if (restart_interval_) {
       if (restarts_left == 0) {
         if (strict_restarts) {
@@ -1054,6 +1606,10 @@ void Decoder::decode() {
                       "refuses it (libjpeg: \"Didn't expect more than one "
                       "scan\")"};
         read_sos();
+        if (scans_ == 1) {  // jpeg_start_decompress
+          colour_ = colour();
+          lossless_checks();
+        }
         decode_scan();
         if (fail_mcu >= 0) break;
         finishing = pil && !multi_scan_;
@@ -1385,9 +1941,10 @@ void Decoder::idct_plane(Component &c, std::vector<uint8_t> &plane,
 // jdsample.c: one component's (ds_h, ds_w) samples of a plane with row
 // stride `stride` -> (vmax/v * ds_h, hmax/h * ds_w) samples.  Rows above
 // the first and below the last repeat them, as jdmainct.c's context rows
-// do at the image's top and bottom.
+// do at the image's top and bottom.  Without `fancy` (a lossless file),
+// every ratio replicates.
 std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
-                              int ds_w, int ds_h, int rh, int rv,
+                              int ds_w, int ds_h, int rh, int rv, bool fancy,
                               int &out_w) {
   out_w = ds_w * rh;
   int out_h = ds_h * rv;
@@ -1396,7 +1953,7 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
     y = y < 0 ? 0 : (y >= ds_h ? ds_h - 1 : y);
     return &plane[static_cast<size_t>(y) * stride];
   };
-  if (rh == 2 && rv == 1 && ds_w > 2) {  // h2v1_fancy_upsample
+  if (fancy && rh == 2 && rv == 1 && ds_w > 2) {  // h2v1_fancy_upsample
     for (int y = 0; y < ds_h; y++) {
       const uint8_t *in = row(y);
       uint8_t *o = &out[static_cast<size_t>(y) * out_w];
@@ -1411,7 +1968,8 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
       o[2 * x] = static_cast<uint8_t>((in[x] * 3 + in[x - 1] + 1) >> 2);
       o[2 * x + 1] = in[x];
     }
-  } else if (rh == 2 && rv == 2 && ds_w > 2) {  // h2v2_fancy_upsample
+  } else if (fancy && rh == 2 && rv == 2 && ds_w > 2) {
+    // h2v2_fancy_upsample
     for (int y = 0; y < ds_h; y++)
       for (int v = 0; v < 2; v++) {
         const uint8_t *in0 = row(y);
@@ -1435,7 +1993,7 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
         o[2 * x] = static_cast<uint8_t>((this_sum * 3 + last_sum + 8) >> 4);
         o[2 * x + 1] = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
       }
-  } else if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
+  } else if (fancy && rh == 1 && rv == 2) {  // h1v2_fancy_upsample
     for (int y = 0; y < ds_h; y++)
       for (int v = 0; v < 2; v++) {
         const uint8_t *in0 = row(y);
@@ -1456,25 +2014,29 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t> &plane, int stride,
 }
 
 void Decoder::output(uint8_t *out) {
-  if (transform < 0 && ncomp == 4 && adobe_ && adobe_transform_ != 0)
-    throw Error{"JPEG: YCCK (4 components, Adobe transform " +
-                std::to_string(adobe_transform_) + ") is not supported"};
+  const int conv = colour_ >= 0 ? colour_ : colour();
   std::vector<uint8_t> planes[4];
   int widths[4];
   int latch[4][2][10];
-  bool smoothing = smoothing_ok(latch);
+  bool smoothing = !lossless_ && smoothing_ok(latch);
   for (int i = 0; i < ncomp; i++) {
     Component &c = comp_[i];
     std::vector<uint8_t> plane;
-    if (smoothing) {
+    int stride = c.blocks_w * 8;
+    if (lossless_) {  // jdlossls.c's scaler: the samples << Pt, 8 bits
+      stride = c.blocks_w;
+      plane.resize(c.samp.size());
+      for (size_t k = 0; k < plane.size(); k++)
+        plane[k] = static_cast<uint8_t>(c.samp[k] << c.pt);
+    } else if (smoothing) {
       std::vector<int16_t> smoothed(c.coef);
       smooth(c, latch[i], smoothed);
       idct_plane(c, plane, smoothed.data());
     } else {
       idct_plane(c, plane);
     }
-    planes[i] = upsample(plane, c.blocks_w * 8, c.ds_w, c.ds_h,
-                         hmax_ / c.h, vmax_ / c.v, widths[i]);
+    planes[i] = upsample(plane, stride, c.ds_w, c.ds_h, hmax_ / c.h,
+                         vmax_ / c.v, !lossless_, widths[i]);
   }
   if (ncomp == 1) {
     for (int y = 0; y < height; y++)
@@ -1482,27 +2044,6 @@ void Decoder::output(uint8_t *out) {
              &planes[0][static_cast<size_t>(y) * widths[0]], width);
     return;
   }
-  if (ncomp == 4) {
-    for (int y = 0; y < height; y++) {
-      uint8_t *o = out + static_cast<size_t>(y) * width * 4;
-      for (int k = 0; k < 4; k++) {
-        const uint8_t *p = &planes[k][static_cast<size_t>(y) * widths[k]];
-        for (int x = 0; x < width; x++)
-          o[4 * x + k] = static_cast<uint8_t>(transform == 0 ? p[x]
-                                                             : 255 - p[x]);
-      }
-    }
-    return;
-  }
-  bool rgb;  // jdapimin.c default_decompress_parms
-  if (transform >= 0)
-    rgb = transform == 0;
-  else if (jfif_)
-    rgb = false;
-  else if (adobe_)
-    rgb = adobe_transform_ == 0;
-  else
-    rgb = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
   // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
   const int kScale = 16;
   const long kHalf = 1L << (kScale - 1);
@@ -1521,23 +2062,32 @@ void Decoder::output(uint8_t *out) {
   auto clamp = [](int v) {
     return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
   };
+  // ycc_rgb_convert's R, G, B of a pixel
+  auto rgb = [&](int Y, int cb, int cr, uint8_t *o) {
+    o[0] = clamp(Y + cr_r[cr]);
+    o[1] = clamp(Y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> kScale));
+    o[2] = clamp(Y + cb_b[cb]);
+  };
+  const int nc = ncomp;
   for (int y = 0; y < height; y++) {
-    const uint8_t *p0 = &planes[0][static_cast<size_t>(y) * widths[0]];
-    const uint8_t *p1 = &planes[1][static_cast<size_t>(y) * widths[1]];
-    const uint8_t *p2 = &planes[2][static_cast<size_t>(y) * widths[2]];
-    uint8_t *o = out + static_cast<size_t>(y) * width * 3;
-    for (int x = 0; x < width; x++) {
-      int Y = p0[x], cb = p1[x], cr = p2[x];
-      if (rgb) {
-        o[3 * x] = static_cast<uint8_t>(Y);
-        o[3 * x + 1] = static_cast<uint8_t>(cb);
-        o[3 * x + 2] = static_cast<uint8_t>(cr);
-        continue;
+    const uint8_t *p[4];
+    for (int k = 0; k < nc; k++)
+      p[k] = &planes[k][static_cast<size_t>(y) * widths[k]];
+    uint8_t *o = out + static_cast<size_t>(y) * width * nc;
+    for (int x = 0; x < width; x++, o += nc) {
+      if (conv == 0) {
+        for (int k = 0; k < nc; k++) o[k] = p[k][x];
+      } else {
+        // YCbCr -> RGB; YCCK -> CMYK is 255 less that, K as stored
+        rgb(p[0][x], p[1][x], p[2][x], o);
+        if (nc == 4) {
+          for (int k = 0; k < 3; k++) o[k] = static_cast<uint8_t>(255 - o[k]);
+          o[3] = p[3][x];
+        }
       }
-      o[3 * x] = clamp(Y + cr_r[cr]);
-      o[3 * x + 1] =
-          clamp(Y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> kScale));
-      o[3 * x + 2] = clamp(Y + cb_b[cb]);
+      // PIL's "CMYK;I": the Adobe convention inverted
+      if (nc == 4 && transform < 0)
+        for (int k = 0; k < 4; k++) o[k] = static_cast<uint8_t>(255 - o[k]);
     }
   }
 }
@@ -1596,10 +2146,12 @@ extern "C" int mods_jpeg_info(const uint8_t *data, int64_t n, int32_t *info,
   return -1;
 }
 
-extern "C" int mods_jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
-                                int64_t cap, char *err, int errlen) {
+extern "C" int mods_jpeg_decode(const uint8_t *data, int64_t n, int jpegmode,
+                                uint8_t *out, int64_t cap, char *err,
+                                int errlen) {
   try {
     Decoder dec(data, static_cast<size_t>(n));
+    dec.jpegmode = jpegmode;
     dec.read_headers();
     int64_t need = static_cast<int64_t>(dec.width) * dec.height * dec.ncomp;
     if (need > cap) throw Error{"JPEG: the output buffer is too small"};

@@ -159,7 +159,8 @@ def _jpeg_rgb(f: _Reader, offsets, lengths, path) -> bytes:
     if w * h > 2 * tiff._MAX_PIXELS:
         raise ValueError(f"{path}: a BLP1 JPEG of {w}x{h} pixels: PIL "
                          f"refuses it (a decompression bomb)")
-    a = image._read_jpeg(stream, path).astype(np.int32)
+    # BlpImagePlugin: a CMYK stream's tile says jpegmode "CMYK"
+    a = image._read_jpeg(stream, path, cmyk=True).astype(np.int32)
     if a.ndim == 2:
         a = np.repeat(a[..., None], 3, -1)
     elif a.shape[2] == 4:                       # Convert.c's cmyk2rgb

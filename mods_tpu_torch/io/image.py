@@ -23,10 +23,12 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
     white or the gray ramp; 16-bit 5-5-5 and 5-6-5 as RGB (each field
     scaled by 255 / its maximum, truncated); 24-bit and 32-bit (its
     fourth byte dropped unless a mask names alpha);
-  - JPEG, baseline and progressive, gray, YCbCr, RGB and CMYK (Adobe
-    transform 0, inverted as PIL inverts it), by ``csrc/jpeg_decode.cpp``
-    (libjpeg-turbo's default decode, which PIL runs), built with g++ at
-    first use into ``mods_tpu_torch/_build/native/<machine>/``;
+  - JPEG, baseline, progressive and lossless, Huffman- or
+    arithmetic-coded, gray, YCbCr, RGB, CMYK (Adobe transform 0) and
+    YCCK (any other transform), CMYK inverted as PIL inverts it, by
+    ``csrc/jpeg_decode.cpp`` (libjpeg-turbo's default decode, which PIL
+    runs), built with g++ at first use into
+    ``mods_tpu_torch/_build/native/<machine>/``;
   - TIFF and little-endian BigTIFF (PIL's TiffImagePlugin, libtiff for
     the compressed files), the first page, by ``io/tiff.py``: every mode
     of PIL's OPEN_INFO (both byte orders, both fill orders, 1- to 32-bit
@@ -78,9 +80,11 @@ itself, with numpy, zlib and ctypes, and returns what PIL returns:
   ``ValueError`` naming the format, as do the variants the readers leave
   out (a VP8 inter frame,
   which PIL refuses too, and the TIFF compressions WebP, JBIG and JPEG
-  2000, among them) and the files that PIL refuses (SGILog TIFFs and the
-  JPEG 2000 files that OpenJPEG or Pillow fail on among them, with PIL's
-  reason).
+  2000, among them) and the files that PIL refuses (SGILog TIFFs, the
+  JPEG 2000 files that OpenJPEG or Pillow fail on, hierarchical,
+  arithmetic-coded lossless and 12-bit JPEGs, lossless JPEGs that name
+  YCbCr or YCCK, arithmetic-coded data past PIL's reads among them,
+  with PIL's reason).
 * ``image_size(path)``: ``Image.open(path).size``, (width, height), from
   the header.
 * ``save_image(path, array)``: the format that the extension names, as
@@ -726,8 +730,8 @@ def _jpeg_lib():
         ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
         ctypes.c_char_p, ctypes.c_int]
     lib.mods_jpeg_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_char_p, ctypes.c_int]
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
     lib.mods_jpeg_decode_tiff.restype = ctypes.c_int
     lib.mods_jpeg_decode_tiff.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
@@ -742,7 +746,10 @@ def _jpeg_lib():
     return lib
 
 
-def _read_jpeg(data: bytes, path) -> np.ndarray:
+def _read_jpeg(data: bytes, path, cmyk: bool = False) -> np.ndarray:
+    """PIL's array of the JPEG stream ``data``; ``cmyk``: a four-component
+    stream read as the tile's jpegmode "CMYK" makes libjpeg read it (no
+    YCCK conversion, whatever its Adobe marker says)."""
     _jpeg_size_of(data, path)           # JpegImageFile._open's marker walk
     lib = _jpeg_lib()
     err = ctypes.create_string_buffer(256)
@@ -751,8 +758,8 @@ def _read_jpeg(data: bytes, path) -> np.ndarray:
         raise ValueError(f"{path}: {err.value.decode()}")
     w, h, c = info[0], info[1], info[2]
     out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
-    if lib.mods_jpeg_decode(data, len(data), out.ctypes.data, out.size, err,
-                            len(err)):
+    if lib.mods_jpeg_decode(data, len(data), 0 if cmyk and c == 4 else -1,
+                            out.ctypes.data, out.size, err, len(err)):
         raise ValueError(f"{path}: {err.value.decode()}")
     return out
 

@@ -491,12 +491,14 @@ def test_planar2_wide_samples_refused(tmp_path, bits):
 
 
 def test_refusals_name_the_case(tmp_path):
-    """AVIF and YCCK JPEG: PIL reads each; HDF5: PIL opens it; SGILog TIFFs
+    """AVIF: PIL reads it; HDF5 and an arithmetic-coded lossless JPEG
+    (SOF11): PIL opens each; SGILog TIFFs
     (libtiff's LogLuvSetupDecode refuses what PIL hands it), ThunderScan
     and tiff_raw_16 TIFFs of 8-bit samples (libtiff refuses those) and
     WebP in TIFF (this libtiff lacks it): the port raises a ValueError
-    that names each.  A Zstandard TIFF of PIL's, an old-style JPEG TIFF
-    and a GIMP brush are read as PIL reads them."""
+    that names each.  A Zstandard TIFF of PIL's, an old-style JPEG TIFF,
+    a YCCK JPEG (refused here before) and a GIMP brush are read as PIL
+    reads them."""
     p = tmp_path / "z.tif"
     Image.fromarray(GRAY).save(p, compression="zstd")
     got, mode = read_image(p), Image.open(p).mode
@@ -540,8 +542,20 @@ def test_refusals_name_the_case(tmp_path):
     data[at + 11] = 2                     # Adobe transform 2: YCCK
     p = tmp_path / "ycck.jpg"
     p.write_bytes(bytes(data))
-    assert Image.open(p).mode == "CMYK" and np.asarray(Image.open(p)).size
-    with pytest.raises(ValueError, match="YCCK"):
+    assert Image.open(p).mode == "CMYK"
+    np.testing.assert_array_equal(read_image(p), np.asarray(Image.open(p)))
+    # an arithmetic-coded lossless frame (SOF11): PIL opens it, and
+    # libjpeg-turbo has no such decoder
+    f = io.BytesIO()
+    Image.fromarray(GRAY).save(f, "JPEG")
+    data = bytearray(f.getvalue())
+    data[data.index(b"\xff\xc0") + 1] = 0xCB
+    p = tmp_path / "sof11.jpg"
+    p.write_bytes(bytes(data))
+    assert Image.open(p).mode == "L"
+    with pytest.raises(OSError):
+        np.asarray(Image.open(p))
+    with pytest.raises(ValueError, match="arithmetic-coded lossless"):
         read_image(p)
 
 

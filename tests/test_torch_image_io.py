@@ -532,12 +532,15 @@ def test_fixture_hashes_are_pils():
     ("lossless", "lossless"), ("hierarchical", "hierarchical"),
     ("12bit", "12-bit"), ("ycck", "YCCK")])
 def test_jpeg_refusals_name_the_case(tmp_path, case, match):
-    """What the decoder leaves out raises a ValueError naming it; PIL still
-    reads the size from the header, and so does ``image_size`` (PIL opens
-    no 12-bit file at all).  PIL refuses the hierarchical and the 12-bit
-    file too (libjpeg-turbo's 8-bit API): those are not faults of the
-    port.  (CMYK, refused here before, is read now:
-    ``test_torch_image_formats.py::test_cmyk_jpeg``.)"""
+    """A Huffman file relabelled arithmetic-coded (SOF9, SOF10) or lossless
+    (SOF3), and a YCCK file, read as PIL reads them: the same array bit
+    for bit, or, where PIL refuses the file, a ValueError naming PIL's
+    reason (the progressive relabel's Se and the lossless relabel's Ss 0
+    are no valid scan).  The hierarchical and the 12-bit file are refused
+    by name, as PIL refuses them (libjpeg-turbo's 8-bit API); PIL reads
+    the size from the header, and so does ``image_size`` (PIL opens no
+    12-bit file at all).  (Arithmetic coding, lossless files and YCCK
+    were refused here before: ``tests/test_torch_jpeg_codings.py``.)"""
     f = io.BytesIO()
     if case == "ycck":
         Image.fromarray(RGB).convert("CMYK").save(f, "JPEG")
@@ -555,13 +558,23 @@ def test_jpeg_refusals_name_the_case(tmp_path, case, match):
                             "hierarchical": 0xC5}[case]
     p = tmp_path / "x.jpg"
     p.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match=match):
-        read_image(p)
     if case != "12bit":
         assert image_size(p) == Image.open(p).size
     if case in ("hierarchical", "12bit"):
+        with pytest.raises(ValueError, match=match):
+            read_image(p)
         with pytest.raises(OSError):
             np.asarray(Image.open(p))
+        return
+    try:
+        want = np.asarray(Image.open(p))
+    except OSError:
+        with pytest.raises(ValueError, match=f"{match}.*PIL refuses it"):
+            read_image(p)
+        return
+    got = read_image(p)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
